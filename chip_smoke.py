@@ -13,7 +13,23 @@ Phases, each of which must pass or the script exits non-zero:
      with --validate, then N=8192 with --validate --refine 4, with each
      kernel's launches counted over each run;
   6. CUDA-event times of each kernel, its plain version and one library
-     call at the main path's shapes, beside each kernel's bound.
+     call at the main path's shapes, beside each kernel's bound;
+  7. K3 (`hopper_kernels.btrsm`) against its plain version on packed LUs,
+     lower unit and upper: the serving shapes (32, 256, 256) and
+     (32, 1024, 1024) with one right-hand side per system, (32, 256, 256)
+     with 16, and a ragged n=200; with times at the first three;
+  8. K4 (`hopper_kernels.batched_lu`) against its plain version at
+     (32, 256, 256) and (32, 1024, 1024) f32, (8, 256, 256) f64, a ragged
+     (4, 200, 200) and a batch with one NaN slot: pivots equal, slot bits
+     independent of the batch, with times;
+  9. serving (a), the reference's serving shape (`bench_serve.py`): a
+     (32, 256, 256) f32 plan, v=128, factored once and served 16 rounds
+     of one right-hand side per system by `solve` and `solve_checked`;
+ 10. serving (b), the factor lane at the batched factor's N=1024 ceiling:
+     32 (1024, 1024) f32 systems through `_factor_health_fn(32)`, and
+     `plan.factor` of slot 0 bitwise slot 0 of the bucket.
+Each serving phase sets the launch counts to 0 just before it and reads
+them just after; K3 and K4 must both have launched in it.
 
 The line before the last is the kernels' JSON record, and the last line is
 {"ok": true, "device": {...}}.
@@ -39,6 +55,13 @@ PEAK_BYTES = 3.35e12
 K1_TOL_F32 = 1e-5     # relative Frobenius: only the summation order differs
 K1_TOL_BF16 = 2 ** -8  # relative Frobenius: one bf16 rounding of the f32 sum
 K2_TOL = 1e-5         # allclose atol and rtol: kernel and plain share arithmetic
+K3_TOL = 1e-5         # relative Frobenius: only the summation order differs
+# max abs error of K4's factors (entries O(1)) against the plain version:
+# f32 emulates the FMA in f64, exact but for double-rounding ties, whose
+# 1-ulp differences later updates carry; f64 rounds its update twice
+K4_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+K4_WA_TOL = 1e-5      # relative Frobenius of the probe rows wA
+SOLVE_TOL = 1e-4      # max |A x - b|, the JAX bar (tests/test_batched_trsm.py:185)
 
 
 def fail(msg: str) -> None:
@@ -238,7 +261,8 @@ def run_miniapp(argv: list[str]) -> tuple[list[str], dict]:
         if line.startswith(("_result_", "_residual_", "_solve_residual_")):
             print(f"[main]   {line}", flush=True)
     print(f"[main]   launches: {counts} (warm-up + 1 timed factorization)", flush=True)
-    check(all(n > 0 for n in counts.values()), f"a kernel never launched: {counts}")
+    check(counts["gemm"] > 0 and counts["lu_block"] > 0,
+          f"a kernel of the miniapp path never launched: {counts}")
     return lines, counts
 
 
@@ -270,6 +294,229 @@ def phase_main() -> dict:
     return counts
 
 
+def _systems(B: int, n: int, seed: int, dtype=torch.float32) -> torch.Tensor:
+    """The serve benchmark's matrix class (`bench_serve.py`): standard
+    normal / sqrt(n) + 2 I, made on the host from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+    return torch.from_numpy(A).to("cuda", dtype)
+
+
+def _btrsm_bound(B: int, n: int, k: int, nb: int, bs: int, itemsize: int) -> dict:
+    """K3's bound for one lower (or upper) solve: the bytes it must move
+    are the strictly-triangular off-diagonal panels of T (it reads no
+    other part of T), Dinv, the right-hand side read once and x written
+    once; the operations are one (bs, bs) x (bs, k) product per block and
+    the panels' downdates."""
+    panel = sum(max(n - (j * bs + bs), 0) * min(bs, n - j * bs) for j in range(nb))
+    r = {}
+    _bound(r, B * 2.0 * (nb * bs * bs + panel) * k,
+           B * (panel + 2.0 * n * k + nb * bs * bs) * itemsize)
+    return r
+
+
+def phase_k3(rec: dict) -> None:
+    from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
+    from conflux_tpu_torch.ops.hopper_kernels import batched_lu, btrsm, btrsm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    # the serving shapes, (32, 256, 256) and (32, 1024, 1024) with one
+    # right-hand side per system, then 16 columns and a ragged n
+    for n, k in ((256, 1), (1024, 1), (256, 16), (200, 16)):
+        LU, _perm, _ = batched_lu(_systems(32, n, n + k))  # a packed LU operand
+        b = torch.randn((32, n, k), generator=gen, device="cuda")
+        for lower in (True, False):
+            D = diag_block_inverses(LU, lower=lower, unit_diagonal=lower)
+            got = btrsm(LU, D, b, lower=lower)
+            want = btrsm_plain(LU, D, b, lower=lower)
+            torch.cuda.synchronize()
+            err = rel_fro(got, want)
+            worst = max(worst, float((got - want).abs().max()))
+            print(f"[K3] (32, {n}, {n}) k={k} {'lower unit' if lower else 'upper'}: "
+                  f"rel_fro {err:.2e} (bound {K3_TOL:g})", flush=True)
+            check(err <= K3_TOL, f"K3 n={n} k={k} lower={lower} rel_fro {err:.3e}")
+        if n % 32:
+            continue
+        D = diag_block_inverses(LU, lower=True, unit_diagonal=True)
+        ms = time_ms(lambda: btrsm(LU, D, b, lower=True), 20)
+        plain = time_ms(lambda: btrsm_plain(LU, D, b, lower=True), 5)
+        lib = time_ms(lambda: torch.linalg.solve_triangular(
+            LU, b, upper=False, unitriangular=True), 20)
+        r = _btrsm_bound(32, n, k, D.shape[1], D.shape[-1], LU.element_size())
+        print(f"[K3] times at (32, {n}, {n}) k={k}, lower unit: kernel {ms * 1e3:.1f} us, "
+              f"plain {plain * 1e3:.1f} us, torch.linalg.solve_triangular "
+              f"{lib * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})",
+              flush=True)
+        if (n, k) == (256, 1):  # serving (a)'s shape goes in the kernels line
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, **r)
+    rec["max_abs_err"] = worst
+
+
+def _lu_bound(B: int, m: int, itemsize: int) -> dict:
+    """K4's bound from the JAX kernel's cost estimate
+    (conflux_tpu/ops/pallas_factor.py:241-245), over the f32 peaks."""
+    r = {}
+    _bound(r, B * (2 * m ** 3 / 3 + 2 * m * m), B * (2 * m * m + 2 * m) * itemsize)
+    return r
+
+
+def phase_k4(rec: dict) -> None:
+    from conflux_tpu_torch.ops.hopper_kernels import batched_lu, batched_lu_plain
+
+    for B, n, dtype in ((32, 256, torch.float32), (32, 1024, torch.float32),
+                        (8, 256, torch.float64), (4, 200, torch.float32)):
+        A = _systems(B, n, 100 + n + B, dtype)
+        w = torch.where(torch.rand(n, device="cuda") < 0.5, -1.0, 1.0).to(dtype)
+        LU, perm, wa = batched_lu(A, w)
+        LUp, permp, wap = batched_lu_plain(A, w)
+        torch.cuda.synchronize()
+        same_piv = torch.equal(perm, permp)
+        err = float((LU - LUp).abs().max())
+        wa_err = rel_fro(wa, wap)
+        # slot i of a B=1 launch is slot i of the batch, bit for bit
+        alone = all(torch.equal(batched_lu(A[i:i + 1], w)[0][0], LU[i])
+                    for i in (0, B - 1))
+        name = str(dtype).removeprefix("torch.")
+        print(f"[K4] ({B}, {n}, {n}) {name}: pivots equal {same_piv}, max_abs {err:.2e} "
+              f"(bound {K4_TOL[dtype]:g}), wA rel_fro {wa_err:.2e}, B=1 slots bitwise "
+              f"{alone}", flush=True)
+        check(same_piv and err <= K4_TOL[dtype] and wa_err <= K4_WA_TOL and alone,
+              f"K4 ({B}, {n}, {n}) {name}")
+        if (B, n, dtype) == (32, 256, torch.float32):
+            rec["max_abs_err"] = err
+        if dtype == torch.float32 and B == 32:
+            ms = time_ms(lambda: batched_lu(A, w), 10)
+            plain = time_ms(lambda: batched_lu_plain(A, w), 1)
+            lib = time_ms(lambda: torch.linalg.lu_factor(A), 10)
+            r = _lu_bound(B, n, 4)
+            print(f"[K4] times at ({B}, {n}, {n}): kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                  f"torch.linalg.lu_factor {lib:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us "
+                  f"({r['bound_by']})", flush=True)
+            if n == 256:
+                rec.update(ms=ms, plain_ms=plain, library_ms=lib, **r)
+        del A, LU, LUp
+    # a NaN-poisoned slot comes out non-finite alone; its neighbours keep
+    # their bits and no pivot leaves the range
+    A = _systems(32, 256, 7)
+    bad = A.clone()
+    bad[5] = float("nan")
+    LU, perm, _ = batched_lu(A)
+    LUn, permn, _ = batched_lu(bad)
+    LUp, permp, _ = batched_lu_plain(bad)
+    keep = [i for i in range(32) if i != 5]
+    ok = (torch.equal(LUn[keep], LU[keep]) and torch.equal(permn[keep], perm[keep])
+          and not bool(torch.isfinite(LUn[5]).any()) and torch.equal(permn, permp)
+          and bool(((permn[5] >= 0) & (permn[5] < 256)).all()))
+    print(f"[K4] NaN slot: poisoned alone, neighbours bitwise, pivots equal: {ok}", flush=True)
+    check(ok, "K4 NaN slot")
+
+
+def _lu_residuals(A: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """||A[perm] - L U||_F / ||A||_F per system, in float64 on the card."""
+    n = LU.shape[-1]
+    LUd = LU.double()
+    L = torch.tril(LUd, -1) + torch.eye(n, dtype=torch.float64, device=LU.device)
+    Ap = torch.gather(A.double(), 1, perm[:, :, None].expand(-1, -1, n))
+    R = Ap - L @ torch.triu(LUd)
+    return torch.linalg.norm(R, dim=(1, 2)) / torch.linalg.norm(A.double(), dim=(1, 2))
+
+
+def _serve_counts(fn):
+    """Run fn with every launch count set to 0 just before it; return its
+    result and the counts read just after."""
+    from conflux_tpu_torch.ops import hopper_kernels
+
+    hopper_kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(hopper_kernels.LAUNCHES)
+
+
+def phase_serve_a() -> dict:
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.validation import residual_bound
+
+    B, n, rounds = 32, 256, 16
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((B, n, n), torch.float32, v=128)
+    A = _systems(B, n, 0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rhs = [torch.randn((B, n), generator=gen, device="cuda") for _ in range(rounds)]
+
+    def drive():
+        s = plan.factor(A)
+        xs = [s.solve(b) for b in rhs]
+        checked = [s.solve_checked(b) for b in rhs]
+        return s, xs, checked
+
+    (s, xs, checked), counts = _serve_counts(drive)
+    print(f"[serve a] plan {plan.key.shape} {plan.key.substitution}: launches {counts}",
+          flush=True)
+    check(counts["batched_lu"] > 0 and counts["btrsm"] > 0,
+          f"serving (a) did not launch K3 and K4: {counts}")
+    LU, _Dl, _Du, perm = s.factors
+    res = float(_lu_residuals(A, LU, perm).max())
+    bar = residual_bound(n, torch.float32)
+    worst = max(float((torch.einsum("bij,bj->bi", A, x) - b).abs().max())
+                for x, b in zip(xs, rhs))
+    verdicts = torch.stack([v for _x, v in checked])
+    same = all(torch.equal(xc, x) for (xc, _v), x in zip(checked, xs))
+    print(f"[serve a] factor residual max {res:.3e} (bar {bar:.3e}); max |A x - b| "
+          f"{worst:.3e} (bar {SOLVE_TOL:g}); checked verdicts finite min "
+          f"{float(verdicts[:, 0].min()):g}, residual max {float(verdicts[:, 1].max()):.3e}; "
+          f"checked answers equal the plain ones {same}", flush=True)
+    check(res <= bar, f"serving (a) factor residual {res:.3e}")
+    check(worst < SOLVE_TOL, f"serving (a) max |A x - b| {worst:.3e}")
+    check(bool((verdicts[:, 0] == 1.0).all()) and float(verdicts[:, 1].max()) < SOLVE_TOL,
+          "serving (a) checked verdicts")
+    check(same, "serving (a) solve_checked answers differ from solve")
+    fac_ms = time_ms(lambda: plan.factor(A), 5)
+    t0 = time.perf_counter()
+    for b in rhs:
+        s.solve(b)
+    torch.cuda.synchronize()
+    solve_us = (time.perf_counter() - t0) / rounds * 1e6
+    t0 = time.perf_counter()
+    for b in rhs:
+        s.solve_checked(b)
+    torch.cuda.synchronize()
+    checked_us = (time.perf_counter() - t0) / rounds * 1e6
+    print(f"[serve a] {fac_ms:.3f} ms per factor (CUDA events, 5 calls); {solve_us:.1f} us "
+          f"per solve round, {checked_us:.1f} us per checked round (host clock, {rounds} "
+          "rounds, one synchronize)", flush=True)
+    return counts
+
+
+def phase_serve_b() -> dict:
+    from conflux_tpu_torch import serve
+
+    bb, n = 32, 1024
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=128)
+    A = _systems(bb, n, 1)
+    (F, wA, verdict), counts = _serve_counts(lambda: plan._factor_health_fn(bb)(A))
+    print(f"[serve b] plan {plan.key.shape}, bucket {bb}: launches {counts}", flush=True)
+    check(counts["batched_lu"] > 0 and counts["btrsm"] > 0,
+          f"serving (b) did not launch K3 and K4: {counts}")
+    # HealthPolicy's default bar in the JAX package: 1e4 eps sqrt(N)
+    limit = 1e4 * torch.finfo(torch.float32).eps * math.sqrt(n)
+    clean = bool((verdict[0] == 1.0).all()) and float(verdict[1].max()) <= limit
+    s = plan.factor(A[0])
+    bitwise = all(torch.equal(got[0], ref) for got, ref in zip(F, s.factors))
+    print(f"[serve b] verdicts clean {clean} (residual max {float(verdict[1].max()):.3e}, "
+          f"limit {limit:.3e}); plan.factor slot 0 bitwise the bucket's {bitwise}",
+          flush=True)
+    check(clean, "serving (b) verdicts")
+    check(bitwise, "serving (b) plan.factor is not bitwise slot 0 of the bucket")
+    ms = time_ms(lambda: plan._factor_health_fn(bb)(A), 3)
+    print(f"[serve b] {ms:.3f} ms per coalesced checked factor of {bb} systems", flush=True)
+    del F, wA, s
+    return counts
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -292,9 +539,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts = phase_main()
     k1["launches"], k2["launches"] = counts["gemm"], counts["lu_block"]
+    k3 = {"name": "btrsm", "route": "cuda",
+          "source": "conflux_tpu_torch/ops/csrc/btrsm.cu",
+          "replaces": "conflux_tpu/ops/batched_trsm.py:305"}
+    k4 = {"name": "batched_lu", "route": "cuda",
+          "source": "conflux_tpu_torch/ops/csrc/batched_lu.cu",
+          "replaces": "conflux_tpu/ops/pallas_factor.py:214"}
+    phase_k3(k3)
+    phase_k4(k4)
+    torch.cuda.empty_cache()
+    ca = phase_serve_a()
+    cb = phase_serve_b()
+    k3["launches"] = ca["btrsm"] + cb["btrsm"]
+    k4["launches"] = ca["batched_lu"] + cb["batched_lu"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2)]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3, k4)]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -9,7 +9,9 @@ card unless the caller asks for the CPU (`device="cpu"`), where the
 kernels' plain PyTorch versions run instead.
 
 Ported so far: the single-device LU factorization path of the
-`conflux_miniapp` CLI (`lu_factor_blocked`, `lu_solve`, validation).
+`conflux_miniapp` CLI (`lu_factor_blocked`, `lu_solve`, validation), and the
+LU serving core (`FactorPlan` -> `SolveSession`, `serve.py`) with the
+batched factor and blocked triangular-solve kernels.
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_grid
@@ -28,6 +30,8 @@ def __getattr__(name):
         "lu_residual_device": (
             "conflux_tpu_torch.validation", "lu_residual_device"),
         "resolve_device": ("conflux_tpu_torch.device", "resolve_device"),
+        "FactorPlan": ("conflux_tpu_torch.serve", "FactorPlan"),
+        "SolveSession": ("conflux_tpu_torch.serve", "SolveSession"),
     }
     if name in _lazy:
         import importlib
@@ -50,4 +54,6 @@ __all__ = [
     "lu_residual",
     "lu_residual_device",
     "resolve_device",
+    "FactorPlan",
+    "SolveSession",
 ]

@@ -7,6 +7,8 @@ _LAZY = {
     "trsm_left_lower_unit": "blas",
     "trsm_right_upper": "blas",
     "panel_lu": "blas",
+    "blocked_trsm": "blas",
+    "batched_lu_factor": "blas",
     "set_backend": "blas",
     "get_backend": "blas",
     "set_panel_algo": "blas",

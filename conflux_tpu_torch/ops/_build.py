@@ -102,6 +102,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.conflux_lu_block.restype = i
     lib.conflux_lu_block_ctas.argtypes = [i]
     lib.conflux_lu_block_ctas.restype = i
+    lib.conflux_btrsm.argtypes = [
+        i, i, i,  # dtype code, device, batch
+        i, i, i, i, i, i,  # n, nb, bs, k, kt, lower
+        p, p, p, p,  # t, dinv, b, x
+        p]  # stream
+    lib.conflux_btrsm.restype = i
+    lib.conflux_batched_lu.argtypes = [
+        i, i, i, i,  # dtype code, device, batch, n
+        p, p, p,  # a, out, piv
+        p, p,  # w, wa (both may be NULL)
+        p]  # stream
+    lib.conflux_batched_lu.restype = i
 
 
 def load() -> ctypes.CDLL:

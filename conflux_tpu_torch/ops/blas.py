@@ -39,9 +39,20 @@ _DEFERRED_PANEL_ALGOS = ("auto", "partial", "tournament")
 
 def set_backend(name: str) -> None:
     global _BACKEND
+    _BACKEND = check_backend(name)
+
+
+def check_backend(name: str) -> str:
+    """Validate a `backend=` name. The JAX package's "xla" backend runs
+    library routes (a vmapped `lax.linalg.lu`, XLA's block loop) that are
+    not ported yet: it raises NotImplementedError."""
+    if name == "xla":
+        raise NotImplementedError(
+            "backend 'xla' runs the library routes and is not ported yet; "
+            f"the port has {_VALID_BACKENDS}")
     if name not in _VALID_BACKENDS:
         raise ValueError(f"unknown backend {name!r}; valid: {_VALID_BACKENDS}")
-    _BACKEND = name
+    return name
 
 
 def get_backend() -> str:
@@ -81,9 +92,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     (which may be `c`); inputs keep their dtype (float32, or bfloat16 with
     f32 accumulation).
     """
-    backend = _BACKEND if backend is None else backend
-    if backend not in _VALID_BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; valid: {_VALID_BACKENDS}")
+    check_backend(_BACKEND if backend is None else backend)
     return hopper_kernels.gemm(a, b, c, alpha, beta, out=out)
 
 
@@ -116,6 +125,33 @@ def trsm_right_upper(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def trsm_left_upper(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve U X = B with U upper triangular (LU back-substitution)."""
     return torch.linalg.solve_triangular(U, B, upper=True, left=True)
+
+
+def blocked_trsm(T: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
+                 unit_diagonal: bool = False, dinv=None,
+                 block_size: int | None = None,
+                 backend: str | None = None) -> torch.Tensor:
+    """Blocked batched triangular solve through diagonal-block inverses
+    (`ops.batched_trsm`): T is (n, n) or (B, n, n), packed factors fine; a
+    batched operand runs the K3 kernel (`hopper_kernels.btrsm`)."""
+    from conflux_tpu_torch.ops import batched_trsm
+
+    return batched_trsm.blocked_trsm(
+        T, B, lower=lower, unit_diagonal=unit_diagonal, dinv=dinv,
+        block_size=block_size, backend=backend)
+
+
+def batched_lu_factor(A: torch.Tensor, *, probe_w=None,
+                      backend: str | None = None):
+    """Batched pivoted LU of (B, n, n) systems: the serve plans' factor.
+    Backend "kernel" runs the K4 kernel (`ops.batched_factor`); the JAX
+    package's "xla" route (a vmapped library LU) is not ported and raises.
+    Returns (LU, perm), or (LU, perm, wA) with the probe row wA = w^T A
+    when `probe_w` is given."""
+    check_backend(_BACKEND if backend is None else backend)
+    from conflux_tpu_torch.ops import batched_factor
+
+    return batched_factor.kernel_lu_factor_batched(A, probe_w=probe_w)
 
 
 # --------------------------------------------------------------------------- #

@@ -7,10 +7,16 @@ is CUDA C++ for sm_90a under `ops/csrc/`, built at first use by
 - `gemm` (`csrc/gemm.cu`) replaces `pallas_kernels._gemm`: the trailing
   update, alpha * a @ b + beta * c with f32 accumulation;
 - `lu_block` (`csrc/lu_block.cu`) replaces `pallas_kernels._lu_block`: the
-  masked panel elimination of one (m, 128) column block.
+  masked panel elimination of one (m, 128) column block;
+- `btrsm` (`csrc/btrsm.cu`) replaces `batched_trsm._pallas_btrsm`: the
+  batched blocked triangular solve through diagonal-block inverses;
+- `batched_lu` (`csrc/batched_lu.cu`) replaces `pallas_factor._pallas_blu`:
+  the batched partial-pivot LU of the serve plans' factor, with the fused
+  probe row.
 
 Beside each kernel sits its plain PyTorch version (`gemm_plain`,
-`lu_block_plain`), the same function written with tensor ops. The dispatch
+`lu_block_plain`, `btrsm_plain`, `batched_lu_plain`), the same function
+written with tensor ops. The dispatch
 rule: a CUDA tensor goes to the kernel (or the call raises), a CPU tensor
 goes to the plain version; nothing falls back. `LAUNCHES` counts each
 kernel's launches, and only launches.
@@ -24,9 +30,10 @@ _PANEL_W = 128  # column-block width of lu_block (one TPU lane tile)
 
 # launches per kernel since the last reset_launches(), counted where the
 # kernel is launched and nowhere else
-LAUNCHES = {"gemm": 0, "lu_block": 0}
+LAUNCHES = {"gemm": 0, "lu_block": 0, "btrsm": 0, "batched_lu": 0}
 
 _GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_F32_F64 = {torch.float32: 0, torch.float64: 1}
 
 
 def reset_launches() -> None:
@@ -187,3 +194,194 @@ def lu_block(a: torch.Tensor, alive: torch.Tensor):
         raise RuntimeError(f"lu_block kernel launch failed: cudaError {rc}")
     LAUNCHES["lu_block"] += 1
     return out, alive_out[:, None], piv
+
+
+# --------------------------------------------------------------------------- #
+# K3: batched blocked triangular solve
+# --------------------------------------------------------------------------- #
+
+_BTRSM_KT = 16  # right-hand-side columns per CTA
+_SMEM_MAX = 227 * 1024  # dynamic shared memory one H100 CTA may use
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _check_btrsm(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor) -> None:
+    if T.dim() != 3 or T.shape[-1] != T.shape[-2]:
+        raise ValueError(f"btrsm takes T (B, n, n), got {tuple(T.shape)}")
+    B, n = T.shape[0], T.shape[-1]
+    if dinv.dim() != 4 or dinv.shape[0] != B or dinv.shape[-1] != dinv.shape[-2] \
+            or dinv.shape[1] != -(-n // dinv.shape[-1]):
+        raise ValueError(f"dinv {tuple(dinv.shape)} is not the (B, nb, bs, bs) "
+                         f"diagonal-block stack of T {tuple(T.shape)}")
+    if b.dim() != 3 or tuple(b.shape[:2]) != (B, n):
+        raise ValueError(f"rhs {tuple(b.shape)} does not match T {tuple(T.shape)}")
+
+
+def btrsm_plain(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
+                lower: bool = True) -> torch.Tensor:
+    """The plain version of :func:`btrsm`: the same block steps with
+    tensor ops, in the accumulation dtype promote(T.dtype, f32). Leading
+    axes of T (..., n, n), dinv (..., nb, bs, bs) and b (..., n, k) are
+    batch axes. Per step j: x_j = Dinv_j r_j, then the rows not yet
+    solved are downdated by T's j-block panel, so only the strictly-lower
+    (lower) or strictly-upper (upper) panels are read and a packed LU
+    needs no masking. Pad rows of a ragged n are zero and pad columns of T
+    are never read, which is the result of an identity-extended T. This is
+    also the port's block loop (`batched_trsm.blocked_solve`)."""
+    n, k = b.shape[-2:]
+    nb, bs = dinv.shape[-3], dinv.shape[-1]
+    acc = _acc_dtype(T.dtype)
+    Tc, Dc = T.to(acc), dinv.to(acc)
+    rest = b.to(acc, copy=True)  # downdated in place below
+    if nb * bs != n:
+        rest = torch.cat([rest, rest.new_zeros(rest.shape[:-2] + (nb * bs - n, k))], -2)
+    xs = [None] * nb
+    for s in range(nb):
+        j = s if lower else nb - 1 - s
+        j0 = j * bs
+        xj = torch.matmul(Dc[..., j, :, :], rest[..., j0:j0 + bs, :])
+        xs[j] = xj
+        lo, hi = (j0 + bs, n) if lower else (0, j0)
+        if hi > lo:
+            q = min(bs, n - j0)
+            rest[..., lo:hi, :] -= torch.matmul(Tc[..., lo:hi, j0:j0 + q], xj[..., :q, :])
+    return torch.cat(xs, -2)[..., :n, :].to(b.dtype)
+
+
+def btrsm(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
+          lower: bool = True) -> torch.Tensor:
+    """Solve T x = b for a batch of triangles through their diagonal-block
+    inverses: T (B, n, n) (a packed LU is fine: the other triangle is never
+    read), dinv (B, nb, bs, bs) from `batched_trsm.diag_block_inverses`,
+    b (B, n, k). Accumulates in promote(T.dtype, f32); returns x (B, n, k)
+    in b.dtype."""
+    _check_btrsm(T, dinv, b)
+    if T.device.type == "cpu":
+        return btrsm_plain(T, dinv, b, lower)
+    if T.device.type != "cuda":
+        raise ValueError(f"btrsm runs on cuda or cpu tensors, got {T.device}")
+    acc = _acc_dtype(T.dtype)
+    if acc not in _F32_F64:
+        raise ValueError(f"btrsm accumulates in float32 or float64, got {acc}")
+    B, n, k = b.shape
+    nb, bs = dinv.shape[1], dinv.shape[-1]
+    Tc, Dc, bc = (x.to(acc).contiguous() for x in (T, dinv, b))
+    x = torch.empty((B, n, k), dtype=acc, device=T.device)
+    if B == 0 or k == 0:
+        return x.to(b.dtype)
+    row_bytes = (nb * bs + bs) * Tc.element_size()
+    kt = min(k, _BTRSM_KT, _SMEM_MAX // row_bytes)
+    if kt < 1:
+        raise ValueError(f"btrsm: n={n} {acc} does not fit one CTA's shared memory")
+    from conflux_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rc = lib.conflux_btrsm(
+        _F32_F64[acc], T.device.index or 0, B, n, nb, bs, k, kt, int(lower),
+        Tc.data_ptr(), Dc.data_ptr(), bc.data_ptr(), x.data_ptr(), _stream(T))
+    if rc != 0:
+        raise RuntimeError(f"btrsm kernel launch failed: cudaError {rc}")
+    LAUNCHES["btrsm"] += 1
+    return x.to(b.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# K4: batched partial-pivot LU
+# --------------------------------------------------------------------------- #
+
+
+def _check_batched_lu(A: torch.Tensor, w: torch.Tensor | None) -> None:
+    if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"batched_lu takes (B, N, N), got {tuple(A.shape)}")
+    if A.dtype not in _F32_F64:
+        raise ValueError(f"batched_lu takes float32 or float64, got {A.dtype}")
+    if w is not None and tuple(w.shape) != (A.shape[-1],):
+        raise ValueError(f"probe w {tuple(w.shape)}, need ({A.shape[-1]},)")
+
+
+def _lapack_order(out: torch.Tensor, piv: torch.Tensor):
+    """Rows into LAPACK order, outside the kernel: position k takes the
+    step-k pivot row (square elimination freezes every row once)."""
+    perm = piv.long()
+    LU = torch.gather(out, 1, perm[:, :, None].expand(-1, -1, out.shape[-1]))
+    return LU, perm
+
+
+def batched_lu_plain(A: torch.Tensor, w: torch.Tensor | None = None):
+    """The plain version of :func:`batched_lu`, column by column with
+    tensor ops and the kernel's arithmetic: the pivot is the live row with
+    the largest |a| (ties to the smallest row, NaN below every number), the
+    multiplier an IEEE division, the update one fused multiply-add per
+    element. For float32 the FMA is computed in float64, where the product
+    of two floats is exact, and rounded once (equal to the fused result
+    except on a double-rounding tie); float64 has no wider type, so there
+    the update rounds twice."""
+    B, n, _ = A.shape
+    X = A.clone()
+    dev = A.device
+    rows = torch.arange(n, device=dev)
+    slots = torch.arange(B, device=dev)
+    live = torch.ones((B, n), dtype=torch.bool, device=dev)
+    wide = torch.float64 if A.dtype == torch.float32 else None
+    pivs = []
+    for j in range(n):
+        col = X[:, :, j]
+        score = col.abs()
+        score = torch.where(torch.isnan(score), -1.0, score)
+        score = torch.where(live, score, -2.0)
+        best = score.max(dim=1, keepdim=True).values
+        p = torch.where(score == best, rows, n).min(dim=1).values
+        pivs.append(p)
+        prow = X[slots, p]  # (B, n)
+        live[slots, p] = False
+        lmul = col / prow[:, j:j + 1]
+        tail = X[:, :, j + 1:]
+        if wide is not None:
+            upd = (tail.to(wide) - lmul.to(wide)[:, :, None]
+                   * prow[:, None, j + 1:].to(wide)).to(A.dtype)
+        else:
+            upd = tail - lmul[:, :, None] * prow[:, None, j + 1:]
+        X[:, :, j + 1:] = torch.where(live[:, :, None], upd, tail)
+        X[:, :, j] = torch.where(live, lmul, col)
+    LU, perm = _lapack_order(X, torch.stack(pivs, 1))
+    wa = None if w is None else torch.matmul(w.to(A.dtype), A)
+    return LU, perm, wa
+
+
+def batched_lu(A: torch.Tensor, w: torch.Tensor | None = None):
+    """Partial-pivot LU of each slot of a (B, N, N) float32 or float64
+    batch. Returns (LU, perm, wA): packed factors in LAPACK order with
+    A[i][perm[i]] == L_i @ U_i, perm (B, N) int64, and, when the probe
+    vector w (N,) is given, wA (B, N) = w^T A_i off the untouched input
+    (else None). Each slot's bits depend only on that slot's input."""
+    _check_batched_lu(A, w)
+    if w is not None:
+        w = w.to(A.dtype)
+    if A.device.type == "cpu":
+        return batched_lu_plain(A, w)
+    if A.device.type != "cuda":
+        raise ValueError(f"batched_lu runs on cuda or cpu tensors, got {A.device}")
+    B, n, _ = A.shape
+    dev = A.device
+    a = A.contiguous()
+    out = torch.empty_like(a)
+    piv = torch.empty((B, n), dtype=torch.int32, device=dev)
+    wa = None if w is None else torch.empty((B, n), dtype=A.dtype, device=dev)
+    if B == 0 or n == 0:
+        return out, piv.long(), wa
+    w = None if w is None else w.to(dev).contiguous()
+    from conflux_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rc = lib.conflux_batched_lu(
+        _F32_F64[A.dtype], dev.index or 0, B, n, a.data_ptr(), out.data_ptr(),
+        piv.data_ptr(), None if w is None else w.data_ptr(),
+        None if wa is None else wa.data_ptr(), _stream(A))
+    if rc != 0:
+        raise RuntimeError(f"batched_lu kernel launch failed: cudaError {rc}")
+    LAUNCHES["batched_lu"] += 1
+    LU, perm = _lapack_order(out, piv)
+    return LU, perm, wa

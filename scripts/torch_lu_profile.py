@@ -1,12 +1,19 @@
-"""Where the time of one `conflux_tpu_torch` LU factorization goes on the card.
+"""Where the time of one `conflux_tpu_torch` LU factorization, or of one
+serving run, goes on the card.
 
     python scripts/torch_lu_profile.py [-N 32768] [-b 1024] [--out FILE.json]
+    python scripts/torch_lu_profile.py --serve a|b [--out FILE.json]
 
-Factors the miniapp's test matrix once as a warm-up, once timed with the
-host clock (tracing off), and once under `torch.profiler` (CPU and CUDA
-activity). Prints the device time of every kernel name over the traced
-factorization, the share of the kernels of this repository (K1 `gemm`, K2
-`lu_block`), the device's busy and idle shares of the traced wall time,
+Runs the work once as a warm-up, once timed with the host clock (tracing
+off), and once under `torch.profiler` (CPU and CUDA activity). The work is
+one factorization of the miniapp's test matrix, or with --serve a serving
+configuration of `chip_smoke.py`: (a) a (32, 256, 256) f32 plan factored
+once and served 16 rounds of `solve` and 16 of `solve_checked`, one
+right-hand side per system; (b) 32 (1024, 1024) f32 systems through the
+factor lane's checked bucket `_factor_health_fn(32)`. Prints the device
+time of every kernel name over the traced run, the time and launches of
+each kernel of this repository (K1 `gemm`, K2 `lu_block`, K3 `btrsm`, K4
+`batched_lu`), the device's busy and idle shares of the traced wall time,
 and the tracing overhead (traced wall minus untraced wall); with --out,
 writes the same as JSON. Needs an NVIDIA card.
 """
@@ -32,6 +39,37 @@ def _dev_time_us(evt) -> float:
     return 0.0
 
 
+def _serve_work(cfg: str):
+    """The work of serving configuration `cfg` and its label."""
+    import numpy as np
+
+    from conflux_tpu_torch import serve
+
+    rng = np.random.default_rng(0)
+
+    def systems(B, n):
+        A = rng.standard_normal((B, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+        return torch.from_numpy(A.astype(np.float32)).to("cuda")
+
+    if cfg == "a":
+        plan = serve.FactorPlan.create((32, 256, 256), torch.float32, v=128)
+        A = systems(32, 256)
+        rhs = [torch.from_numpy(rng.standard_normal((32, 256)).astype(np.float32)).to("cuda")
+               for _ in range(16)]
+
+        def run():
+            s = plan.factor(A)
+            for b in rhs:
+                s.solve(b)
+            for b in rhs:
+                s.solve_checked(b)
+        return run, "serving (a): (32, 256, 256) factor + 16 solve + 16 checked rounds"
+    plan = serve.FactorPlan.create((1024, 1024), torch.float32, v=128)
+    A = systems(32, 1024)
+    return (lambda: plan._factor_health_fn(32)(A),
+            "serving (b): 32 x (1024, 1024) through _factor_health_fn(32)")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("torch_lu_profile", description=__doc__)
     p.add_argument("-N", type=int, default=32768)
@@ -39,6 +77,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--top", type=int, default=25)
     p.add_argument("--out", default=None, help="also write the record as JSON here")
+    p.add_argument("--serve", choices=("a", "b"), default=None,
+                   help="profile serving configuration a or b instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_lu_profile needs an NVIDIA card")
@@ -52,21 +92,28 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    A = from_numpy(make_test_matrix(args.N, args.N, seed=args.seed,
-                                    dtype="float32"), "cuda")
-    lu_factor_blocked(A, args.block_size)  # warm-up: kernel build, allocator
+    if args.serve is None:
+        A = from_numpy(make_test_matrix(args.N, args.N, seed=args.seed,
+                                        dtype="float32"), "cuda")
+
+        def work():
+            lu_factor_blocked(A, args.block_size)
+        label = f"N={args.N} v={args.block_size}"
+    else:
+        work, label = _serve_work(args.serve)
+    work()  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
 
     hopper_kernels.reset_launches()
     t0 = time.perf_counter()
-    lu_factor_blocked(A, args.block_size)
+    work()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(hopper_kernels.LAUNCHES)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lu_factor_blocked(A, args.block_size)
+        work()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
 
@@ -83,19 +130,19 @@ def main(argv=None) -> int:
 
     rec = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "N": args.N, "v": args.block_size, "launches": launches,
+        "work": label, "launches": launches,
         "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
         "tracing_overhead_ms": traced_ms - wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / traced_ms,
-        "k1_gemm_ms": share("gemm_kernel"), "k2_lu_block_ms": share("lu_block_kernel"),
+        "repo_kernel_ms": {k: share(f"{k}_kernel") for k in launches},
         "kernels": kernels,
     }
     print(smi)
-    print(f"N={args.N} v={args.block_size}: {wall_ms:.1f} ms untraced, {traced_ms:.1f} ms "
-          f"traced; device busy {busy_ms:.1f} ms (idle {100 * rec['device_idle_share']:.1f}%)")
-    print(f"K1 gemm {rec['k1_gemm_ms']:.1f} ms over {launches['gemm']} launches; "
-          f"K2 lu_block {rec['k2_lu_block_ms']:.1f} ms over {launches['lu_block']} launches")
+    print(f"{label}: {wall_ms:.3f} ms untraced, {traced_ms:.3f} ms traced; device busy "
+          f"{busy_ms:.3f} ms (idle {100 * rec['device_idle_share']:.1f}%)")
+    print("; ".join(f"{k} {ms:.3f} ms over {launches[k]} launches"
+                    for k, ms in rec["repo_kernel_ms"].items()))
     print(f"{'device ms':>10} {'calls':>7}  kernel")
     for k in kernels[:args.top]:
         print(f"{k['device_ms']:>10.2f} {k['calls']:>7}  {k['name'][:110]}")

@@ -93,3 +93,103 @@ def test_lu_factor_blocked_cuda_matches_cpu(cuda, N, v):
     assert float(diff) <= 1e-4
     res = lu_residual_device(torch.from_numpy(A).to(cuda), LU_g, perm_g)
     assert res < residual_bound(N, np.float32)
+
+
+def _systems(B, n, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+    return torch.from_numpy(A).to(device, dtype)
+
+
+@pytest.mark.parametrize("B,n,k", [(32, 256, 16), (4, 200, 3), (2, 1024, 1), (3, 48, 40)])
+@pytest.mark.parametrize("lower", [True, False])
+def test_btrsm_kernel_matches_plain(cuda, B, n, k, lower):
+    from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
+
+    T = _systems(B, n, n + k, cuda)  # a packed operand: both triangles hold data
+    D = diag_block_inverses(T, lower=lower, unit_diagonal=lower)
+    b = _rand((B, n, k), 9, cuda)
+    before = hk.LAUNCHES["btrsm"]
+    got = hk.btrsm(T, D, b, lower=lower)
+    assert hk.LAUNCHES["btrsm"] == before + 1
+    want = hk.btrsm_plain(T, D, b, lower=lower)
+    # f32 sums in another order: relative Frobenius 1e-5
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-5
+
+
+@pytest.mark.parametrize("B,n,dtype", [(32, 256, torch.float32), (4, 200, torch.float32),
+                                       (2, 1024, torch.float32), (8, 256, torch.float64)])
+def test_batched_lu_kernel_matches_plain(cuda, B, n, dtype):
+    A = _systems(B, n, n + B, cuda, dtype)
+    w = torch.from_numpy(np.sign(np.random.default_rng(1).standard_normal(n))).to(cuda, dtype)
+    before = hk.LAUNCHES["batched_lu"]
+    LU, perm, wa = hk.batched_lu(A, w)
+    assert hk.LAUNCHES["batched_lu"] == before + 1
+    LU_p, perm_p, wa_p = hk.batched_lu_plain(A, w)
+    assert torch.equal(perm, perm_p)
+    # f32: the plain version's FMA is exact but for double-rounding ties;
+    # f64 rounds its update twice, the kernel once
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(LU, LU_p, rtol=tol, atol=tol)
+    assert float(torch.linalg.norm(wa - wa_p) / torch.linalg.norm(wa_p)) <= 1e-5
+
+
+def test_batched_lu_kernel_slots_are_independent(cuda):
+    A = _systems(32, 256, 5, cuda)
+    LU32, p32, _ = hk.batched_lu(A)
+    bad = A.clone()
+    bad[3] = float("nan")
+    LUn, pn, _ = hk.batched_lu(bad)
+    for i in (0, 5, 31):
+        LU1, p1, _ = hk.batched_lu(A[i:i + 1])
+        assert torch.equal(LU1[0], LU32[i]) and torch.equal(p1[0], p32[i])
+    keep = [i for i in range(32) if i != 3]
+    assert torch.equal(LUn[keep], LU32[keep]) and torch.equal(pn[keep], p32[keep])
+    assert not torch.isfinite(LUn[3]).all()
+    assert bool(((pn[3] >= 0) & (pn[3] < 256)).all())
+
+
+def test_serve_bucket_is_bitwise_plan_factor(cuda):
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((256, 256), torch.float32, v=128)
+    A = _systems(8, 256, 11, cuda)
+    F, wA, verdict = plan._factor_health_fn(8)(A)
+    assert bool((verdict[0] == 1.0).all()) and float(verdict[1].max()) < 1e-3
+    for i in (0, 7):
+        s = plan.factor(A[i])
+        for got, ref in zip(F, s.factors):
+            assert torch.equal(got[i], ref)
+    b = _rand((256, 3), 12, cuda)
+    x = s.solve(b)
+    assert float((A[7] @ x - b).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("substitution", ["blocked", "inv"])
+@pytest.mark.parametrize("bb", [2, 32])
+def test_serve_factor_epilogue_is_bucket_invariant(cuda, substitution, bb):
+    """The factor epilogue's batched library solves (the Dinv blocks, or
+    the full inverses) run on the whole bucket: slot i's factors are bit
+    for bit those of `plan.factor` alone, whatever the bucket size."""
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((256, 256), torch.float32, v=128,
+                                   substitution=substitution)
+    A = _systems(bb, 256, 20 + bb, cuda)
+    F = plan._stacked_factor_fn(bb)(A)
+    for i in (0, bb - 1):
+        for got, ref in zip(F, plan.factor(A[i]).factors):
+            assert torch.equal(got[i], ref)
+
+
+def test_single_triangle_blocked_trsm_launches_k3(cuda):
+    from conflux_tpu_torch.ops.batched_trsm import blocked_trsm
+
+    T = _systems(2, 200, 31, cuda)
+    b = _rand((2, 200, 3), 32, cuda)
+    before = hk.LAUNCHES["btrsm"]
+    x1 = blocked_trsm(T[1], b[1], lower=False)
+    assert hk.LAUNCHES["btrsm"] == before + 1
+    torch.testing.assert_close(x1, blocked_trsm(T, b, lower=False)[1], rtol=1e-5, atol=1e-6)
