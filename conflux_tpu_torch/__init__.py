@@ -9,9 +9,11 @@ card unless the caller asks for the CPU (`device="cpu"`), where the
 kernels' plain PyTorch versions run instead.
 
 Ported so far: the single-device LU factorization path of the
-`conflux_miniapp` CLI (`lu_factor_blocked`, `lu_solve`, validation), and the
-LU serving core (`FactorPlan` -> `SolveSession`, `serve.py`) with the
-batched factor and blocked triangular-solve kernels.
+`conflux_miniapp` CLI (`lu_factor_blocked`, `lu_solve`, validation), the
+single-device Cholesky path of the `cholesky_miniapp` CLI
+(`cholesky_blocked`, `cholesky_solve`), and the serving core (`FactorPlan`
+-> `SolveSession`, `serve.py`) for LU and SPD plans with the batched factor
+and blocked triangular-solve kernels.
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_grid
@@ -24,11 +26,16 @@ def __getattr__(name):
         "unpack_lu": ("conflux_tpu_torch.lu.single", "unpack_lu"),
         "from_numpy": ("conflux_tpu_torch.lu.single", "from_numpy"),
         "state_from_numpy": ("conflux_tpu_torch.lu.single", "state_from_numpy"),
+        "cholesky_blocked": ("conflux_tpu_torch.cholesky.single", "cholesky_blocked"),
         "lu_solve": ("conflux_tpu_torch.solvers", "lu_solve"),
+        "cholesky_solve": ("conflux_tpu_torch.solvers", "cholesky_solve"),
         "refine_classic": ("conflux_tpu_torch.solvers", "refine_classic"),
         "lu_residual": ("conflux_tpu_torch.validation", "lu_residual"),
         "lu_residual_device": (
             "conflux_tpu_torch.validation", "lu_residual_device"),
+        "cholesky_residual": ("conflux_tpu_torch.validation", "cholesky_residual"),
+        "cholesky_residual_device": (
+            "conflux_tpu_torch.validation", "cholesky_residual_device"),
         "resolve_device": ("conflux_tpu_torch.device", "resolve_device"),
         "FactorPlan": ("conflux_tpu_torch.serve", "FactorPlan"),
         "SolveSession": ("conflux_tpu_torch.serve", "SolveSession"),
@@ -49,10 +56,14 @@ __all__ = [
     "unpack_lu",
     "from_numpy",
     "state_from_numpy",
+    "cholesky_blocked",
     "lu_solve",
+    "cholesky_solve",
     "refine_classic",
     "lu_residual",
     "lu_residual_device",
+    "cholesky_residual",
+    "cholesky_residual_device",
     "resolve_device",
     "FactorPlan",
     "SolveSession",

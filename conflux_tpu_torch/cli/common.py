@@ -19,8 +19,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
         "one); cpu runs the kernels' plain PyTorch versions")
     p.add_argument(
         "--dtype", default="float32", choices=["float32", "float64", "bfloat16"],
-        help="element type (float64 needs the library panel LU, not ported "
-        "yet; bfloat16 stores the matrix in bf16 with f32 panel math)")
+        help="element type (float64 is not ported yet: each miniapp's message "
+        "names what it needs; bfloat16 stores the matrix in bf16 with f32 "
+        "panel math)")
     p.add_argument("--profile", action="store_true", help="print region timings")
 
 

@@ -1,10 +1,11 @@
-"""Problem geometry: 3D grids and the LU tile geometry.
+"""Problem geometry: 3D grids, the LU tile geometry and the Cholesky tile
+geometry.
 
-The port's copy of the grid and LU-geometry half of
-`conflux_tpu/geometry.py` (the reference's `lu_params.hpp:21-138`). Pure
-host-side Python. Only the single-device route is ported, so the
-block-cyclic scatter/gather helpers stay behind with the distributed
-programs that use them.
+The port's copy of the grid, LU-geometry and Cholesky-geometry parts of
+`conflux_tpu/geometry.py` (the reference's `lu_params.hpp:21-138` and
+`CholeskyProperties`). Pure host-side Python. Only the single-device routes
+are ported, so the block-cyclic scatter/gather helpers stay behind with the
+distributed programs that use them.
 """
 
 from __future__ import annotations
@@ -76,6 +77,12 @@ def choose_grid(P: int, M: int, N: int) -> Grid3:
     return _best_grid(P, ratio)
 
 
+def choose_cholesky_grid(P: int) -> Grid3:
+    """Pick (Px, Py, Pz) for Cholesky on P devices (role of the reference
+    driver's grid pick, `Cholesky.cpp:76-114`, generalized to any P)."""
+    return _best_grid(P, 1.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class LUGeometry:
     """All derived sizes for an LU problem (the reference's `lu_params`
@@ -130,3 +137,62 @@ class LUGeometry:
     def n_steps(self) -> int:
         """Number of supersteps = number of v-wide panels to factor."""
         return min(self.Mt, self.Nt)
+
+
+# --------------------------------------------------------------------------- #
+# Cholesky geometry
+# --------------------------------------------------------------------------- #
+
+# The JAX package's constants for the tile pick: 4-byte elements and a TPU's
+# 16 GiB of memory, kept so both packages pick the same v.
+_TILE_ITEMSIZE = 4
+_TILE_MEMORY_BYTES = 16 << 30
+
+
+def choose_cholesky_tile(N: int, P: int) -> int:
+    """Tile-size heuristic for Cholesky (the JAX package's, value for
+    value, so both packages pick the same v).
+
+    The reference derives v from a memory ratio: it grows the tile until
+    the per-rank tile buffers reach a target fraction of the rank's memory
+    (`Cholesky.cpp:116-134`). v is grown from 128 while (a) the panel slab
+    (Ml x v) stays under ~1/8 of the local matrix share (~N^2/P elements),
+    and (b) at least two tile columns per device axis remain; it is capped
+    at 1024.
+    """
+    if N <= 0:
+        return max(1, N)
+    px = max(1, math.isqrt(P))
+    local_share = min(max(1, N * N // max(1, P)) * _TILE_ITEMSIZE, _TILE_MEMORY_BYTES)
+    v = 128
+    while v * 2 <= 1024:
+        nv = v * 2
+        ml = -(-N // (nv * px)) * nv  # local panel height at tile nv
+        if N // (nv * px) < 2:  # (b) keep >= 2 tile cols per device
+            break
+        if ml * nv * _TILE_ITEMSIZE * 8 > local_share:  # (a) slab <= 1/8 share
+            break
+        v = nv
+    return min(v, max(1, N))
+
+
+@dataclasses.dataclass(frozen=True)
+class CholeskyGeometry:
+    """Derived sizes for Cholesky (the reference's `CholeskyProperties`)."""
+
+    N: int  # padded global dimension
+    Nbase: int  # requested dimension before padding
+    v: int  # tile size
+    grid: Grid3
+
+    @classmethod
+    def create(cls, N: int, v: int, grid: Grid3) -> "CholeskyGeometry":
+        """Pad N up to a multiple of lcm(v Px, v Py)."""
+        lcm = v * grid.Px * grid.Py // math.gcd(grid.Px, grid.Py)
+        Np = lcm * math.ceil(N / lcm)
+        return cls(N=Np, Nbase=N, v=v, grid=grid)
+
+    @property
+    def Kappa(self) -> int:
+        """Number of tile columns = supersteps (reference calls this Kappa)."""
+        return self.N // self.v

@@ -9,6 +9,11 @@ _LAZY = {
     "panel_lu": "blas",
     "blocked_trsm": "blas",
     "batched_lu_factor": "blas",
+    "batched_cholesky_factor": "blas",
+    "potrf": "blas",
+    "trsm_right_lower_t": "blas",
+    "trsm_left_lower": "blas",
+    "trsm_left_lower_t": "blas",
     "set_backend": "blas",
     "get_backend": "blas",
     "set_panel_algo": "blas",

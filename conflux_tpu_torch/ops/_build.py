@@ -114,6 +114,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,  # w, wa (both may be NULL)
         p]  # stream
     lib.conflux_batched_lu.restype = i
+    lib.conflux_batched_chol.argtypes = [
+        i, i, i, i,  # dtype code, device, batch, n
+        p, p,  # a, out
+        p, p,  # w, wa (both may be NULL)
+        p]  # stream
+    lib.conflux_batched_chol.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -127,6 +127,29 @@ def trsm_left_upper(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(U, B, upper=True, left=True)
 
 
+def trsm_right_lower_t(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve X L^T = B with L lower triangular (Cholesky A10 update). The
+    result is column-major: `.contiguous()` it for the GEMM kernel."""
+    return torch.linalg.solve_triangular(L.mT, B, upper=True, left=False)
+
+
+def trsm_left_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L X = B with L lower triangular (Cholesky forward solve)."""
+    return torch.linalg.solve_triangular(L, B, upper=False, left=True)
+
+
+def trsm_left_lower_t(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L^T X = B with L lower triangular (Cholesky back solve)."""
+    return torch.linalg.solve_triangular(L.mT, B, upper=True, left=True)
+
+
+def potrf(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a v x v SPD tile (reference dpotrf,
+    `Cholesky.cpp:188-194`). Reads the lower triangle only, as the JAX
+    package's `symmetrize_input=False` does."""
+    return torch.linalg.cholesky(a)
+
+
 def blocked_trsm(T: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
                  unit_diagonal: bool = False, dinv=None,
                  block_size: int | None = None,
@@ -152,6 +175,18 @@ def batched_lu_factor(A: torch.Tensor, *, probe_w=None,
     from conflux_tpu_torch.ops import batched_factor
 
     return batched_factor.kernel_lu_factor_batched(A, probe_w=probe_w)
+
+
+def batched_cholesky_factor(A: torch.Tensor, *, probe_w=None,
+                            backend: str | None = None):
+    """Batched lower Cholesky of (B, n, n) SPD systems: the SPD serve
+    plans' factor. Backend semantics match :func:`batched_lu_factor`: the
+    K5 kernel (`ops.batched_factor`). Returns L, or (L, wA) when `probe_w`
+    is given."""
+    check_backend(_BACKEND if backend is None else backend)
+    from conflux_tpu_torch.ops import batched_factor
+
+    return batched_factor.kernel_cholesky_factor_batched(A, probe_w=probe_w)
 
 
 # --------------------------------------------------------------------------- #

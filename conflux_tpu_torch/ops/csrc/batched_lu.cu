@@ -38,6 +38,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "slot_io.cuh"
+
 namespace {
 
 constexpr int NT = 512;  // threads per CTA
@@ -66,17 +68,9 @@ batched_lu_kernel(int n, const T* __restrict__ a, T* __restrict__ out, int* __re
   int* P = piv + slot * n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-#pragma unroll 8
-  for (size_t e = tid; e < nn; e += NT) O[e] = A[e];
-  if (w != nullptr) {
-    // fused probe row off the untouched input
-    for (int c = tid; c < n; c += NT) {
-      T s = T(0);
-#pragma unroll 8
-      for (int r = 0; r < n; ++r) s = fma(w[r], A[static_cast<size_t>(r) * n + c], s);
-      wa[slot * n + c] = s;
-    }
-  }
+  // the slot into the output buffer, and the fused probe row off the
+  // untouched input
+  conflux::copy_slot_and_probe<T, NT>(n, A, O, w, w == nullptr ? nullptr : wa + slot * n);
   for (int r = tid; r < n; r += NT) {
     lrow[r] = r;
     where[r] = r;

@@ -11,12 +11,15 @@ is CUDA C++ for sm_90a under `ops/csrc/`, built at first use by
 - `btrsm` (`csrc/btrsm.cu`) replaces `batched_trsm._pallas_btrsm`: the
   batched blocked triangular solve through diagonal-block inverses;
 - `batched_lu` (`csrc/batched_lu.cu`) replaces `pallas_factor._pallas_blu`:
-  the batched partial-pivot LU of the serve plans' factor, with the fused
-  probe row.
+  the batched partial-pivot LU of the LU serve plans' factor, with the
+  fused probe row;
+- `batched_chol` (`csrc/batched_chol.cu`) replaces
+  `pallas_factor._pallas_bchol`: the batched lower Cholesky of the SPD
+  serve plans' factor, with the fused probe row.
 
 Beside each kernel sits its plain PyTorch version (`gemm_plain`,
-`lu_block_plain`, `btrsm_plain`, `batched_lu_plain`), the same function
-written with tensor ops. The dispatch
+`lu_block_plain`, `btrsm_plain`, `batched_lu_plain`, `batched_chol_plain`),
+the same function written with tensor ops. The dispatch
 rule: a CUDA tensor goes to the kernel (or the call raises), a CPU tensor
 goes to the plain version; nothing falls back. `LAUNCHES` counts each
 kernel's launches, and only launches.
@@ -30,7 +33,8 @@ _PANEL_W = 128  # column-block width of lu_block (one TPU lane tile)
 
 # launches per kernel since the last reset_launches(), counted where the
 # kernel is launched and nowhere else
-LAUNCHES = {"gemm": 0, "lu_block": 0, "btrsm": 0, "batched_lu": 0}
+LAUNCHES = {"gemm": 0, "lu_block": 0, "btrsm": 0, "batched_lu": 0,
+            "batched_chol": 0}
 
 _GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32_F64 = {torch.float32: 0, torch.float64: 1}
@@ -293,11 +297,11 @@ def btrsm(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
-def _check_batched_lu(A: torch.Tensor, w: torch.Tensor | None) -> None:
+def _check_batched_factor(name: str, A: torch.Tensor, w: torch.Tensor | None) -> None:
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
-        raise ValueError(f"batched_lu takes (B, N, N), got {tuple(A.shape)}")
+        raise ValueError(f"{name} takes (B, N, N), got {tuple(A.shape)}")
     if A.dtype not in _F32_F64:
-        raise ValueError(f"batched_lu takes float32 or float64, got {A.dtype}")
+        raise ValueError(f"{name} takes float32 or float64, got {A.dtype}")
     if w is not None and tuple(w.shape) != (A.shape[-1],):
         raise ValueError(f"probe w {tuple(w.shape)}, need ({A.shape[-1]},)")
 
@@ -357,7 +361,7 @@ def batched_lu(A: torch.Tensor, w: torch.Tensor | None = None):
     A[i][perm[i]] == L_i @ U_i, perm (B, N) int64, and, when the probe
     vector w (N,) is given, wA (B, N) = w^T A_i off the untouched input
     (else None). Each slot's bits depend only on that slot's input."""
-    _check_batched_lu(A, w)
+    _check_batched_factor("batched_lu", A, w)
     if w is not None:
         w = w.to(A.dtype)
     if A.device.type == "cpu":
@@ -385,3 +389,64 @@ def batched_lu(A: torch.Tensor, w: torch.Tensor | None = None):
     LAUNCHES["batched_lu"] += 1
     LU, perm = _lapack_order(out, piv)
     return LU, perm, wa
+
+
+# --------------------------------------------------------------------------- #
+# K5: batched Cholesky
+# --------------------------------------------------------------------------- #
+
+
+def batched_chol_plain(A: torch.Tensor, w: torch.Tensor | None = None):
+    """The plain version of :func:`batched_chol`, column by column with
+    tensor ops and the kernel's arithmetic: per column j, the trailing
+    square of both triangles takes A[i,k] - (A[i,j] * A[j,k]) / a_jj (a
+    product, a division and a subtraction, each rounded), then column j
+    from the diagonal down is divided by sqrt(a_jj). The same roundings as
+    the kernel's _rn intrinsics, so the two agree bit for bit."""
+    n = A.shape[-1]
+    X = A.clone()
+    for j in range(n):
+        ajj = X[:, j, j].clone()
+        ljj = torch.sqrt(ajj)
+        col = X[:, j + 1:, j].clone()
+        X[:, j + 1:, j + 1:] -= (col[:, :, None] * X[:, None, j, j + 1:]) / ajj[:, None, None]
+        X[:, j + 1:, j] = col / ljj[:, None]
+        X[:, j, j] = ajj / ljj
+    L = torch.tril(X)
+    wa = None if w is None else torch.matmul(w.to(A.dtype), A)
+    return L, wa
+
+
+def batched_chol(A: torch.Tensor, w: torch.Tensor | None = None):
+    """Lower Cholesky factor of each slot of a (B, N, N) float32 or float64
+    batch. Returns (L, wA): L (B, N, N) with the strict upper triangles
+    zero, and, when the probe vector w (N,) is given, wA (B, N) = w^T A_i
+    off the untouched input (else None). Both triangles of A are read, as
+    the TPU kernel reads them. A slot that is not positive definite comes
+    out with NaN; each slot's bits depend only on that slot's input."""
+    _check_batched_factor("batched_chol", A, w)
+    if w is not None:
+        w = w.to(A.dtype)
+    if A.device.type == "cpu":
+        return batched_chol_plain(A, w)
+    if A.device.type != "cuda":
+        raise ValueError(f"batched_chol runs on cuda or cpu tensors, got {A.device}")
+    B, n, _ = A.shape
+    dev = A.device
+    a = A.contiguous()
+    out = torch.empty_like(a)
+    wa = None if w is None else torch.empty((B, n), dtype=A.dtype, device=dev)
+    if B == 0 or n == 0:
+        return out, wa
+    w = None if w is None else w.to(dev).contiguous()
+    from conflux_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rc = lib.conflux_batched_chol(
+        _F32_F64[A.dtype], dev.index or 0, B, n, a.data_ptr(), out.data_ptr(),
+        None if w is None else w.data_ptr(), None if wa is None else wa.data_ptr(),
+        _stream(A))
+    if rc != 0:
+        raise RuntimeError(f"batched_chol kernel launch failed: cudaError {rc}")
+    LAUNCHES["batched_chol"] += 1
+    return out, wa

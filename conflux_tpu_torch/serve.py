@@ -17,20 +17,25 @@ with only the O(N^2) substitution against factors that stay on the card:
     session = plan.factor(A)          # O(N^3), once, on the K4 kernel
     x = session.solve(b)              # O(N^2), two K3 launches
 
-Every plan factors through the batched LU kernel (K4,
-`ops.batched_factor`), the counterpart of a JAX plan made with
-``backend="pallas"``: ``plan.factor`` rides bucket 1 of the factor lane's
-stacked program, so a session it opens and one opened by a coalesced bucket
-carry the same bits. Blocked plans (the default) solve through the batched
-blocked triangular-solve kernel (K3, `ops.batched_trsm.blocked_trsm`): the
-batched form of the block loop the JAX programs vmap.
+    spd = FactorPlan.create((32, 256, 256), torch.float32, v=128, kind="chol")
+    x = spd.factor(S).solve(b)        # K5 once, then two K3 launches
 
-Ported: LU plans (single and batched, float32 and float64, substitution
-blocked|trsm|inv, `refine` sweeps), checked solves and the factor lane's
-coalesced programs. Not ported yet, each raising NotImplementedError:
-Cholesky and QR plans, mesh plans, the precision ladder, Woodbury
+Every plan factors through a batched factor kernel (`ops.batched_factor`):
+LU plans through K4, SPD plans (``kind="chol"``, or the legacy
+``spd=True``) through the batched Cholesky K5, the counterparts of a JAX
+plan made with ``backend="pallas"``. ``plan.factor`` rides bucket 1 of the
+factor lane's stacked program, so a session it opens and one opened by a
+coalesced bucket carry the same bits. Blocked plans (the default) solve
+through the batched blocked triangular-solve kernel (K3,
+`ops.batched_trsm.blocked_trsm`): the batched form of the block loop the
+JAX programs vmap; an SPD plan's back solve runs through L^T.
+
+Ported: LU and Cholesky plans (single and batched, float32 and float64,
+substitution blocked|trsm|inv, `refine` sweeps), checked solves and the
+factor lane's coalesced programs. Not ported yet, each raising
+NotImplementedError: QR plans, mesh plans, the precision ladder, Woodbury
 update/refactor, gang stacks, tier residency and bucket retirement, device
-moves, the plan codec and the engine. Plans outside the K4 kernel's gate
+moves, the plan codec and the engine. Plans outside the kernels' gate
 (`factor_dtype != dtype`, other dtypes) raise too.
 """
 
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from conflux_tpu_torch import profiler
-from conflux_tpu_torch.batched import unstack_tree
+from conflux_tpu_torch.batched import cholesky_solve_batched, unstack_tree
 from conflux_tpu_torch.device import resolve_device
 from conflux_tpu_torch.lu.single import from_numpy
 from conflux_tpu_torch.ops import blas
@@ -70,7 +75,7 @@ class PlanKey:
     factor_dtype: str     # dtype the factorization runs in
     v: int                # tile size
     refine: int           # classic-IR sweeps fused into the solve program
-    kind: str             # factorization family: 'lu' ('chol', 'qr' to port)
+    kind: str             # factorization family: 'lu' | 'chol' ('qr' to port)
     substitution: str     # 'trsm' | 'inv' | 'blocked' ('auto' -> 'blocked')
     precision: Any        # matmul precision: 'highest' (IEEE f32, no TF32)
     backend: str          # kernel backend
@@ -164,9 +169,8 @@ class FactorPlan:
         if key.kind not in PLAN_KINDS:
             raise ValueError(f"unknown plan kind {key.kind!r} — expected one "
                              f"of {PLAN_KINDS}")
-        if key.kind != "lu":
-            raise _not_ported(f"kind={key.kind!r} plans (Cholesky with the "
-                              "batched Cholesky kernel, QR least squares)")
+        if key.kind == "qr":
+            raise _not_ported("kind='qr' plans (QR least squares)")
         if key.mesh_key is not None:
             raise _not_ported("mesh plans")
         if len(shape) not in (2, 3) or shape[-1] != shape[-2]:
@@ -180,9 +184,9 @@ class FactorPlan:
                              "with an identity extension")
         if not self._kernel_factor:
             raise _not_ported(
-                f"a plan outside the batched LU kernel's gate (dtype "
-                f"{key.dtype}, factor_dtype {key.factor_dtype}: the kernel "
-                "takes float32 or float64 with factor_dtype == dtype) needs "
+                f"a plan outside the batched factor kernels' gate (dtype "
+                f"{key.dtype}, factor_dtype {key.factor_dtype}: the kernels "
+                "take float32 or float64 with factor_dtype == dtype) needs "
                 "the vmapped blocked factor, which")
         self.trace_counts = {"factor": 0, "solve": 0}
         # concurrent first callers fill the memoized program caches
@@ -276,12 +280,18 @@ class FactorPlan:
                               backend=self.key.backend)
         return x.reshape(r.shape)
 
+    @property
+    def _spd(self) -> bool:
+        return self.key.kind == "chol"
+
     def _base_corr(self, factors):
         """The base substitution r -> A0^{-1} r through the resident
         factors. Batch-generic: factors and r share their leading axes (a
         plan's batch, a factor bucket's stack), the port's counterpart of
         the JAX package's vmap."""
         k = self.key
+        if self._spd:
+            return self._spd_corr(factors)
         if k.substitution == "blocked":
             LU, Dl, Du, perm = factors
 
@@ -306,6 +316,33 @@ class FactorPlan:
             rf = r.reshape(-1, n, w)
             return torch.stack([lu_solve(LUf[i], pf[i], rf[i])
                                 for i in range(rf.shape[0])]).reshape(r.shape)
+        return corr
+
+    def _spd_corr(self, factors):
+        """:meth:`_base_corr` of an SPD plan: forward through L, back
+        through L^T. Blocked plans run both on K3, the back solve with the
+        transposed diagonal-block inverses Du = Dl^T."""
+        k = self.key
+        if k.substitution == "blocked":
+            L, Dl = factors
+
+            def corr(r):
+                Lc = L.to(Dl.dtype)
+                y = self._btrsm(Lc, Dl, r.to(Dl.dtype), lower=True)
+                return self._btrsm(Lc.mT, Dl.mT, y, lower=False)
+            return corr
+        if k.substitution == "inv":
+            Li = factors[0]
+
+            def corr(r):
+                return torch.matmul(Li.mT, torch.matmul(Li, r.to(Li.dtype)))
+            return corr
+        L = factors[0]
+
+        def corr(r):
+            n, w = r.shape[-2:]
+            return cholesky_solve_batched(L.reshape(-1, n, n),
+                                          r.reshape(-1, n, w)).reshape(r.shape)
         return corr
 
     def _one_solve(self, factors, A, b2, sweeps=None):
@@ -343,24 +380,28 @@ class FactorPlan:
 
     @property
     def _kernel_factor(self) -> bool:
-        """True when this plan factors through the batched LU kernel (K4),
-        the counterpart of the JAX `_pallas_factor` gate: the "kernel"
-        backend, no mesh, LU, and float32 or float64 with
-        `dtype == factor_dtype` (so the kernel's probe row reads the
-        operand `probe_row` would). The port has no other factor route yet,
-        so the constructor refuses plans outside it."""
+        """True when this plan factors through a batched factor kernel (K4
+        for LU, K5 for Cholesky), the counterpart of the JAX
+        `_pallas_factor` gate: the "kernel" backend, no mesh, LU or
+        Cholesky, and float32 or float64 with `dtype == factor_dtype` (so
+        the kernel's probe row reads the operand `probe_row` would). The
+        port has no other factor route yet, so the constructor refuses
+        plans outside it."""
         k = self.key
-        return (k.backend == "kernel" and k.mesh_key is None and k.kind == "lu"
-                and k.dtype == k.factor_dtype
+        return (k.backend == "kernel" and k.mesh_key is None
+                and k.kind in ("lu", "chol") and k.dtype == k.factor_dtype
                 and k.factor_dtype in ("float32", "float64"))
 
     def _kernel_factor_core(self, Ast, probe: bool = False):
         """First half of the stacked factor: fold the stack (batched plans
-        fold (bb, B) into one kernel batch) and launch K4. Returns
-        (LU, perm[, wA])."""
+        fold (bb, B) into one kernel batch) and launch K4 or K5. Returns
+        (LU, perm[, wA]) or (L[, wA])."""
         shp = Ast.shape
         A2 = Ast.reshape((shp[0] * shp[1],) + shp[2:]) if self.batched else Ast
         w = self._probe_w_on(Ast.device) if probe else None
+        if self._spd:
+            out = blas.batched_cholesky_factor(A2, probe_w=w, backend=self.key.backend)
+            return out if probe else (out,)
         return blas.batched_lu_factor(A2, probe_w=w, backend=self.key.backend)
 
     def _kernel_factor_epilogue(self, core, probe: bool = False):
@@ -371,12 +412,24 @@ class FactorPlan:
         the session factors."""
         k = self.key
         cdtype = blas.compute_dtype(_torch_dtype(k.factor_dtype))
-        LU, perm = core[0], core[1]
-        if k.substitution == "trsm":
-            F = (LU, perm)
-        else:
-            LUc = LU.to(cdtype)
+        if self._spd:
+            L = core[0]
             if k.substitution == "blocked":
+                F = (L, diag_block_inverses(L.to(cdtype), lower=True))
+            elif k.substitution == "inv":
+                # one library call per slot, as for LU plans below
+                Lc = L.to(cdtype)
+                eye = torch.eye(self.N, dtype=cdtype, device=L.device)
+                F = (torch.stack([torch.linalg.solve_triangular(t, eye, upper=False)
+                                  for t in Lc]),)
+            else:
+                F = (L,)
+        else:
+            LU, perm = core[0], core[1]
+            LUc = LU.to(cdtype)
+            if k.substitution == "trsm":
+                F = (LU, perm)
+            elif k.substitution == "blocked":
                 F = (LU, diag_block_inverses(LUc, lower=True, unit_diagonal=True),
                      diag_block_inverses(LUc, lower=False), perm)
             else:
@@ -398,7 +451,7 @@ class FactorPlan:
         F = tuple(unflat(x) for x in F)
         if not probe:
             return F
-        return F, unflat(core[2])
+        return F, unflat(core[-1])
 
     def _stacked_factor_fn(self, bb: int):
         """The factor lane's coalesced program: `bb` systems of this plan
@@ -421,9 +474,9 @@ class FactorPlan:
         """Checked coalesced program: factor the stack and produce each
         slot's health evidence in the same call, (bb,)+shape A ->
         (factors, wA, verdict (2, bb)). wA[i] = w^T A_i comes out of the K4
-        launch; the verdict solves A_i x = w through the fresh factors and
-        projects the residual through wA, so slot i's verdict depends only
-        on slot i. Blocked plans without sweeps take the stats from the
+        or K5 launch; the verdict solves A_i x = w through the fresh factors
+        and projects the residual through wA, so slot i's verdict depends
+        only on slot i. Blocked plans without sweeps take the stats from the
         back substitution (:meth:`_blocked_probe_body`)."""
         self._check_bucket("_factor_health_fn", bb)
 
@@ -518,11 +571,8 @@ class FactorPlan:
         wAx = wA . x[:, 0] (`batched_trsm.probe_stats`). The JAX package
         accumulates them inside its block loop; K3 has no epilogue yet, so
         here they are two reductions over x after the back solve."""
-        LU, Dl, Du, perm = factors
         cdtype = blas.compute_dtype(_torch_dtype(self.key.dtype))
-        LUc = LU.to(Dl.dtype)
-        y = self._btrsm(LUc, Dl, _take_rows(b2.to(Dl.dtype), perm), lower=True)
-        x = self._btrsm(LUc, Du, y, lower=False).to(cdtype)
+        x = self._base_corr(factors)(b2).to(cdtype)
         return (x, *probe_stats(x, wA))
 
     def _solve_health_fn(self, nrhs: int):
@@ -604,8 +654,9 @@ class SolveSession:
 
     @property
     def factors(self):
-        """The device-resident factors: (LU, Dl, Du, perm) for 'blocked'
-        plans, (LU, perm) for 'trsm', (Li, Ui, perm) for 'inv'."""
+        """The device-resident factors. LU plans: (LU, Dl, Du, perm) for
+        'blocked', (LU, perm) for 'trsm', (Li, Ui, perm) for 'inv'. SPD
+        plans: (L, Dl) for 'blocked', (L,) for 'trsm', (Li,) for 'inv'."""
         with self._lock:
             return self._factors
 
@@ -703,17 +754,21 @@ class SolveSession:
 
 def session_from_numpy(plan: FactorPlan, factors, A, device=None) -> SolveSession:
     """Open a port session on factors made elsewhere, for example the
-    factor pytree of a JAX `SolveSession` as numpy arrays: (LU, Dl, Du,
-    perm) for a blocked LU plan, (LU, perm) for 'trsm', (Li, Ui, perm) for
-    'inv'. A is the matrix they factor (the probe row's base, and the
-    refinement sweeps' matvec). The counterpart of
+    factor pytree of a JAX `SolveSession` as numpy arrays, in the layout
+    of :attr:`SolveSession.factors`: (LU, Dl, Du, perm) for a blocked LU
+    plan, (LU, perm) for 'trsm', (Li, Ui, perm) for 'inv'; (L, Dl), (L,)
+    and (Li,) for an SPD plan. A is the matrix they factor (the probe
+    row's base, and the refinement sweeps' matvec). The counterpart of
     `lu.single.state_from_numpy`."""
-    want = {"blocked": 4, "trsm": 2, "inv": 3}[plan.key.substitution]
+    spd = plan._spd
+    want = ({"blocked": 2, "trsm": 1, "inv": 1} if spd else
+            {"blocked": 4, "trsm": 2, "inv": 3})[plan.key.substitution]
     if len(factors) != want:
-        raise ValueError(f"a {plan.key.substitution!r} plan's factors have "
-                         f"{want} leaves, got {len(factors)}")
+        raise ValueError(f"a {plan.key.substitution!r} {plan.key.kind} plan's "
+                         f"factors have {want} leaves, got {len(factors)}")
     dev = resolve_device(device)
-    F = tuple(from_numpy(np.asarray(f).astype(np.int64) if i == want - 1
+    # an LU plan's last leaf is its permutation
+    F = tuple(from_numpy(np.asarray(f).astype(np.int64) if not spd and i == want - 1
                          else np.asarray(f), dev)
               for i, f in enumerate(factors))
     A = _as_tensor(A, dev)

@@ -2,7 +2,8 @@
 single-device half of `conflux_tpu/solvers.py`).
 
 `lu_solve` is the triangular-substitution half for factors from
-`lu_factor_blocked`; `refine_classic` is the HPL-MxP recipe's refinement
+`lu_factor_blocked`, `cholesky_solve` the same for a lower Cholesky factor;
+`refine_classic` is the HPL-MxP recipe's refinement
 loop: cheap factors, residuals in a higher precision.
 """
 
@@ -29,6 +30,20 @@ def lu_solve(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Ten
     b2 = b.to(cdtype)[:, None] if squeeze else b.to(cdtype)
     y = blas.trsm_left_lower_unit(Lu, b2[perm.long()])
     x = blas.trsm_left_upper(Lu, y)
+    return x[:, 0] if squeeze else x
+
+
+def cholesky_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given the lower Cholesky factor L (A = L L^T): two
+    triangular solves in the compute dtype. b is (N,) or (N, k)."""
+    if b.shape[0] != L.shape[0]:
+        raise ValueError(f"b has {b.shape[0]} rows, factor needs {L.shape[0]}")
+    cdtype = blas.compute_dtype(L.dtype)
+    Lc = L.to(cdtype)
+    squeeze = b.dim() == 1
+    b2 = b.to(cdtype)[:, None] if squeeze else b.to(cdtype)
+    y = blas.trsm_left_lower(Lc, b2)
+    x = blas.trsm_left_lower_t(Lc, y)
     return x[:, 0] if squeeze else x
 
 

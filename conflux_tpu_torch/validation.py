@@ -1,10 +1,12 @@
-"""Correctness oracles: factorization residuals (the single-device half of
-`conflux_tpu/validation.py`, the reference's CONFLUX_WITH_VALIDATION role).
+"""Correctness oracles: factorization residuals and test matrices (the
+single-device half of `conflux_tpu/validation.py`, the reference's
+CONFLUX_WITH_VALIDATION role).
 
-`lu_residual` is the host numpy oracle. `lu_residual_device` computes the
-same ||A[perm] - L U||_F / ||A||_F where the factors lie, in float64 row and
-column strips, so a full-size check needs neither a host product nor an
-(M, N) float64 copy of anything.
+`lu_residual` and `cholesky_residual` are the host numpy oracles.
+`lu_residual_device` and `cholesky_residual_device` compute the same
+normalized residuals where the factors lie, in float64 row and column
+strips, so a full-size check needs neither a host product nor an (N, N)
+float64 copy of anything.
 """
 
 from __future__ import annotations
@@ -61,6 +63,41 @@ def lu_residual_device(A: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
     return float(torch.sqrt(rss) / torch.clamp(torch.sqrt(ass), min=1e-30))
 
 
+def cholesky_residual(A, L) -> float:
+    """Normalized ||A - L L^T||_F / ||A||_F for a lower Cholesky factor, on
+    the host (L's strict upper triangle is ignored)."""
+    A = np.asarray(A)
+    L = np.tril(np.asarray(L))
+    R = A - L @ L.T
+    return float(np.linalg.norm(R) / max(np.linalg.norm(A), 1e-30))
+
+
+def cholesky_residual_device(A: torch.Tensor, L: torch.Tensor,
+                             strip: int = 4096) -> float:
+    """:func:`cholesky_residual` computed on the factor's device in float64.
+
+    A is the matrix that was factored (any float dtype, on L's device).
+    Each (strip x strip) block of L L^T is the product of two L row strips,
+    cut to the k range where both can be nonzero and masked to the lower
+    triangle. Peak extra memory is a few float64 strips.
+    """
+    N = L.shape[0]
+    rss = torch.zeros((), dtype=torch.float64, device=L.device)
+    ass = torch.zeros((), dtype=torch.float64, device=L.device)
+    for j in range(0, N, strip):
+        je = min(j + strip, N)
+        for i in range(0, N, strip):
+            ie = min(i + strip, N)
+            k = min(ie, je)  # L[r, c] is zero for c > r
+            Li = torch.tril(L[i:ie, :k].double(), diagonal=i)
+            Lj = torch.tril(L[j:je, :k].double(), diagonal=j)
+            Ai = A[i:ie, j:je].double()
+            R = Ai - Li @ Lj.T
+            rss += (R * R).sum()
+            ass += (Ai * Ai).sum()
+    return float(torch.sqrt(rss) / torch.clamp(torch.sqrt(ass), min=1e-30))
+
+
 def residual_bound(n: int, dtype) -> float:
     """Acceptance threshold: c * sqrt(n) * eps, with headroom for pivot growth."""
     if isinstance(dtype, torch.dtype):
@@ -77,4 +114,27 @@ def make_test_matrix(M: int, N: int, seed: int = 42, dtype=np.float64) -> np.nda
     A = rng.uniform(-1.0, 1.0, size=(M, N)).astype(dtype)
     d = min(M, N)
     A[np.arange(d), np.arange(d)] += 2.0
+    return A
+
+
+def make_spd_matrix(N: int, seed: int = 7, dtype=np.float64, device="cpu") -> torch.Tensor:
+    """Deterministic SPD matrix (the JAX package's generator, bit for bit:
+    the symmetric part of a uniform(-1, 1) matrix plus N on the diagonal).
+
+    The symmetrization and the diagonal shift run on `device`, so at
+    N=32768 the host holds only the random draw, not the (N, N)
+    temporaries of a host-side symmetrization."""
+    rng = np.random.default_rng(seed)
+    Bt = torch.from_numpy(rng.uniform(-1.0, 1.0, size=(N, N)).astype(dtype)).to(device)
+    A = Bt + Bt.T
+    del Bt
+    A /= 2
+    A.diagonal().add_(N)
+    return A
+    Bt = torch.from_numpy(B).to(device)
+    del B
+    A = Bt + Bt.T
+    del Bt
+    A /= 2
+    A.diagonal().add_(N)
     return A

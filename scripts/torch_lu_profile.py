@@ -2,7 +2,7 @@
 serving run, goes on the card.
 
     python scripts/torch_lu_profile.py [-N 32768] [-b 1024] [--out FILE.json]
-    python scripts/torch_lu_profile.py --serve a|b [--out FILE.json]
+    python scripts/torch_lu_profile.py --serve a|b|c|d [--out FILE.json]
 
 Runs the work once as a warm-up, once timed with the host clock (tracing
 off), and once under `torch.profiler` (CPU and CUDA activity). The work is
@@ -10,10 +10,12 @@ one factorization of the miniapp's test matrix, or with --serve a serving
 configuration of `chip_smoke.py`: (a) a (32, 256, 256) f32 plan factored
 once and served 16 rounds of `solve` and 16 of `solve_checked`, one
 right-hand side per system; (b) 32 (1024, 1024) f32 systems through the
-factor lane's checked bucket `_factor_health_fn(32)`. Prints the device
-time of every kernel name over the traced run, the time and launches of
-each kernel of this repository (K1 `gemm`, K2 `lu_block`, K3 `btrsm`, K4
-`batched_lu`), the device's busy and idle shares of the traced wall time,
+factor lane's checked bucket `_factor_health_fn(32)`; (c) and (d) the same
+with SPD plans (kind="chol") on SPD systems. Prints the device time of
+every kernel name over the traced run, the time and launches of each
+kernel of this repository (K1 `gemm`, K2 `lu_block`, K3 `btrsm`, K4
+`batched_lu`, K5 `batched_chol`), the device's busy and idle shares of the
+traced wall time,
 and the tracing overhead (traced wall minus untraced wall); with --out,
 writes the same as JSON. Needs an NVIDIA card.
 """
@@ -47,12 +49,16 @@ def _serve_work(cfg: str):
 
     rng = np.random.default_rng(0)
 
+    kind = "chol" if cfg in ("c", "d") else "lu"
+
     def systems(B, n):
         A = rng.standard_normal((B, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+        if kind == "chol":  # the JAX serve tests' SPD class
+            A = A @ np.swapaxes(A, 1, 2) + np.eye(n)
         return torch.from_numpy(A.astype(np.float32)).to("cuda")
 
-    if cfg == "a":
-        plan = serve.FactorPlan.create((32, 256, 256), torch.float32, v=128)
+    if cfg in ("a", "c"):
+        plan = serve.FactorPlan.create((32, 256, 256), torch.float32, v=128, kind=kind)
         A = systems(32, 256)
         rhs = [torch.from_numpy(rng.standard_normal((32, 256)).astype(np.float32)).to("cuda")
                for _ in range(16)]
@@ -63,11 +69,12 @@ def _serve_work(cfg: str):
                 s.solve(b)
             for b in rhs:
                 s.solve_checked(b)
-        return run, "serving (a): (32, 256, 256) factor + 16 solve + 16 checked rounds"
-    plan = serve.FactorPlan.create((1024, 1024), torch.float32, v=128)
+        return run, (f"serving ({cfg}): (32, 256, 256) kind={kind} factor + 16 solve + "
+                     "16 checked rounds")
+    plan = serve.FactorPlan.create((1024, 1024), torch.float32, v=128, kind=kind)
     A = systems(32, 1024)
     return (lambda: plan._factor_health_fn(32)(A),
-            "serving (b): 32 x (1024, 1024) through _factor_health_fn(32)")
+            f"serving ({cfg}): 32 x (1024, 1024) kind={kind} through _factor_health_fn(32)")
 
 
 def main(argv=None) -> int:
@@ -77,8 +84,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--top", type=int, default=25)
     p.add_argument("--out", default=None, help="also write the record as JSON here")
-    p.add_argument("--serve", choices=("a", "b"), default=None,
-                   help="profile serving configuration a or b instead")
+    p.add_argument("--serve", choices=("a", "b", "c", "d"), default=None,
+                   help="profile serving configuration a, b, c or d instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_lu_profile needs an NVIDIA card")

@@ -193,3 +193,85 @@ def test_single_triangle_blocked_trsm_launches_k3(cuda):
     x1 = blocked_trsm(T[1], b[1], lower=False)
     assert hk.LAUNCHES["btrsm"] == before + 1
     torch.testing.assert_close(x1, blocked_trsm(T, b, lower=False)[1], rtol=1e-5, atol=1e-6)
+
+
+def _spd_systems(B, n, seed, device, dtype=torch.float32):
+    """SPD systems with O(1) entries: M M^T / n + I, M standard normal."""
+    M = np.random.default_rng(seed).standard_normal((B, n, n))
+    return torch.from_numpy(np.einsum("bij,bkj->bik", M, M) / n + np.eye(n)).to(device, dtype)
+
+
+def _same_bits(x, y):
+    """Equal values and NaNs in the same places."""
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
+
+
+@pytest.mark.parametrize("B,n,dtype", [(32, 256, torch.float32), (4, 200, torch.float32),
+                                       (2, 1024, torch.float32), (8, 256, torch.float64)])
+def test_batched_chol_kernel_matches_plain_bitwise(cuda, B, n, dtype):
+    A = _spd_systems(B, n, n + B, cuda, dtype)
+    w = torch.from_numpy(np.sign(np.random.default_rng(1).standard_normal(n))).to(cuda, dtype)
+    before = hk.LAUNCHES["batched_chol"]
+    L, wa = hk.batched_chol(A, w)
+    assert hk.LAUNCHES["batched_chol"] == before + 1
+    L_p, wa_p = hk.batched_chol_plain(A, w)
+    # the same three roundings per update and one per scale, none fused
+    assert torch.equal(L, L_p)
+    assert not torch.triu(L, 1).any()
+    assert float(torch.linalg.norm(wa - wa_p) / torch.linalg.norm(wa_p)) <= 1e-5
+
+
+def test_batched_chol_kernel_slots_are_independent(cuda):
+    A = _spd_systems(32, 256, 5, cuda)
+    L32, _ = hk.batched_chol(A)
+    bad = A.clone()
+    bad[3] = -bad[3]  # not positive definite
+    bad[9, 100, 100] = -50.0  # indefinite from column 100 on
+    Ln, _ = hk.batched_chol(bad)
+    for i in (0, 5, 31):
+        assert torch.equal(hk.batched_chol(A[i:i + 1])[0][0], L32[i])
+    keep = [i for i in range(32) if i not in (3, 9)]
+    assert torch.equal(Ln[keep], L32[keep])
+    assert torch.isnan(Ln[3]).any() and torch.isnan(Ln[9]).any()
+    assert _same_bits(Ln, hk.batched_chol_plain(bad)[0])
+
+
+@pytest.mark.parametrize("substitution", ["blocked", "inv"])
+@pytest.mark.parametrize("bb", [2, 32])
+def test_serve_spd_bucket_is_bitwise_plan_factor(cuda, substitution, bb):
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((256, 256), torch.float32, v=128, kind="chol",
+                                   substitution=substitution)
+    A = _spd_systems(bb, 256, 40 + bb, cuda)
+    before = dict(hk.LAUNCHES)
+    F, wA, verdict = plan._factor_health_fn(bb)(A)
+    assert hk.LAUNCHES["batched_chol"] == before["batched_chol"] + 1
+    assert bool((verdict[0] == 1.0).all()) and float(verdict[1].max()) < 1e-3
+    for i in (0, bb - 1):
+        s = plan.factor(A[i])
+        for got, ref in zip(F, s.factors):
+            assert torch.equal(got[i], ref)
+    b = _rand((256, 3), 12, cuda)
+    x = s.solve(b)
+    assert float((A[bb - 1] @ x - b).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("N,v", [(512, 128), (2048, 256)])
+def test_cholesky_blocked_cuda_matches_cpu(cuda, N, v):
+    from conflux_tpu_torch.cholesky import cholesky_blocked
+    from conflux_tpu_torch.validation import cholesky_residual_device, make_spd_matrix
+
+    A = make_spd_matrix(N, dtype=np.float32)
+    before = hk.LAUNCHES["gemm"]
+    L_g = cholesky_blocked(A.to(cuda), v)
+    assert hk.LAUNCHES["gemm"] == before + N // v - 1
+    L_c = cholesky_blocked(A, v)
+    # the two devices sum in other orders; Cholesky needs no pivots and
+    # stays close norm-wise
+    assert float(torch.linalg.norm(L_g.cpu() - L_c) / torch.linalg.norm(L_c)) <= 1e-5
+    res = cholesky_residual_device(A.to(cuda), L_g)
+    assert res < residual_bound(N, np.float32)
+    assert torch.equal(make_spd_matrix(N, dtype=np.float32, device=cuda).cpu(), A)

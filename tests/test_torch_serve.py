@@ -51,7 +51,8 @@ def test_auto_resolves_to_blocked_and_explicit_substitutions_stay():
 
 
 @pytest.mark.parametrize("kw", [
-    {"kind": "chol"}, {"spd": True}, {"kind": "qr"}, {"mesh": object()},
+    {"kind": "chol", "mesh": object()}, {"kind": "chol", "factor_dtype": torch.float64},
+    {"kind": "qr"}, {"mesh": object()},
     {"factor_dtype": torch.float64}, {"precision": "default"}])
 def test_unported_plans_raise(kw):
     serve.clear_plans()
