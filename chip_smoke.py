@@ -21,9 +21,10 @@ Phases, each of which must pass or the script exits non-zero:
      (32, 1024, 1024) with one right-hand side per system, (32, 256, 256)
      with 16, and a ragged n=200; with times at the first three;
   8. K4 (`hopper_kernels.batched_lu`) against its plain version at
-     (32, 256, 256) and (32, 1024, 1024) f32, (8, 256, 256) f64, a ragged
-     (4, 200, 200) and a batch with one NaN slot: pivots equal, slot bits
-     independent of the batch, with times;
+     (32, 256, 256) and (32, 1024, 1024) f32, (8, 256, 256) f64, ragged
+     (4, 200, 200) and (3, 1000, 1000) and a batch with one NaN slot:
+     pivots equal, slot bits independent of the batch, with times and each
+     launch's block width kb and cluster size;
   9. serving (a), the reference's serving shape (`bench_serve.py`): a
      (32, 256, 256) f32 plan, v=128, factored once and served 16 rounds
      of one right-hand side per system by `solve` and `solve_checked`;
@@ -31,10 +32,10 @@ Phases, each of which must pass or the script exits non-zero:
      32 (1024, 1024) f32 systems through `_factor_health_fn(32)`, and
      `plan.factor` of slot 0 bitwise slot 0 of the bucket;
  11. K5 (`hopper_kernels.batched_chol`) against its plain version, bit for
-     bit, at (32, 256, 256) and (32, 1024, 1024) f32, (8, 256, 256) f64, a
-     ragged (4, 200, 200) and a batch with non-SPD slots (NaN alone, the
-     neighbours' bits kept); a B=1 launch gives a slot's bits of the batch;
-     with times;
+     bit, at (32, 256, 256) and (32, 1024, 1024) f32, (8, 256, 256) f64,
+     ragged (4, 200, 200) and (3, 1000, 1000) and a batch with non-SPD
+     slots (NaN alone, the neighbours' bits kept); a B=1 launch gives a
+     slot's bits of the batch; with times, kb and the cluster size;
  12. serving (c), SPD plans at the reference's serving shape: a
      (32, 256, 256) f32 kind="chol" plan, v=128, factored once and served
      16 rounds by `solve` and 16 by `solve_checked` (K5 once, K3 twice per
@@ -413,11 +414,19 @@ def _lu_bound(B: int, m: int, itemsize: int) -> dict:
     return r
 
 
+def _geometry(name: str, A: torch.Tensor) -> str:
+    from conflux_tpu_torch.ops.hopper_kernels import batched_factor_geometry
+
+    kb, cs, gp = batched_factor_geometry(name, A)
+    return f"kb {kb}, cluster {cs}" + (", panel in global memory" if gp else "")
+
+
 def phase_k4(rec: dict) -> None:
     from conflux_tpu_torch.ops.hopper_kernels import batched_lu, batched_lu_plain
 
     for B, n, dtype in ((32, 256, torch.float32), (32, 1024, torch.float32),
-                        (8, 256, torch.float64), (4, 200, torch.float32)):
+                        (8, 256, torch.float64), (4, 200, torch.float32),
+                        (3, 1000, torch.float32)):
         A = _systems(B, n, 100 + n + B, dtype)
         w = torch.where(torch.rand(n, device="cuda") < 0.5, -1.0, 1.0).to(dtype)
         LU, perm, wa = batched_lu(A, w)
@@ -432,7 +441,8 @@ def phase_k4(rec: dict) -> None:
         name = str(dtype).removeprefix("torch.")
         print(f"[K4] ({B}, {n}, {n}) {name}: pivots equal {same_piv}, max_abs {err:.2e} "
               f"(bound {K4_TOL[dtype]:g}), wA rel_fro {wa_err:.2e}, B=1 slots bitwise "
-              f"{alone}", flush=True)
+              f"{alone} ({_geometry('batched_lu', A)}; B=1: "
+              f"{_geometry('batched_lu', A[:1])})", flush=True)
         check(same_piv and err <= K4_TOL[dtype] and wa_err <= K4_WA_TOL and alone,
               f"K4 ({B}, {n}, {n}) {name}")
         if (B, n, dtype) == (32, 256, torch.float32):
@@ -442,9 +452,9 @@ def phase_k4(rec: dict) -> None:
             plain = time_ms(lambda: batched_lu_plain(A, w), 1)
             lib = time_ms(lambda: torch.linalg.lu_factor(A), 10)
             r = _lu_bound(B, n, 4)
-            print(f"[K4] times at ({B}, {n}, {n}): kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-                  f"torch.linalg.lu_factor {lib:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us "
-                  f"({r['bound_by']})", flush=True)
+            print(f"[K4] times at ({B}, {n}, {n}) ({_geometry('batched_lu', A)}): kernel "
+                  f"{ms:.3f} ms, plain {plain:.3f} ms, torch.linalg.lu_factor {lib:.3f} ms, "
+                  f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})", flush=True)
             if n == 256:
                 rec.update(ms=ms, plain_ms=plain, library_ms=lib, **r)
         del A, LU, LUp
@@ -586,6 +596,16 @@ def _chol_bound(B: int, m: int, itemsize: int) -> dict:
     return r
 
 
+def _chol_division_floor_ms(B: int, n: int) -> float:
+    """K5's floor from its arithmetic as the kernel must do it: each of the
+    B * sum_j (n - j - 1)^2 updates is a product, an IEEE division and a
+    difference, each rounded. The cheapest exact division is a product by
+    the column's reciprocal and two FMA corrections, so an update issues
+    7 float32 instructions, at the peak's 67e12 / 2 a second."""
+    updates = B * sum((n - j - 1) ** 2 for j in range(n))
+    return updates * 7 / (PEAK_F32_FLOPS / 2) * 1e3
+
+
 def _same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Equal values, and NaNs in the same places."""
     nx, ny = torch.isnan(x), torch.isnan(y)
@@ -596,7 +616,8 @@ def phase_k5(rec: dict) -> None:
     from conflux_tpu_torch.ops.hopper_kernels import batched_chol, batched_chol_plain
 
     for B, n, dtype in ((32, 256, torch.float32), (32, 1024, torch.float32),
-                        (8, 256, torch.float64), (4, 200, torch.float32)):
+                        (8, 256, torch.float64), (4, 200, torch.float32),
+                        (3, 1000, torch.float32)):
         A = _spd_systems(B, n, 200 + n + B, dtype)
         w = torch.where(torch.rand(n, device="cuda") < 0.5, -1.0, 1.0).to(dtype)
         L, wa = batched_chol(A, w)
@@ -608,7 +629,8 @@ def phase_k5(rec: dict) -> None:
         alone = all(torch.equal(batched_chol(A[i:i + 1], w)[0][0], L[i]) for i in (0, B - 1))
         name = str(dtype).removeprefix("torch.")
         print(f"[K5] ({B}, {n}, {n}) {name}: max_abs {err:.2e} (bound {K5_TOL:g}), strict "
-              f"upper zero {upper0}, wA rel_fro {wa_err:.2e}, B=1 slots bitwise {alone}",
+              f"upper zero {upper0}, wA rel_fro {wa_err:.2e}, B=1 slots bitwise {alone} "
+              f"({_geometry('batched_chol', A)}; B=1: {_geometry('batched_chol', A[:1])})",
               flush=True)
         check(err <= K5_TOL and upper0 and wa_err <= K5_WA_TOL and alone,
               f"K5 ({B}, {n}, {n}) {name}")
@@ -619,9 +641,10 @@ def phase_k5(rec: dict) -> None:
             plain = time_ms(lambda: batched_chol_plain(A, w), 1)
             lib = time_ms(lambda: torch.linalg.cholesky(A), 10)
             r = _chol_bound(B, n, 4)
-            print(f"[K5] times at ({B}, {n}, {n}): kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-                  f"torch.linalg.cholesky {lib:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us "
-                  f"({r['bound_by']})", flush=True)
+            print(f"[K5] times at ({B}, {n}, {n}) ({_geometry('batched_chol', A)}): kernel "
+                  f"{ms:.3f} ms, plain {plain:.3f} ms, torch.linalg.cholesky {lib:.3f} ms, "
+                  f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}; the IEEE division "
+                  f"floor {_chol_division_floor_ms(B, n):.3f} ms)", flush=True)
             if n == 256:
                 rec.update(ms=ms, plain_ms=plain, library_ms=lib, **r)
         del A, L, Lp

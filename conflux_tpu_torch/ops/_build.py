@@ -120,6 +120,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,  # w, wa (both may be NULL)
         p]  # stream
     lib.conflux_batched_chol.restype = i
+    for name in ("conflux_batched_lu_geometry", "conflux_batched_chol_geometry"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, i, i, i, p, p, p]  # dtype, device, batch, n; kb, cs, global_panel
+        fn.restype = i
 
 
 def load() -> ctypes.CDLL:

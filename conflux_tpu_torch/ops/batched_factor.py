@@ -3,10 +3,10 @@
 
 - :func:`kernel_lu_factor_batched` is the counterpart of
   `pallas_lu_factor_batched`: partial-pivot LU of a (B, N, N) batch on the
-  K4 kernel (`hopper_kernels.batched_lu`, one CTA per slot);
+  K4 kernel (`hopper_kernels.batched_lu`, a CTA cluster per slot);
 - :func:`kernel_cholesky_factor_batched` is the counterpart of
   `pallas_cholesky_factor_batched`: lower Cholesky of a (B, N, N) SPD
-  batch on the K5 kernel (`hopper_kernels.batched_chol`, one CTA per
+  batch on the K5 kernel (`hopper_kernels.batched_chol`, a CTA cluster per
   slot).
 
 Both fuse the Freivalds probe row wA = w^T A of each untouched input into

@@ -17,6 +17,11 @@ is CUDA C++ for sm_90a under `ops/csrc/`, built at first use by
   `pallas_factor._pallas_bchol`: the batched lower Cholesky of the SPD
   serve plans' factor, with the fused probe row.
 
+The two batched factors run a thread-block cluster per slot and hold the
+trailing updates back `kb` columns, applied per element in column order
+(`batched_factor_geometry` reports kb and the cluster size of a launch):
+the same chain of roundings per element as their plain versions.
+
 Beside each kernel sits its plain PyTorch version (`gemm_plain`,
 `lu_block_plain`, `btrsm_plain`, `batched_lu_plain`, `batched_chol_plain`),
 the same function written with tensor ops. The dispatch
@@ -26,6 +31,8 @@ kernel's launches, and only launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -297,6 +304,27 @@ def btrsm(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
+def batched_factor_geometry(name: str, A: torch.Tensor) -> tuple[int, int, bool]:
+    """(kb, cluster size, global panel) of the `name` kernel ("batched_lu"
+    or "batched_chol") launched on the CUDA batch A: the block width of its
+    held-back updates, the CTAs per slot, and whether its panel rows stay
+    in global memory (K4 where a CTA's share does not fit shared memory).
+    None of them changes a bit."""
+    if name not in ("batched_lu", "batched_chol"):
+        raise ValueError(f"no batched factor kernel named {name!r}")
+    if A.device.type != "cuda":
+        raise ValueError(f"{name} geometry is that of a launch on the card, got {A.device}")
+    from conflux_tpu_torch.ops import _build
+
+    geometry = getattr(_build.load(), f"conflux_{name}_geometry")
+    kb, cs, gp = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = geometry(_F32_F64[A.dtype], A.device.index or 0, A.shape[0], A.shape[-1],
+                  ctypes.byref(kb), ctypes.byref(cs), ctypes.byref(gp))
+    if rc != 0:
+        raise RuntimeError(f"{name} geometry failed: cudaError {rc}")
+    return kb.value, cs.value, bool(gp.value)
+
+
 def _check_batched_factor(name: str, A: torch.Tensor, w: torch.Tensor | None) -> None:
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"{name} takes (B, N, N), got {tuple(A.shape)}")
@@ -360,7 +388,10 @@ def batched_lu(A: torch.Tensor, w: torch.Tensor | None = None):
     batch. Returns (LU, perm, wA): packed factors in LAPACK order with
     A[i][perm[i]] == L_i @ U_i, perm (B, N) int64, and, when the probe
     vector w (N,) is given, wA (B, N) = w^T A_i off the untouched input
-    (else None). Each slot's bits depend only on that slot's input."""
+    (else None). Each slot's bits depend only on that slot's input. On
+    the card, n must leave the live list of n rows within a CTA's shared
+    memory (n up to 42096 in float32, 37760 in float64); a larger n
+    raises."""
     _check_batched_factor("batched_lu", A, w)
     if w is not None:
         w = w.to(A.dtype)

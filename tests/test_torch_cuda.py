@@ -117,8 +117,16 @@ def test_btrsm_kernel_matches_plain(cuda, B, n, k, lower):
     assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-5
 
 
-@pytest.mark.parametrize("B,n,dtype", [(32, 256, torch.float32), (4, 200, torch.float32),
-                                       (2, 1024, torch.float32), (8, 256, torch.float64)])
+# shapes across the kernels' 32-column blocks, 64-wide trailing tiles and
+# cluster sizes: one block (1, 31), a one-column trailing square (33), a
+# ragged (1000), f64 at the top size, and B = 33 (clusters in waves)
+FACTOR_SHAPES = [(32, 256, torch.float32), (4, 200, torch.float32), (2, 1024, torch.float32),
+                 (8, 256, torch.float64), (3, 1, torch.float32), (3, 31, torch.float32),
+                 (3, 33, torch.float32), (3, 1000, torch.float32), (2, 1024, torch.float64),
+                 (33, 256, torch.float32)]
+
+
+@pytest.mark.parametrize("B,n,dtype", FACTOR_SHAPES)
 def test_batched_lu_kernel_matches_plain(cuda, B, n, dtype):
     A = _systems(B, n, n + B, cuda, dtype)
     w = torch.from_numpy(np.sign(np.random.default_rng(1).standard_normal(n))).to(cuda, dtype)
@@ -132,6 +140,28 @@ def test_batched_lu_kernel_matches_plain(cuda, B, n, dtype):
     tol = 1e-6 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(LU, LU_p, rtol=tol, atol=tol)
     assert float(torch.linalg.norm(wa - wa_p) / torch.linalg.norm(wa_p)) <= 1e-5
+    # a B=1 launch (another cluster size) gives the slot's bits of the batch
+    for i in (0, B - 1):
+        LU1, p1, _ = hk.batched_lu(A[i:i + 1], w)
+        assert torch.equal(LU1[0], LU[i]) and torch.equal(p1[0], perm[i])
+
+
+def test_batched_lu_kernel_panel_in_global_memory(cuda):
+    """n = 5000 in float64: a CTA's share of the panel rows fits shared
+    memory at no cluster size, so K4 keeps the panel in the output; the
+    same pivots and factors as the plain version, and a B=1 launch gives
+    the slot's bits of the batch."""
+    A = _systems(2, 5000, 11, cuda, torch.float64)
+    assert hk.batched_factor_geometry("batched_lu", A)[2]
+    assert not hk.batched_factor_geometry("batched_lu", A[:, :1024, :1024])[2]
+    before = hk.LAUNCHES["batched_lu"]
+    LU, perm, _ = hk.batched_lu(A)
+    assert hk.LAUNCHES["batched_lu"] == before + 1
+    LU_p, perm_p, _ = hk.batched_lu_plain(A)
+    assert torch.equal(perm, perm_p)
+    torch.testing.assert_close(LU, LU_p, rtol=1e-12, atol=1e-12)
+    LU1, p1, _ = hk.batched_lu(A[1:2])
+    assert torch.equal(LU1[0], LU[1]) and torch.equal(p1[0], perm[1])
 
 
 def test_batched_lu_kernel_slots_are_independent(cuda):
@@ -207,8 +237,7 @@ def _same_bits(x, y):
     return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
 
 
-@pytest.mark.parametrize("B,n,dtype", [(32, 256, torch.float32), (4, 200, torch.float32),
-                                       (2, 1024, torch.float32), (8, 256, torch.float64)])
+@pytest.mark.parametrize("B,n,dtype", FACTOR_SHAPES)
 def test_batched_chol_kernel_matches_plain_bitwise(cuda, B, n, dtype):
     A = _spd_systems(B, n, n + B, cuda, dtype)
     w = torch.from_numpy(np.sign(np.random.default_rng(1).standard_normal(n))).to(cuda, dtype)
@@ -220,6 +249,38 @@ def test_batched_chol_kernel_matches_plain_bitwise(cuda, B, n, dtype):
     assert torch.equal(L, L_p)
     assert not torch.triu(L, 1).any()
     assert float(torch.linalg.norm(wa - wa_p) / torch.linalg.norm(wa_p)) <= 1e-5
+    for i in (0, B - 1):  # a B=1 launch gives the slot's bits of the batch
+        assert torch.equal(hk.batched_chol(A[i:i + 1], w)[0][0], L[i])
+
+
+def _off_range_spd_slots(n, seed, device):
+    """SPD slots whose operands leave the range of K5's reciprocal-and-FMA
+    division (entries in [2^-30, 2^31), diagonals in [2^-60, 2^61)), so
+    that tiles and panel groups take __fdiv_rn: the identity, a
+    block-diagonal and a banded matrix (exact zeros), D S D with D powers of
+    two from 2^-20 to 2^20 (entries from ~2^-40 to ~2^40, across both
+    edges, fast and slow tiles in one slot), and a dense O(1) slot S."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    S = M @ M.T / n + np.eye(n)
+    idx = np.arange(n)
+    blocks = S * (idx[:, None] // 100 == idx[None, :] // 100)
+    R = rng.uniform(-1, 1, (n, n))
+    band = (R + R.T) / 2 * (np.abs(idx[:, None] - idx[None, :]) <= 40) + 82.0 * np.eye(n)
+    d = 2.0 ** rng.integers(-20, 21, n)
+    wide = d[:, None] * S * d[None, :]
+    return torch.from_numpy(np.stack([np.eye(n), blocks, band, wide, S])).to(device,
+                                                                          torch.float32)
+
+
+@pytest.mark.parametrize("n", [1000, 1024])
+def test_batched_chol_kernel_off_range_operands_bitwise(cuda, n):
+    A = _off_range_spd_slots(n, n, cuda)
+    assert hk.batched_factor_geometry("batched_chol", A)[1] > 1  # a cluster per slot
+    L, _ = hk.batched_chol(A)
+    assert torch.equal(L, hk.batched_chol_plain(A)[0])
+    for i in range(A.shape[0]):  # each slot alone (B=1) gives its bits of the batch
+        assert torch.equal(hk.batched_chol(A[i:i + 1])[0][0], L[i])
 
 
 def test_batched_chol_kernel_slots_are_independent(cuda):
