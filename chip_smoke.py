@@ -6,14 +6,21 @@ Phases, each of which must pass or the script exits non-zero:
   1. device: the card's name, count and power limit (fails without a card);
   2. build: the hand-written kernels from `conflux_tpu_torch/ops/csrc`;
   3. K1 (`hopper_kernels.gemm`) against its plain version at the main
-     path's first trailing update, a ragged shape, a strided view and bf16,
+     path's first trailing update, ragged shapes, a strided view and bf16,
      and at the Cholesky path's in-place updates of a strided trailing view
-     (N=32768 v=1024, N=4096 v=256 at two offsets);
+     (N=32768 v=1024, N=4096 v=256 at two offsets), naming the instance
+     (TMA or SIMT) each call ran; its time with the SM clock under load and
+     the bound at that clock;
   4. K2 (`hopper_kernels.lu_block`) against its plain version at the main
-     path's (4096, 128) and (2048, 128) blocks, all-live and partly dead;
+     path's (4096, 128) and (2048, 128) blocks, all-live and partly dead,
+     and batched at (8, 4096, 128), (4, 2048, 128) and (12, 4096, 128) (two
+     cooperative waves): each slot bitwise a B=1 launch; times at B=1 and
+     the two batches beside `torch.linalg.lu_factor` on the same batch;
   5. the main path through the miniapp's `main(argv)`: N=32768 f32 v=1024
      with --validate, then N=8192 with --validate --refine 4, with each
-     kernel's launches counted over each run;
+     kernel's launches counted over each run: K2's must be the count
+     `blas.lu_block_launches` predicts (1600 at N=32768, warm-up + 1), and
+     every K1 launch the TMA instance;
   6. CUDA-event times of each kernel, its plain version and one library
      call at the main path's shapes, beside each kernel's bound;
   7. K3 (`hopper_kernels.btrsm`) against its plain version on packed LUs,
@@ -46,7 +53,7 @@ Phases, each of which must pass or the script exits non-zero:
  14. the Cholesky miniapp's `main(argv)`: N=32768 f32 --tile 1024 with
      --validate (the tile `choose_cholesky_tile` picks), then BASELINE
      config #2, N=4096 --tile 256 --validate --refine 4; K1's launches
-     counted over each run.
+     counted over each run, every one the TMA instance.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it.
@@ -145,8 +152,25 @@ def phase_build() -> None:
             print(f"[build] {line.strip()}")
 
 
+def _sm_clocks(fn) -> tuple[float, float]:
+    """Run fn() while `nvidia-smi` samples the SM clock; return the median
+    sampled and the maximum SM clock, in MHz."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        smi.stdout.readline()  # sampling has started (this sample precedes the load)
+        fn()
+    finally:
+        smi.terminate()
+    rows = [ln.split(",") for ln in smi.communicate()[0].splitlines() if ln.strip()]
+    check(len(rows) > 0, "nvidia-smi sampled no SM clock under the load")
+    sampled = sorted(float(r[0]) for r in rows)
+    return sampled[len(sampled) // 2], float(rows[-1][1])
+
+
 def phase_k1(rec: dict) -> None:
-    from conflux_tpu_torch.ops.hopper_kernels import gemm, gemm_plain
+    from conflux_tpu_torch.ops.hopper_kernels import gemm, gemm_instance, gemm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
@@ -158,47 +182,65 @@ def phase_k1(rec: dict) -> None:
     c = torch.rand((M, M), generator=gen, device=dev) * 2 - 1
     want = gemm_plain(a, b, c, alpha=-1.0)
     got = c.clone()
+    inst = gemm_instance(a, b, got, got)
     gemm(a, b, c=got, alpha=-1.0, out=got)
     torch.cuda.synchronize()
     err = rel_fro(got, want)
     rec["max_abs_err"] = float((got - want).abs().max())
-    print(f"[K1] {M}x{K} @ {K}x{M} f32 in place: rel_fro {err:.2e} "
+    print(f"[K1] {M}x{K} @ {K}x{M} f32 in place ({inst} instance): rel_fro {err:.2e} "
           f"max_abs {rec['max_abs_err']:.2e} (bound {K1_TOL_F32:g})", flush=True)
+    check(inst == "tma", "K1 main-path shape does not run the TMA instance")
     check(err <= K1_TOL_F32, f"K1 f32 main-path shape rel_fro {err:.3e}")
     del want, got
 
-    # ragged, strided (ld not a multiple of 4: the scalar load path) and bf16
+    # ragged shapes on both instances (rows with a 16-byte pitch: TMA; a
+    # pitch of 130 or 401 floats: SIMT), a strided view and bf16
     big = torch.rand((300, 401), generator=gen, device=dev) * 2 - 1
+    pad = torch.rand((1100, 1004), generator=gen, device=dev) * 2 - 1
     cases = [
         ("ragged (100, 60, 130)", big[:100, :60].contiguous(),
-         big[100:160, :130].contiguous(), None, K1_TOL_F32),
+         big[100:160, :130].contiguous(), None, K1_TOL_F32, "simt"),
+        ("ragged (1000, 1000, 777) views", pad[:1000, :1000], pad[:1000, 200:977],
+         pad[100:1100, 4:781], K1_TOL_F32, "tma"),
         ("strided views ld=401", big[3:103, 5:65], big[110:170, 7:138],
-         big[180:280, 200:331], K1_TOL_F32),
+         big[180:280, 200:331], K1_TOL_F32, "simt"),
     ]
     ab = (torch.rand((4096, 1024), generator=gen, device=dev) * 2 - 1).bfloat16()
     bb = (torch.rand((1024, 4096), generator=gen, device=dev) * 2 - 1).bfloat16()
     cb = (torch.rand((4096, 4096), generator=gen, device=dev) * 2 - 1).bfloat16()
-    cases.append(("bf16 (4096, 1024, 4096)", ab, bb, cb, K1_TOL_BF16))
-    for name, x, y, z, tol in cases:
+    cases.append(("bf16 (4096, 1024, 4096)", ab, bb, cb, K1_TOL_BF16, "tma"))
+    for name, x, y, z, tol, expect in cases:
         want = gemm_plain(x, y, z, alpha=-1.0)
-        got = gemm(x, y, c=z, alpha=-1.0)
+        # out's rows on a 16-byte pitch: the other operands pick the instance
+        per = 16 // want.element_size()
+        out = torch.empty((want.shape[0], -(-want.shape[1] // per) * per), dtype=want.dtype,
+                          device=dev)[:, :want.shape[1]]
+        inst = gemm_instance(x, y, z, out)
+        gemm(x, y, c=z, alpha=-1.0, out=out)
         torch.cuda.synchronize()
-        err = rel_fro(got, want)
-        print(f"[K1] {name}: rel_fro {err:.2e} (bound {tol:.2g})", flush=True)
-        check(got.dtype == x.dtype and err <= tol, f"K1 {name} rel_fro {err:.3e}")
+        err = rel_fro(out, want)
+        print(f"[K1] {name} ({inst} instance): rel_fro {err:.2e} (bound {tol:.2g})", flush=True)
+        check(inst == expect and out.dtype == x.dtype and err <= tol,
+              f"K1 {name} ({inst} instance) rel_fro {err:.3e}")
 
-    # times at the main path's first-step shape
+    # times at the main path's first-step shape, the SM clock sampled
+    # under the kernel's load
     work = c.clone()
-    rec["ms"] = time_ms(lambda: gemm(a, b, c=work, alpha=-1.0, out=work), 3)
+    clk, clk_max = _sm_clocks(lambda: rec.update(
+        ms=time_ms(lambda: gemm(a, b, c=work, alpha=-1.0, out=work), 10)))
     rec["plain_ms"] = time_ms(lambda: gemm_plain(a, b, c, alpha=-1.0), 3)
     rec["library_ms"] = time_ms(lambda: torch.addmm(c, a, b, alpha=-1.0), 3)
     flops = 2.0 * M * M * K
     nbytes = 4.0 * (M * K + K * M + 2 * M * M)
     _bound(rec, flops, nbytes)
+    # the f32 peak scales with the SM clock: 132 SMs x 128 lanes x 2 flops
+    at_clock = flops / (PEAK_F32_FLOPS * clk / clk_max) * 1e3
     print(f"[K1] times at {M}x{K}x{M}: kernel {rec['ms']:.3f} ms "
           f"({flops / rec['ms'] / 1e9:.1f} TFLOP/s), plain {rec['plain_ms']:.3f} ms, "
           f"torch.addmm {rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-          f"({rec['bound_by']})", flush=True)
+          f"({rec['bound_by']}, {PEAK_F32_FLOPS / 1e12:g} TFLOP/s at {clk_max:.0f} MHz); "
+          f"SM clock under the kernel {clk:.0f} MHz, bound at that clock {at_clock:.3f} ms",
+          flush=True)
     del a, b, c, work
     torch.cuda.empty_cache()
 
@@ -211,14 +253,17 @@ def phase_k1(rec: dict) -> None:
         trail = A[off + v:, off + v:]
         want = gemm_plain(L10, L10T, trail, alpha=-1.0)
         top, left = A[:off + v].clone(), A[:, :off + v].clone()
+        inst = gemm_instance(L10, L10T, trail, trail)
         gemm(L10, L10T, c=trail, alpha=-1.0, out=trail)
         torch.cuda.synchronize()
         err = rel_fro(trail, want)
         kept = torch.equal(A[:off + v], top) and torch.equal(A[:, :off + v], left)
-        print(f"[K1] Cholesky trailing update N={N} v={v} off={off} (ld={N}): rel_fro "
-              f"{err:.2e} (bound {K1_TOL_F32:g}), max_abs {float((trail - want).abs().max()):.2e}"
-              f", rest of the matrix untouched {kept}", flush=True)
-        check(err <= K1_TOL_F32 and kept, f"K1 Cholesky N={N} off={off} rel_fro {err:.3e}")
+        print(f"[K1] Cholesky trailing update N={N} v={v} off={off} (ld={N}, {inst} instance): "
+              f"rel_fro {err:.2e} (bound {K1_TOL_F32:g}), max_abs "
+              f"{float((trail - want).abs().max()):.2e}, rest of the matrix untouched {kept}",
+              flush=True)
+        check(inst == "tma" and err <= K1_TOL_F32 and kept,
+              f"K1 Cholesky N={N} off={off} ({inst}) rel_fro {err:.3e}")
         del A, L10, L10T, trail, want, top, left
         torch.cuda.empty_cache()
 
@@ -242,17 +287,23 @@ def _lu_block_flops(alive: torch.Tensor, w: int) -> float:
 
 
 def phase_k2(rec: dict) -> None:
-    from conflux_tpu_torch.ops.hopper_kernels import _PANEL_W, lu_block, lu_block_plain
+    from conflux_tpu_torch.ops import hopper_kernels
+    from conflux_tpu_torch.ops.hopper_kernels import (_PANEL_W, lu_block, lu_block_plain,
+                                                      lu_block_wave_slots)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     w = _PANEL_W
     worst = 0.0
+
+    def block(B: int, m: int) -> torch.Tensor:
+        # the second column block of (m, 1024) panel chunks, a strided view
+        # as panel_lu_pallas passes it
+        chunk = torch.rand((B, m, 1024), generator=gen, device="cuda") * 2 - 1
+        chunk[:, ::8, 128:256] += 2.0
+        return chunk[:, :, w:2 * w]
+
     for m in (4096, 2048):
-        # a (m, 1024) panel chunk whose second column block is the input,
-        # a strided view as panel_lu_pallas passes it
-        chunk = torch.rand((m, 1024), generator=gen, device="cuda") * 2 - 1
-        chunk[torch.arange(0, m, 8, device="cuda"), 128:256] += 2.0
-        blk = chunk[:, w:2 * w]
+        blk = block(1, m)[0]
         for dead in (0.0, 0.25):
             alive = (torch.rand((m, 1), generator=gen, device="cuda") >= dead).to(torch.int32)
             out, al, piv = lu_block(blk, alive)
@@ -267,25 +318,55 @@ def phase_k2(rec: dict) -> None:
                   f"equal {same_alive}, max_abs {err:.2e} (allclose {K2_TOL:g}: "
                   f"{close})", flush=True)
             check(same_piv and same_alive and close, f"K2 ({m}, {w}) dead={dead}")
-        if m == 4096:
-            ones = torch.ones((m, 1), dtype=torch.int32, device="cuda")
-            rec["ms"] = time_ms(lambda: lu_block(blk, ones), 20)
-            rec["plain_ms"] = time_ms(lambda: lu_block_plain(blk, ones), 3)
-            # cuSOLVER's getrf (MAGMA's batched path prints warnings here)
-            lib_was = torch.backends.cuda.preferred_linalg_library()
-            torch.backends.cuda.preferred_linalg_library("cusolver")
-            rec["library_ms"] = time_ms(lambda: torch.linalg.lu_factor(blk), 10)
-            torch.backends.cuda.preferred_linalg_library(lib_was)
-            nbytes = 4.0 * (2 * m * w + 2 * m + w)
-            _bound(rec, _lu_block_flops(ones, w), nbytes)
-        else:
-            ones = torch.ones((m, 1), dtype=torch.int32, device="cuda")
-            ms2048 = time_ms(lambda: lu_block(blk, ones), 20)
-            print(f"[K2] time at (2048, {w}): kernel {ms2048:.3f} ms", flush=True)
+
+    # batches: each slot bitwise a B=1 launch on its block, in one wave and
+    # (12 slots of 16 CTAs on 132 SMs) in two
+    for B, m in ((8, 4096), (4, 2048), (12, 4096)):
+        blk = block(B, m)
+        alive = (torch.rand((B, m, 1), generator=gen, device="cuda") >= 0.25).to(torch.int32)
+        waves = -(-B // lu_block_wave_slots(m, blk.device))
+        before = hopper_kernels.LAUNCHES["lu_block"]
+        out, al, piv = lu_block(blk, alive)
+        launched = hopper_kernels.LAUNCHES["lu_block"] - before
+        alone = all(all(torch.equal(x, y) for x, y in zip((out[i], al[i], piv[i]),
+                                                          lu_block(blk[i], alive[i])))
+                    for i in range(B))
+        plain_ok = True
+        for i in (0, B - 1):
+            out_p, al_p, piv_p = lu_block_plain(blk[i], alive[i])
+            worst = max(worst, float((out[i] - out_p).abs().max()))
+            plain_ok &= (torch.equal(piv[i], piv_p) and torch.equal(al[i], al_p)
+                         and torch.allclose(out[i], out_p, rtol=K2_TOL, atol=K2_TOL))
+        torch.cuda.synchronize()
+        print(f"[K2] batched ({B}, {m}, {w}) dead=0.25: {launched} cooperative launch(es) "
+              f"(waves {waves}); every slot bitwise a B=1 launch {alone}; slots 0 and {B - 1} "
+              f"against the plain version: pivots, alive equal and allclose {plain_ok}",
+              flush=True)
+        check(alone and plain_ok and launched == waves, f"K2 batched ({B}, {m})")
     rec["max_abs_err"] = worst
-    print(f"[K2] times at (4096, {w}): kernel {rec['ms']:.3f} ms, plain "
-          f"{rec['plain_ms']:.3f} ms, torch.linalg.lu_factor {rec['library_ms']:.3f} ms, "
-          f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})", flush=True)
+
+    # times at the main path's shapes: one block (a panel within 4096
+    # rows), the 8 chunks of a tournament's first round, the 4 pairs of
+    # its first tree level; the library factors the same batch (cuSOLVER)
+    lib_was = torch.backends.cuda.preferred_linalg_library()
+    for B, m in ((1, 4096), (8, 4096), (4, 2048)):
+        blk = block(B, m)
+        ones = torch.ones((B, m, 1), dtype=torch.int32, device="cuda")
+        x, al = (blk[0], ones[0]) if B == 1 else (blk, ones)
+        ms = time_ms(lambda: lu_block(x, al), 20)
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        lib = time_ms(lambda: torch.linalg.lu_factor(x), 5)
+        torch.backends.cuda.preferred_linalg_library(lib_was)
+        r = {}
+        _bound(r, B * _lu_block_flops(ones[0], w), B * 4.0 * (2 * m * w + 2 * m + w))
+        line = (f"[K2] times at ({B}, {m}, {w}): kernel {ms:.3f} ms ({ms / B * 1e3:.1f} us a "
+                f"slot), torch.linalg.lu_factor {lib:.3f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
+                f"({r['bound_by']})")
+        if (B, m) == (8, 4096):  # the main path's largest launch goes in the kernels line
+            plain = time_ms(lambda: lu_block_plain(x, al), 2)
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, **r)
+            line += f", plain {plain:.3f} ms"
+        print(line, flush=True)
 
 
 def run_miniapp(argv: list[str], app: str = "conflux_miniapp",
@@ -323,10 +404,31 @@ def _field(lines: list[str], prefix: str) -> str:
     return hits[-1]
 
 
+def _predicted_k2(N: int, v: int) -> int:
+    """K2 launches of one LU factorization of an (N, N) matrix with panels
+    v wide, as the panel family makes them (one batched factorization per
+    tournament round, a launch per wave of slots)."""
+    from conflux_tpu_torch.ops.blas import lu_block_launches
+
+    return sum(lu_block_launches(N - k * v, v, torch.device("cuda")) for k in range(N // v))
+
+
+def _only_tma(counts: dict, tag: str) -> None:
+    print(f"[{tag}]   K1: {counts['gemm_tma']} of {counts['gemm']} launches on the TMA "
+          "instance", flush=True)
+    check(counts["gemm"] > 0 and counts["gemm_tma"] == counts["gemm"],
+          f"the {tag} path ran K1's SIMT instance: {counts}")
+
+
 def phase_main() -> dict:
     from conflux_tpu_torch.validation import residual_bound
 
     lines, counts = run_miniapp(["-N", "32768", "-b", "1024", "-r", "1", "--validate"])
+    want = 2 * _predicted_k2(32768, 1024)  # warm-up + 1 timed factorization
+    print(f"[main]   K2: {counts['lu_block']} launches, predicted {want} (800 a "
+          "factorization; 2272 one tournament chunk at a time)", flush=True)
+    check(counts["lu_block"] == want, f"N=32768 launched K2 {counts['lu_block']} times, not {want}")
+    _only_tma(counts, "main")
     ms = float(_field(lines, "_result_").split(",")[8])
     res = float(_field(lines, "_residual_").split()[1])
     bar = residual_bound(32768, torch.float32)
@@ -337,6 +439,10 @@ def phase_main() -> dict:
 
     lines2, counts2 = run_miniapp(["-N", "8192", "-b", "1024", "-r", "1", "--validate",
                                    "--refine", "4"])
+    want2 = 2 * _predicted_k2(8192, 1024)
+    check(counts2["lu_block"] == want2, f"N=8192 launched K2 {counts2['lu_block']} times, "
+          f"not {want2}")
+    _only_tma(counts2, "main")
     res2 = float(_field(lines2, "_residual_").split()[1])
     bar2 = residual_bound(8192, torch.float32)
     check(math.isfinite(res2) and res2 <= bar2, f"N=8192 residual {res2:.3e}")
@@ -759,6 +865,7 @@ def phase_chol_main() -> dict:
 
     lines, counts = run_miniapp(["--dim", "32768", "--tile", "1024", "--run", "1",
                                  "--validate"], app="cholesky_miniapp", kernels=("gemm",))
+    _only_tma(counts, "chol")
     ms = float(_field(lines, "_result_").split(",")[8])
     res = float(_field(lines, "_residual_").split()[1])
     bar = residual_bound(32768, torch.float32)
@@ -770,6 +877,7 @@ def phase_chol_main() -> dict:
     lines2, counts2 = run_miniapp(["--dim", "4096", "--tile", "256", "--run", "1",
                                    "--validate", "--refine", "4"],
                                   app="cholesky_miniapp", kernels=("gemm",))
+    _only_tma(counts2, "chol")
     res2 = float(_field(lines2, "_residual_").split()[1])
     bar2 = residual_bound(4096, torch.float32)
     check(math.isfinite(res2) and res2 <= bar2, f"Cholesky N=4096 residual {res2:.3e}")

@@ -93,15 +93,19 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, i,  # c (may be NULL), ldc, out, ldo
         f, f, p]  # alpha, beta, stream
     lib.conflux_gemm.restype = i
+    lib.conflux_gemm_tma.argtypes = lib.conflux_gemm.argtypes
+    lib.conflux_gemm_tma.restype = i
     lib.conflux_lu_block.argtypes = [
-        i, i, i,  # device, m, w
-        p, i, p,  # a, lda, alive_in
+        i, i, i, i,  # device, slots, m, w
+        p, i, ctypes.c_longlong, p,  # a, lda, slot stride of a, alive_in
         p, p, p,  # out, alive_out, piv
         p, p,  # words, cand_rows (scratch)
         p]  # stream
     lib.conflux_lu_block.restype = i
     lib.conflux_lu_block_ctas.argtypes = [i]
     lib.conflux_lu_block_ctas.restype = i
+    lib.conflux_lu_block_wave_slots.argtypes = [i, i]  # device, m
+    lib.conflux_lu_block_wave_slots.restype = i
     lib.conflux_btrsm.argtypes = [
         i, i, i,  # dtype code, device, batch
         i, i, i, i, i, i,  # n, nb, bs, k, kt, lower

@@ -276,9 +276,11 @@ def tournament_winners(panel: torch.Tensor, chunk: int | None = None,
 
     Rows are split into chunks; each chunk's pivoted LU nominates its top v
     rows, and a pairwise reduction tree of stacked (2v, v) LUs elects the
-    winners. Returns (lu00, gpiv): the packed (v, v) LU of the winners in
-    pivot order and their row ids in `panel`. Pad rows (zero rows with the
-    out-of-range id `mp`) lose every contest against full-rank data.
+    winners. Each round (the chunks, then each level of the tree) is one
+    batched factorization, (1 + log2 n) of them for n leaves. Returns
+    (lu00, gpiv): the packed (v, v) LU of the winners in pivot order and
+    their row ids in `panel`. Pad rows (zero rows with the out-of-range id
+    `mp`) lose every contest against full-rank data.
 
     Only the kernel route (`use_pallas=True`) is ported; the library-LU
     route, `tree='flat'` and `chunk_live` wait for a later slice.
@@ -302,13 +304,13 @@ def tournament_winners(panel: torch.Tensor, chunk: int | None = None,
     ids = torch.arange(mp, device=dev)
     cand = panel.reshape(nch, c, v)
     cid = ids.reshape(nch, c)
-    outs = [panel_lu_pallas(cand[i]) for i in range(nch)]
-    top = torch.stack([o[1][:v] for o in outs])  # (nch, v)
+    # the chunks are independent: one batched factorization for the round
+    lu_top, top = _panel_lu_winners(cand)  # (nch, v, v), (nch, v)
     win = torch.gather(cand, 1, top[:, :, None].expand(nch, v, v))
     wid = torch.gather(cid, 1, top)
 
     if nch == 1:  # single chunk: its local LU already decided everything
-        return outs[0][0][:v], wid[0]
+        return lu_top[0], wid[0]
 
     n = 1 << (nch - 1).bit_length()
     if n != nch:
@@ -316,13 +318,10 @@ def tournament_winners(panel: torch.Tensor, chunk: int | None = None,
         win = torch.cat([win, win.new_zeros((n - nch, v, v))])
         wid = torch.cat([wid, wid.new_full((n - nch, v), mp)])
 
-    lu_top = None
     while n > 1:
         stacked = win.reshape(n // 2, 2 * v, v)
         sid = wid.reshape(n // 2, 2 * v)
-        outs = [panel_lu_pallas(stacked[i]) for i in range(n // 2)]
-        top = torch.stack([o[1][:v] for o in outs])
-        lu_top = torch.stack([o[0][:v] for o in outs])
+        lu_top, top = _panel_lu_winners(stacked)  # one batched call a round
         win = torch.gather(stacked, 1, top[:, :, None].expand(n // 2, v, v))
         wid = torch.gather(sid, 1, top)
         n //= 2
@@ -333,18 +332,78 @@ def tournament_winners(panel: torch.Tensor, chunk: int | None = None,
 def _winners_first(gpiv: torch.Tensor, m: int) -> torch.Tensor:
     """Permutation with the winners first (in pivot order) and the other
     rows after them in their original order. Ids outside [0, m) are
-    dropped, as the JAX package's `mode="drop"` scatters drop them."""
-    v = gpiv.shape[0]
-    dev = gpiv.device
+    dropped, as the JAX package's `mode="drop"` scatters drop them. gpiv
+    (v,) gives (m,); a batch (B, v) gives (B, m), row by row."""
+    g = gpiv if gpiv.dim() == 2 else gpiv[None]
+    B, v = g.shape
+    dev = g.device
     ids = torch.arange(m, device=dev)
-    ok = (gpiv >= 0) & (gpiv < m)
-    tgt = torch.where(ok, gpiv, m)  # out-of-range ids land in a dropped slot
-    is_piv = torch.zeros(m + 1, dtype=torch.bool, device=dev)
-    is_piv[tgt] = True
-    pos = torch.zeros(m + 1, dtype=torch.long, device=dev)
-    pos[tgt] = torch.arange(v, device=dev)
-    key = torch.where(is_piv[:m], pos[:m], v + ids)
-    return torch.argsort(key, stable=True)
+    ok = (g >= 0) & (g < m)
+    tgt = torch.where(ok, g, m)  # out-of-range ids land in a dropped slot
+    is_piv = torch.zeros((B, m + 1), dtype=torch.bool, device=dev)
+    is_piv.scatter_(1, tgt, True)
+    pos = torch.zeros((B, m + 1), dtype=torch.long, device=dev)
+    pos.scatter_(1, tgt, torch.arange(v, device=dev).expand(B, v))
+    key = torch.where(is_piv[:, :m], pos[:, :m], v + ids)
+    perm = torch.argsort(key, dim=1, stable=True)
+    return perm if gpiv.dim() == 2 else perm[0]
+
+
+def _panel_lu_rows(panels: torch.Tensor):
+    """The batched core of :func:`panel_lu_pallas`: a (B, m, v) batch of
+    independent panels factored in 128-wide column blocks, each block of
+    every panel eliminated by one batched `hopper_kernels.lu_block` call
+    with no row movement. Between blocks, a batched row-gathered TRSM and
+    one batched masked GEMM update the columns to the right (library
+    calls, as the JAX package leaves them to XLA). Returns (A, gpiv): the
+    factored panels with rows in place, and the (B, v) pivot rows in
+    pivot order."""
+    w = hopper_kernels._PANEL_W
+    B, m, v = panels.shape
+    if v % w:
+        raise ValueError(f"panel width {v} not a multiple of {w}")
+    A = panels.clone(memory_format=torch.contiguous_format)
+    alive = torch.ones((B, m, 1), dtype=torch.int32, device=panels.device)
+    pivs = []
+    for off in range(0, v, w):
+        out, alive_new, piv = hopper_kernels.lu_block(A[:, :, off:off + w], alive)
+        A[:, :, off:off + w] = out
+        pivrows = piv[:, 0].long()  # (B, w) row ids in pivot order
+        pivs.append(pivrows)
+        if off + w < v:
+            rest = A[:, :, off + w:]
+            # a NaN column's pivots may leave [0, m): read and write such a
+            # row clamped (the JAX package clamps the reads and drops the
+            # writes; the values are NaN either way)
+            pr = pivrows.clamp(0, m - 1)
+            L00 = torch.gather(out, 1, pr[:, :, None].expand(B, w, w))
+            idx = pr[:, :, None].expand(B, w, v - off - w)
+            U01 = trsm_left_lower_unit(unit_lower(L00), torch.gather(rest, 1, idx))
+            # multipliers of still-live rows only (pivot rows contribute 0)
+            L10 = torch.where(alive_new != 0, out, 0.0)
+            rest -= torch.matmul(L10, U01)
+            rest.scatter_(1, idx, U01)
+        alive = alive_new
+    return A, torch.cat(pivs, 1)
+
+
+def _panel_lu_winners(panels: torch.Tensor):
+    """(lu00, top) of each panel of a (B, m, v) batch: the first v rows of
+    :func:`panel_lu_pallas_batched`'s results, the packed (v, v) LU of its
+    pivot rows in pivot order, (B, v, v), and their rows, (B, v)."""
+    A, gpiv = _panel_lu_rows(panels)
+    B, m, v = panels.shape
+    top = _winners_first(gpiv, m)[:, :v]
+    return torch.gather(A, 1, top[:, :, None].expand(B, v, v)), top
+
+
+def panel_lu_pallas_batched(panels: torch.Tensor):
+    """:func:`panel_lu_pallas` of each panel of a (B, m, v) batch, in one
+    batched elimination per column block: (LU (B, m, v), perm (B, m)),
+    slot i the factorization of panels[i]."""
+    A, gpiv = _panel_lu_rows(panels)
+    perm = _winners_first(gpiv, panels.shape[1])
+    return torch.gather(A, 1, perm[:, :, None].expand(-1, -1, A.shape[-1])), perm
 
 
 def panel_lu_pallas(panel: torch.Tensor):
@@ -357,30 +416,36 @@ def panel_lu_pallas(panel: torch.Tensor):
     positions and an alive mask shrinks. Between blocks, a row-gathered
     TRSM and one masked GEMM update the columns to the right. Rows are
     gathered into LAPACK order once, at the end. m <= `_PALLAS_MAX_ROWS`.
+    The one-panel case of :func:`panel_lu_pallas_batched`.
     """
-    w = hopper_kernels._PANEL_W
-    m, v = panel.shape
-    if v % w:
-        raise ValueError(f"panel width {v} not a multiple of {w}")
-    A = panel.clone(memory_format=torch.contiguous_format)
-    alive = torch.ones((m, 1), dtype=torch.int32, device=panel.device)
-    pivs = []
-    for off in range(0, v, w):
-        out, alive_new, piv = hopper_kernels.lu_block(A[:, off:off + w], alive)
-        A[:, off:off + w] = out
-        pivrows = piv[0].long()  # (w,) absolute row ids in pivot order
-        pivs.append(pivrows)
-        if off + w < v:
-            L00 = out[pivrows]  # (w, w) packed rows in pivot order
-            rest = A[:, off + w:]
-            U01 = trsm_left_lower_unit(unit_lower(L00), rest[pivrows])
-            # multipliers of still-live rows only (pivot rows contribute 0)
-            L10 = torch.where(alive_new != 0, out, 0.0)
-            rest -= torch.matmul(L10, U01)
-            rest[pivrows] = U01
-        alive = alive_new
-    perm = _winners_first(torch.cat(pivs), m)
-    return A[perm], perm
+    LU, perm = panel_lu_pallas_batched(panel[None])
+    return LU[0], perm[0]
+
+
+def lu_block_launches(m: int, v: int, device: torch.device | None = None) -> int:
+    """K2 launches that one :func:`panel_lu` or :func:`panel_winners` of an
+    (m, v) panel makes: v / 128 column blocks per batched factorization,
+    one factorization for a panel within `_PALLAS_MAX_ROWS` rows, else one
+    per tournament round (the chunks, then log2 n tree levels), each a
+    launch per wave of slots that fit the card `device` together
+    (`hopper_kernels.lu_block_wave_slots`; one wave without a device)."""
+    blocks = v // hopper_kernels._PANEL_W
+
+    def calls(slots: int, rows: int) -> int:
+        if device is None:
+            return blocks
+        per = hopper_kernels.lu_block_wave_slots(rows, device)
+        return blocks * -(-slots // per)
+
+    if m <= _PALLAS_MAX_ROWS:
+        return calls(1, m)
+    c, nch = chunk_layout(m, v, _PALLAS_MAX_ROWS)
+    total = calls(nch, c)
+    n = 1 << (nch - 1).bit_length()
+    while n > 1:
+        total += calls(n // 2, 2 * v)
+        n //= 2
+    return total
 
 
 def panel_winners(panel: torch.Tensor, algo: str = "kernel"):
@@ -390,8 +455,8 @@ def panel_winners(panel: torch.Tensor, algo: str = "kernel"):
     m, v = panel.shape
     _resolve_panel_algo(panel.dtype, m, v, algo)
     if m <= _PALLAS_MAX_ROWS:
-        lu_packed, perm = panel_lu_pallas(panel)
-        return lu_packed[:v], perm[:v]
+        lu00, gpiv = _panel_lu_winners(panel[None])
+        return lu00[0], gpiv[0]
     return tournament_winners(panel, chunk=_PALLAS_MAX_ROWS, use_pallas=True)
 
 
@@ -408,7 +473,8 @@ def panel_lu_tournament(panel: torch.Tensor, chunk: int | None = None,
 
 
 def unit_lower(lu00: torch.Tensor) -> torch.Tensor:
-    """Extract the unit-lower L00 from a packed (v, v) LU diagonal block."""
-    v = lu00.shape[0]
+    """Extract the unit-lower L00 from a packed (v, v) LU diagonal block
+    (or a batch of them, (..., v, v))."""
+    v = lu00.shape[-1]
     return torch.tril(lu00, -1) + torch.eye(v, dtype=lu00.dtype,
                                             device=lu00.device)

@@ -15,10 +15,16 @@
 // must finish before the next column can start. The TPU kept the whole 2
 // MiB block in VMEM; one H100 CTA has 227 KB of shared memory.
 //
-// Design: a cooperative launch of ceil(m / 256) CTAs, each holding 256 rows
-// of the block in shared memory for all 128 columns (135 KB, rows padded to
-// 132 floats so each thread sweeps its own row in 16-byte vectors without
-// bank conflicts). Per
+// Design: a cooperative launch of ceil(m / 256) CTAs per block, each
+// holding 256 rows of the block in shared memory for all 128 columns (135
+// KB, rows padded to 132 floats so each thread sweeps its own row in
+// 16-byte vectors without bank conflicts). A launch may eliminate a batch
+// of independent blocks (the chunks of one tournament round): blockIdx.y
+// is the slot, and each slot has its own words and candidate rows, so a
+// slot's arithmetic and bits are those of a launch on that block alone.
+// The batch runs in waves of whole slots that are resident together (one
+// CTA per SM at this shared-memory size), one cooperative launch a wave.
+// Per
 // column, each CTA publishes its local argmax as one 64-bit word (value,
 // row + 1; nonzero, so the word is its own ready flag) beside its
 // candidate's current row. Every CTA waits for all words of the column,
@@ -92,7 +98,7 @@ __device__ int local_argmax(const Block& B, int j, int r0, bool mine,
 }
 
 __global__ void __launch_bounds__(ROWS, 1)
-lu_block_kernel(int m, const float* __restrict__ a, int lda,
+lu_block_kernel(int m, const float* __restrict__ a, int lda, long long sa,
                 const int* __restrict__ alive_in, float* __restrict__ out,
                 int* __restrict__ alive_out, int* __restrict__ piv,
                 unsigned long long* words, float* cand_rows) {
@@ -103,6 +109,15 @@ lu_block_kernel(int m, const float* __restrict__ a, int lda,
   const Block B{smem, smem + ROWS * LDS, wval, wrow, &s_row, &s_cta};
 
   const int G = gridDim.x, cta = blockIdx.x, t = threadIdx.x;
+  // this CTA's slot of the batch: its block, mask, outputs and scratch
+  const size_t slot = blockIdx.y;
+  a += slot * sa;
+  alive_in += slot * m;
+  out += slot * m * W;
+  alive_out += slot * m;
+  piv += slot * W;
+  words += slot * W * G;
+  cand_rows += slot * W * G * W;
   const int r0 = cta * ROWS;
   const int nrows = min(ROWS, m - r0);
   for (int idx = t; idx < nrows * W; idx += ROWS) {
@@ -216,30 +231,68 @@ lu_block_kernel(int m, const float* __restrict__ a, int lda,
 
 }  // namespace
 
-// CTAs (and so scratch slots per column) a launch over m rows uses.
+// CTAs (and so scratch slots per column) a launch over m rows uses per slot.
 extern "C" int conflux_lu_block_ctas(int m) { return (m + ROWS - 1) / ROWS; }
 
-// a: (m, w) f32 with leading dimension lda; alive_in, alive_out: (m,) int32;
-// out: (m, w) f32 contiguous; piv: (w,) int32. Scratch, G = ctas(m):
-// words (w * G) uint64 zeroed, cand_rows (w * G * w) f32. Returns the
-// cudaError_t of the launch.
-extern "C" int conflux_lu_block(int device, int m, int w, const float* a,
-                                int lda, const int* alive_in, float* out,
-                                int* alive_out, int* piv,
-                                unsigned long long* words, float* cand_rows,
-                                void* stream) {
-  if (w != W || m <= 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+namespace {
+
+// Per device: the kernel's shared-memory attribute set, and the CTAs the
+// card holds at once (co-resident, as a cooperative launch needs). Set on
+// a device's first launch, read after.
+constexpr int MAX_DEVICES = 64;
+int resident_ctas[MAX_DEVICES];  // 0 until the device is configured
+
+cudaError_t configure(int device) {
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess || resident_ctas[device] > 0) return e;
   e = cudaFuncSetAttribute(lu_block_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return e;
-  void* args[] = {&m, &a, &lda, &alive_in, &out, &alive_out, &piv,
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lu_block_kernel,
+                                                    ROWS, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  resident_ctas[device] = per_sm * sms;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Whole slots of m rows that one cooperative launch holds on `device`
+// (0 if one slot does not fit); negative: a cudaError_t.
+extern "C" int conflux_lu_block_wave_slots(int device, int m) {
+  if (m <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = configure(device);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return resident_ctas[device] / conflux_lu_block_ctas(m);
+}
+
+// One cooperative launch over `slots` blocks of (m, w) f32: slot s's block
+// starts at a + s * sa (leading dimension lda); alive_in, alive_out: (slots,
+// m) int32; out: (slots, m, w) f32 contiguous; piv: (slots, w) int32.
+// Scratch per slot, G = ctas(m): words (w * G) uint64 zeroed, cand_rows
+// (w * G * w) f32, slot-major. slots must not exceed wave_slots(m).
+// Returns the cudaError_t of the launch.
+extern "C" int conflux_lu_block(int device, int slots, int m, int w,
+                                const float* a, int lda, long long sa,
+                                const int* alive_in, float* out,
+                                int* alive_out, int* piv,
+                                unsigned long long* words, float* cand_rows,
+                                void* stream) {
+  if (w != W || m <= 0 || slots <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = configure(device);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&m, &a, &lda, &sa, &alive_in, &out, &alive_out, &piv,
                   &words, &cand_rows};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lu_block_kernel),
-                                  dim3(conflux_lu_block_ctas(m)), dim3(ROWS),
-                                  args, SMEM_BYTES,
+                                  dim3(conflux_lu_block_ctas(m), slots),
+                                  dim3(ROWS), args, SMEM_BYTES,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

@@ -5,9 +5,12 @@ is CUDA C++ for sm_90a under `ops/csrc/`, built at first use by
 `ops/_build.py` and called through ctypes on PyTorch's current stream:
 
 - `gemm` (`csrc/gemm.cu`) replaces `pallas_kernels._gemm`: the trailing
-  update, alpha * a @ b + beta * c with f32 accumulation;
+  update, alpha * a @ b + beta * c with f32 accumulation, on a TMA-fed
+  warp-specialised instance for 16-byte-aligned operands and a SIMT
+  instance for the rest (`gemm_instance` says which);
 - `lu_block` (`csrc/lu_block.cu`) replaces `pallas_kernels._lu_block`: the
-  masked panel elimination of one (m, 128) column block;
+  masked panel elimination of one (m, 128) column block, or of a batch of
+  independent blocks in one cooperative launch;
 - `btrsm` (`csrc/btrsm.cu`) replaces `batched_trsm._pallas_btrsm`: the
   batched blocked triangular solve through diagonal-block inverses;
 - `batched_lu` (`csrc/batched_lu.cu`) replaces `pallas_factor._pallas_blu`:
@@ -39,8 +42,9 @@ import torch
 _PANEL_W = 128  # column-block width of lu_block (one TPU lane tile)
 
 # launches per kernel since the last reset_launches(), counted where the
-# kernel is launched and nowhere else
-LAUNCHES = {"gemm": 0, "lu_block": 0, "btrsm": 0, "batched_lu": 0,
+# kernel is launched and nowhere else; "gemm" counts both instances of K1,
+# "gemm_tma" the TMA instance's share
+LAUNCHES = {"gemm": 0, "gemm_tma": 0, "lu_block": 0, "btrsm": 0, "batched_lu": 0,
             "batched_chol": 0}
 
 _GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -116,7 +120,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     from conflux_tpu_torch.ops import _build
 
     lib = _build.load()
-    rc = lib.conflux_gemm(
+    tma = gemm_instance(a, b, c, out) == "tma"
+    launch = lib.conflux_gemm_tma if tma else lib.conflux_gemm
+    rc = launch(
         _GEMM_DTYPES[a.dtype], a.device.index or 0, M, N, K,
         a.data_ptr(), _row_major_ld(a, "a"), b.data_ptr(), _row_major_ld(b, "b"),
         None if c is None else c.data_ptr(),
@@ -126,7 +132,20 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed: cudaError {rc}")
     LAUNCHES["gemm"] += 1
+    if tma:
+        LAUNCHES["gemm_tma"] += 1
     return out
+
+
+def gemm_instance(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None,
+                  out: torch.Tensor) -> str:
+    """Which instance of K1 :func:`gemm` runs on these operands: "tma"
+    where every operand's base address and row pitch are multiples of 16
+    bytes (what a TMA tensor map can describe), else "simt"."""
+    ops = [(a, "a"), (b, "b"), (out, "out")] + ([] if c is None else [(c, "c")])
+    aligned = all(x.data_ptr() % 16 == 0 and _row_major_ld(x, n) * x.element_size() % 16 == 0
+                  for x, n in ops)
+    return "tma" if aligned else "simt"
 
 
 # --------------------------------------------------------------------------- #
@@ -140,44 +159,80 @@ def lu_block_plain(a: torch.Tensor, alive: torch.Tensor):
     then one fused multiply-add per element, a - l * p rounded once. The
     FMA is computed in float64, where the product of two floats is exact,
     and rounded to float32 (equal to the fused result except on a
-    double-rounding tie, ~2^-29 of the operations)."""
-    m, w = a.shape
-    A = a.to(torch.float32).clone()
-    live = alive.reshape(m, -1)[:, 0] != 0
+    double-rounding tie, ~2^-29 of the operations). A batch (B, m, w) of
+    blocks runs the same steps on every slot at once."""
+    batched = a.dim() == 3
+    A = (a if batched else a[None]).to(torch.float32).clone()
+    B, m, w = A.shape
+    live = alive.reshape(B, m, -1)[:, :, 0] != 0
     rows = torch.arange(m, device=a.device)
+    slots = torch.arange(B, device=a.device)
     neg1 = torch.tensor(-1.0, device=a.device)
     pivs = []
     for j in range(w):
-        cand = torch.where(live, A[:, j].abs(), neg1)
-        p = torch.where(cand == cand.max(), rows, m).min()
+        cand = torch.where(live, A[:, :, j].abs(), neg1)
+        # m where no row ties the max (a NaN column), as the JAX kernel
+        # records it; its pivot row is then read clamped, as its slice is
+        p = torch.where(cand == cand.amax(1, keepdim=True), rows, m).amin(1)
         pivs.append(p)
-        prow = A.index_select(0, p.view(1))[0]
-        upd = live & (rows != p)
-        l = A[:, j] / prow[j]
-        fma = (A[:, j + 1:].double()
-               - l.double()[:, None] * prow[None, j + 1:].double()).float()
-        A[:, j + 1:] = torch.where(upd[:, None], fma, A[:, j + 1:])
-        A[:, j] = torch.where(upd, l, A[:, j])
+        prow = A[slots, p.clamp(max=m - 1)]  # (B, w)
+        upd = live & (rows != p[:, None])
+        l = A[:, :, j] / prow[:, j:j + 1]
+        fma = (A[:, :, j + 1:].double()
+               - l.double()[:, :, None] * prow[:, None, j + 1:].double()).float()
+        A[:, :, j + 1:] = torch.where(upd[:, :, None], fma, A[:, :, j + 1:])
+        A[:, :, j] = torch.where(upd, l, A[:, :, j])
         live = upd
-    piv = torch.stack(pivs).to(torch.int32)[None, :]
-    return A, live.to(torch.int32)[:, None], piv
+    piv = torch.stack(pivs, 1).to(torch.int32)[:, None, :]
+    alive_out = live.to(torch.int32)[:, :, None]
+    if not batched:
+        return A[0], alive_out[0], piv[0]
+    return A, alive_out, piv
+
+
+_WAVE_SLOTS: dict = {}  # (device index, m) -> slots one cooperative launch holds
+
+
+def lu_block_wave_slots(m: int, device: torch.device) -> int:
+    """Blocks of m rows that one cooperative K2 launch eliminates together
+    on the card `device` (its CTAs all resident at once): a batch of more
+    slots runs in several launches, one a wave. Raises where one block's
+    ceil(m / 256) CTAs do not fit the card (m > 33792 on an H100)."""
+    key = (device.index or 0, m)
+    if key not in _WAVE_SLOTS:
+        from conflux_tpu_torch.ops import _build
+
+        n = _build.load().conflux_lu_block_wave_slots(key[0], m)
+        if n < 0:
+            raise RuntimeError(f"lu_block occupancy query failed: cudaError {-n}")
+        if n == 0:
+            raise ValueError(f"lu_block: a block of {m} rows needs more CTAs than "
+                             "the card holds at once")
+        _WAVE_SLOTS[key] = n
+    return _WAVE_SLOTS[key]
 
 
 def lu_block(a: torch.Tensor, alive: torch.Tensor):
-    """Eliminate one (m, 128) float32 column block (no row movement).
+    """Eliminate one (m, 128) float32 column block (no row movement), or a
+    batch (B, m, 128) of independent blocks in one call.
 
     `alive` marks rows still eligible as pivots: (m,), (m, 1) or (m, 128)
-    (column 0 is read). Returns (out, alive_out, piv): `out` (m, 128) f32
-    holds U-row values at the pivot rows' original positions and L
-    multipliers at the rows live before the call; `alive_out` (m, 1)
-    int32; `piv` (1, 128) int32, the pivot row of each elimination step.
+    (column 0 is read), with a leading B for a batch. Returns (out,
+    alive_out, piv): `out` (m, 128) f32 holds U-row values at the pivot
+    rows' original positions and L multipliers at the rows live before the
+    call; `alive_out` (m, 1) int32; `piv` (1, 128) int32, the pivot row of
+    each elimination step; each with a leading B for a batch. A batch is
+    one cooperative launch per wave of slots that fit the card together
+    (:func:`lu_block_wave_slots`), and each slot's bits are those of a
+    call on that block alone.
     """
-    m, w = a.shape
-    if w != _PANEL_W or a.dtype != torch.float32:
-        raise ValueError(f"lu_block takes an (m, {_PANEL_W}) float32 block, "
-                         f"got {tuple(a.shape)} {a.dtype}")
-    if alive.shape[0] != m:
-        raise ValueError(f"alive has {alive.shape[0]} rows, block has {m}")
+    batched = a.dim() == 3
+    if a.dim() not in (2, 3) or a.shape[-1] != _PANEL_W or a.dtype != torch.float32:
+        raise ValueError(f"lu_block takes an (m, {_PANEL_W}) or (B, m, {_PANEL_W}) "
+                         f"float32 block, got {tuple(a.shape)} {a.dtype}")
+    if tuple(alive.shape[:a.dim() - 1]) != tuple(a.shape[:-1]):
+        raise ValueError(f"alive {tuple(alive.shape)} does not match the block "
+                         f"{tuple(a.shape)}")
     if a.device.type == "cpu":
         return lu_block_plain(a, alive)
     if a.device.type != "cuda":
@@ -186,25 +241,35 @@ def lu_block(a: torch.Tensor, alive: torch.Tensor):
 
     lib = _build.load()
     dev = a.device
-    alive_in = alive.reshape(m, -1)[:, 0].to(torch.int32).contiguous()
-    out = torch.empty((m, w), dtype=torch.float32, device=dev)
-    alive_out = torch.empty((m,), dtype=torch.int32, device=dev)
-    piv = torch.empty((1, w), dtype=torch.int32, device=dev)
-    if m == 0:
-        return out, alive_out[:, None], piv
-    g = lib.conflux_lu_block_ctas(m)
-    # per column and CTA: one (score, row) word, zero until published, and
-    # the candidate row
-    words = torch.zeros((w * g,), dtype=torch.int64, device=dev)
-    cand = torch.empty((w * g * w,), dtype=torch.float32, device=dev)
-    rc = lib.conflux_lu_block(
-        dev.index or 0, m, w, a.data_ptr(), _row_major_ld(a, "a"),
-        alive_in.data_ptr(), out.data_ptr(), alive_out.data_ptr(),
-        piv.data_ptr(), words.data_ptr(), cand.data_ptr(), _stream(a))
-    if rc != 0:
-        raise RuntimeError(f"lu_block kernel launch failed: cudaError {rc}")
-    LAUNCHES["lu_block"] += 1
-    return out, alive_out[:, None], piv
+    a3 = a if batched else a[None]
+    B, m, w = a3.shape
+    if m > 1 and a3.stride(2) != 1:
+        raise ValueError(f"lu_block needs contiguous rows (stride {a.stride()})")
+    lda, sa = max(a3.stride(1), w), a3.stride(0)
+    alive_in = alive.reshape(B, m, -1)[:, :, 0].to(torch.int32).contiguous()
+    out = torch.empty((B, m, w), dtype=torch.float32, device=dev)
+    alive_out = torch.empty((B, m, 1), dtype=torch.int32, device=dev)
+    piv = torch.empty((B, 1, w), dtype=torch.int32, device=dev)
+    if B and m:
+        g = lib.conflux_lu_block_ctas(m)
+        per = lu_block_wave_slots(m, dev)
+        # per slot, column and CTA: one (score, row) word, zero until
+        # published, and the candidate row; one memset for the whole batch
+        words = torch.zeros((B, w * g), dtype=torch.int64, device=dev)
+        cand = torch.empty((B, w * g * w), dtype=torch.float32, device=dev)
+        for s0 in range(0, B, per):
+            rc = lib.conflux_lu_block(
+                dev.index or 0, min(per, B - s0), m, w,
+                a3.data_ptr() + s0 * sa * a3.element_size(), lda, sa,
+                alive_in[s0].data_ptr(), out[s0].data_ptr(), alive_out[s0].data_ptr(),
+                piv[s0].data_ptr(), words[s0].data_ptr(), cand[s0].data_ptr(),
+                _stream(a))
+            if rc != 0:
+                raise RuntimeError(f"lu_block kernel launch failed: cudaError {rc}")
+            LAUNCHES["lu_block"] += 1
+    if not batched:
+        return out[0], alive_out[0], piv[0]
+    return out, alive_out, piv
 
 
 # --------------------------------------------------------------------------- #

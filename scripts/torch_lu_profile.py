@@ -13,8 +13,9 @@ right-hand side per system; (b) 32 (1024, 1024) f32 systems through the
 factor lane's checked bucket `_factor_health_fn(32)`; (c) and (d) the same
 with SPD plans (kind="chol") on SPD systems. Prints the device time of
 every kernel name over the traced run, the time and launches of each
-kernel of this repository (K1 `gemm`, K2 `lu_block`, K3 `btrsm`, K4
-`batched_lu`, K5 `batched_chol`), the device's busy and idle shares of the
+kernel of this repository (K1 `gemm`, both instances, and `gemm_tma`,
+its TMA instance; K2 `lu_block`, K3 `btrsm`, K4 `batched_lu`, K5
+`batched_chol`), the device's busy and idle shares of the
 traced wall time,
 and the tracing overhead (traced wall minus untraced wall); with --out,
 writes the same as JSON. Needs an NVIDIA card.
@@ -132,8 +133,10 @@ def main(argv=None) -> int:
     kernels.sort(key=lambda k: -k["device_ms"])
     busy_ms = sum(k["device_ms"] for k in kernels)
 
-    def share(tag):
-        return sum(k["device_ms"] for k in kernels if tag in k["name"])
+    def share(name):
+        # K1's two instances are gemm_tma_kernel and gemm_simt_kernel
+        tags = ("gemm_tma_kernel", "gemm_simt_kernel") if name == "gemm" else (f"{name}_kernel",)
+        return sum(k["device_ms"] for k in kernels if any(t in k["name"] for t in tags))
 
     rec = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -142,7 +145,7 @@ def main(argv=None) -> int:
         "tracing_overhead_ms": traced_ms - wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / traced_ms,
-        "repo_kernel_ms": {k: share(f"{k}_kernel") for k in launches},
+        "repo_kernel_ms": {k: share(k) for k in launches},
         "kernels": kernels,
     }
     print(smi)

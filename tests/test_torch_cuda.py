@@ -80,6 +80,90 @@ def test_lu_block_kernel_matches_plain(cuda, m, dead):
     torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("M,K,N", [(1000, 1000, 777), (300, 70, 516), (129, 33, 260),
+                                   (256, 1024, 512)])
+def test_gemm_tma_instance_matches_plain(cuda, M, K, N):
+    # ragged M, N and K (K not a multiple of the 32-deep stage), views
+    # with 16-byte row pitches: the TMA instance
+    def view(rows, cols, seed):
+        return _rand((rows, -(-cols // 4) * 4 + 4), seed, cuda)[:, :cols]
+
+    a, b, c = view(M, K, 1), view(K, N, 2), view(M, N, 3)
+    assert hk.gemm_instance(a, b, c, c) == "tma"
+    want = hk.gemm_plain(a, b, c, alpha=-1.0, beta=0.5)
+    before = dict(hk.LAUNCHES)
+    got = hk.gemm(a, b, c=c, alpha=-1.0, beta=0.5, out=c)  # in place: out is c
+    assert got is c
+    assert hk.LAUNCHES["gemm_tma"] == before["gemm_tma"] + 1
+    assert hk.LAUNCHES["gemm"] == before["gemm"] + 1
+    # f32 sums in another order: relative Frobenius 1e-5
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-5
+
+
+def test_gemm_tma_instance_bf16(cuda):
+    a = _rand((520, 200), 5, cuda, torch.bfloat16)  # K=200: not a multiple of 64
+    b = _rand((200, 392), 6, cuda, torch.bfloat16)
+    c = _rand((520, 392), 7, cuda, torch.bfloat16)
+    assert hk.gemm_instance(a, b, c, c) == "tma"
+    want = hk.gemm_plain(a, b, c, alpha=-1.0)
+    before = hk.LAUNCHES["gemm_tma"]
+    got = hk.gemm(a, b, c=c, alpha=-1.0)
+    assert hk.LAUNCHES["gemm_tma"] == before + 1 and got.dtype == torch.bfloat16
+    err = torch.linalg.norm((got - want).float()) / torch.linalg.norm(want.float())
+    assert float(err) <= 2 ** -8  # one bf16 rounding of the f32 sum
+
+
+def test_gemm_unaligned_view_runs_simt_instance(cuda):
+    big = _rand((300, 401), 4, cuda)
+    a, b, c = big[3:103, 5:65], big[110:170, 7:138], big[180:280, 200:331]
+    assert hk.gemm_instance(a, b, c, c) == "simt"
+    want = hk.gemm_plain(a, b, c, alpha=-1.0)
+    before = dict(hk.LAUNCHES)
+    hk.gemm(a, b, c=c, alpha=-1.0, out=c)
+    assert hk.LAUNCHES["gemm"] == before["gemm"] + 1
+    assert hk.LAUNCHES["gemm_tma"] == before["gemm_tma"]
+    assert float(torch.linalg.norm(c - want) / torch.linalg.norm(want)) <= 1e-5
+
+
+@pytest.mark.parametrize("B,m", [(8, 4096), (4, 2048), (12, 4096)])
+def test_lu_block_batched_slots_bitwise_alone(cuda, B, m):
+    # each slot of a batched launch has the bits of a launch on that block
+    # alone; (12, 4096) needs two cooperative waves on an H100 (8 slots of
+    # 16 CTAs each fit its 132 SMs)
+    a = _rand((B, m, 256), B * m, cuda)[:, :, 128:]  # strided, as the panel passes it
+    a[:, ::8] += 2.0
+    alive = torch.from_numpy(
+        (np.random.default_rng(m).random((B, m, 1)) >= 0.25).astype(np.int32)).to(cuda)
+    per = hk.lu_block_wave_slots(m, cuda)
+    before = hk.LAUNCHES["lu_block"]
+    out, al, piv = hk.lu_block(a, alive)
+    assert hk.LAUNCHES["lu_block"] == before + -(-B // per)
+    if B == 12:
+        assert per < B  # the case reaches a second wave
+    assert out.shape == (B, m, 128) and al.shape == (B, m, 1) and piv.shape == (B, 1, 128)
+    for i in range(B):
+        o1, a1, p1 = hk.lu_block(a[i], alive[i])
+        assert torch.equal(out[i], o1) and torch.equal(al[i], a1) and torch.equal(piv[i], p1)
+    for i in (0, B - 1):
+        o_p, a_p, p_p = hk.lu_block_plain(a[i], alive[i])
+        assert torch.equal(piv[i], p_p) and torch.equal(al[i], a_p)
+        torch.testing.assert_close(out[i], o_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nch", [3, 8])
+def test_tournament_winners_cuda_matches_cpu(cuda, nch, monkeypatch):
+    from conflux_tpu_torch.ops import blas
+
+    monkeypatch.setattr(blas, "_PALLAS_MAX_ROWS", 512)
+    panel = make_test_matrix(512 * nch, 256, seed=nch).astype(np.float32)
+    before = hk.LAUNCHES["lu_block"]
+    lu_g, gpiv_g = blas.tournament_winners(torch.from_numpy(panel).to(cuda), chunk=512)
+    assert hk.LAUNCHES["lu_block"] - before == blas.lu_block_launches(512 * nch, 256, cuda)
+    lu_c, gpiv_c = blas.tournament_winners(torch.from_numpy(panel), chunk=512)
+    assert torch.equal(gpiv_g.cpu(), gpiv_c)
+    torch.testing.assert_close(lu_g.cpu(), lu_c, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("N,v", [(512, 128), (2048, 256)])
 def test_lu_factor_blocked_cuda_matches_cpu(cuda, N, v):
     A = make_test_matrix(N, N, seed=7).astype(np.float32)
