@@ -108,8 +108,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.conflux_lu_block_wave_slots.restype = i
     lib.conflux_btrsm.argtypes = [
         i, i, i,  # dtype code, device, batch
-        i, i, i, i, i, i,  # n, nb, bs, k, kt, lower
-        p, p, p, p,  # t, dinv, b, x
+        i, i, i, i,  # n, nb, bs, k
+        i, i,  # mode (0 lower, 1 upper, 2 round), trans
+        p, p, p, p, p, p,  # t, d1, d2 (may be NULL), b, perm (may be NULL), wa (may be NULL)
+        p, p, p,  # x, xsum, wax (both NULL without wa)
         p]  # stream
     lib.conflux_btrsm.restype = i
     lib.conflux_batched_lu.argtypes = [

@@ -14,10 +14,11 @@ Two implementations share the contract:
   :func:`blocked_solve_probe`), batch-generic: leading batch axes take the
   place of the JAX package's `vmap`. It is K3's plain version,
   `hopper_kernels.btrsm_plain`;
-- the hand-written CUDA kernel `hopper_kernels.btrsm` (K3), which runs the
-  step loop inside one CTA per system with the running right-hand side in
-  shared memory. :func:`blocked_trsm` sends every operand there (the plain
-  version on a CPU tensor).
+- the hand-written CUDA kernel K3 (`hopper_kernels.btrsm`, and
+  `hopper_kernels.btrsm_pair` for a whole solve round), which runs the
+  step loop in a thread-block cluster per system with the running
+  right-hand side in shared memory. :func:`blocked_trsm` sends every
+  operand there (the plain version on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -100,9 +101,10 @@ def blocked_solve_probe(T, dinv, b, wA, *, lower: bool = False,
                         stats_dtype=None):
     """:func:`blocked_solve` plus the Freivalds probe stats of its x:
     returns (x, xsum, wAx) (:func:`probe_stats`). The JAX package
-    accumulates the stats inside its block loop; here they are taken from
-    x after the loop, as checked serve solves take them after K3. Defaults
-    to the back solve, the last of a factorization's substitutions."""
+    accumulates the stats inside its block loop, as K3's round does
+    (`hopper_kernels.btrsm_pair`); here they are taken from x after the
+    loop. Defaults to the back solve, the last of a factorization's
+    substitutions."""
     x = blocked_solve(T, dinv, b, lower=lower)
     return (x, *probe_stats(x, wA, stats_dtype))
 

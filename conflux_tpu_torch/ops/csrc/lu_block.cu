@@ -7,7 +7,10 @@
 // the pivot is the max |a| over live rows (dead rows score -1, so a live
 // zero beats them; ties go to the lowest row); it is recorded in piv[j];
 // every live non-pivot row gets its multiplier a[r, j] / a[p, j] in column
-// j and a rank-1 update of the columns after j; the pivot row dies.
+// j and a rank-1 update of the columns after j; the pivot row dies. The
+// max is `jnp.max`'s: a NaN score beats every number, and a NaN winner
+// ties no row, so p = m is recorded, the pivot row is read clamped to row
+// m - 1 and no live row dies (every live row is updated).
 //
 // Bound on an H100: latency. A (4096, 128) block moves ~4 MB and does ~67
 // Mflop, ~1.3 us of the card's bytes and ~1 us of its f32 rate, but its 128
@@ -29,7 +32,11 @@
 // row + 1; nonzero, so the word is its own ready flag) beside its
 // candidate's current row. Every CTA waits for all words of the column,
 // reduces them in one fixed order (so all CTAs agree on the pivot) and
-// reads the winning row from L2. Scratch is indexed by column, so no slot
+// reads the winning row from L2 (after a NaN election, which is rare, the
+// last CTA publishes row m - 1 as it holds it and raises the column's
+// flag, a second exchange only for that column). Scores are compared as
+// integers, in which a NaN is above +inf: the same compare per reduction
+// step as a float max. Scratch is indexed by column, so no slot
 // is reused within a launch and the word wait is the only grid-wide
 // synchronisation. The exchange is pipelined one column ahead: after a
 // pivot arrives, each row first eliminates column j+1 only, the CTA
@@ -53,34 +60,40 @@ constexpr int LDS = W + 4;    // padded shared-memory row stride (16-byte rows)
 constexpr long long WAIT_CYCLES = 20000000000LL;
 constexpr size_t SMEM_BYTES = (static_cast<size_t>(ROWS) * LDS + W) * sizeof(float);
 
-__device__ __forceinline__ bool better(float v, int r, float bv, int br) {
+// A live row's score is the bits of |a| as an integer: they order as the
+// floats do, with a (positive) NaN above +inf, as jnp.max ranks it. A dead
+// row scores -1 and a thread without a row INT_MIN.
+constexpr int INF_KEY = 0x7f800000;  // the score of |a| = +inf; above it: NaN
+constexpr int DEAD_KEY = -1;
+
+__device__ __forceinline__ bool better(int v, int r, int bv, int br) {
   return v > bv || (v == bv && r < br);
 }
 
-__device__ __forceinline__ unsigned long long pack(float v, int row) {
-  return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
+__device__ __forceinline__ unsigned long long pack(int key, int row) {
+  return (static_cast<unsigned long long>(static_cast<unsigned int>(key)) << 32) |
          static_cast<unsigned int>(row + 1);
 }
 
 struct Block {
   float* s;      // ROWS x LDS rows of this CTA
   float* prow;   // the current pivot row
-  float* wval;   // per-warp argmax partials
+  int* wval;     // per-warp argmax partials (score keys)
   int* wrow;
   int* s_row;    // CTA-wide broadcast slots
   int* s_cta;
 };
 
 // Local argmax of column j over this CTA's rows; returns the winner's
-// global row (the same value in every thread) and its score in *val.
+// global row (the same value in every thread) and its score's key in *val.
 __device__ int local_argmax(const Block& B, int j, int r0, bool mine,
-                            bool live, float* val_out) {
+                            bool live, int* val_out) {
   const int t = threadIdx.x;
-  float val = mine ? (live ? fabsf(B.s[t * LDS + j]) : -1.f) : -INFINITY;
+  int val = mine ? (live ? __float_as_int(fabsf(B.s[t * LDS + j])) : DEAD_KEY) : INT_MIN;
   int row = mine ? r0 + t : INT_MAX;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, val, off);
+    const int ov = __shfl_down_sync(0xffffffffu, val, off);
     const int orow = __shfl_down_sync(0xffffffffu, row, off);
     if (better(ov, orow, val, row)) { val = ov; row = orow; }
   }
@@ -103,7 +116,7 @@ lu_block_kernel(int m, const float* __restrict__ a, int lda, long long sa,
                 int* __restrict__ alive_out, int* __restrict__ piv,
                 unsigned long long* words, float* cand_rows) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float wval[ROWS / 32];
+  __shared__ int wval[ROWS / 32];
   __shared__ int wrow[ROWS / 32];
   __shared__ int s_row, s_cta;
   const Block B{smem, smem + ROWS * LDS, wval, wrow, &s_row, &s_cta};
@@ -116,10 +129,12 @@ lu_block_kernel(int m, const float* __restrict__ a, int lda, long long sa,
   out += slot * m * W;
   alive_out += slot * m;
   piv += slot * W;
-  words += slot * W * G;
+  words += slot * (W * G + W);  // per column: G election words, then a NaN flag
+  volatile unsigned long long* nan_flags = words + W * G;
   cand_rows += slot * W * G * W;
   const int r0 = cta * ROWS;
   const int nrows = min(ROWS, m - r0);
+  const bool last = cta == G - 1;  // holds row m - 1
   for (int idx = t; idx < nrows * W; idx += ROWS) {
     const int r = idx / W, c = idx % W;
     B.s[r * LDS + c] = a[static_cast<size_t>(r0 + r) * lda + c];
@@ -131,7 +146,7 @@ lu_block_kernel(int m, const float* __restrict__ a, int lda, long long sa,
 
   // column 0's candidate: the rows are as loaded
   {
-    float val;
+    int val;
     const int lw = local_argmax(B, 0, r0, mine, live, &val) - r0;
     if (t < W) cand_rows[static_cast<size_t>(cta) * W + t] = B.s[lw * LDS + t];
     __syncthreads();
@@ -145,34 +160,57 @@ lu_block_kernel(int m, const float* __restrict__ a, int lda, long long sa,
     // 1. all candidates of column j: reduce in one fixed order
     if (t < 32) {
       const long long t0 = clock64();
-      float bv = -INFINITY;
+      int bv = INT_MIN;
       int br = INT_MAX, bc = 0;
       for (int g = t; g < G; g += 32) {
         volatile unsigned long long* wp = words + static_cast<size_t>(j) * G + g;
         unsigned long long wd;
         while ((wd = *wp) == 0ull)
           if (clock64() - t0 > WAIT_CYCLES) __trap();
-        const float v = __uint_as_float(static_cast<unsigned int>(wd >> 32));
+        const int v = static_cast<int>(static_cast<unsigned int>(wd >> 32));
         const int r = static_cast<int>(wd & 0xffffffffull) - 1;
         if (better(v, r, bv, br)) { bv = v; br = r; bc = g; }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
+        const int ov = __shfl_down_sync(0xffffffffu, bv, off);
         const int orow = __shfl_down_sync(0xffffffffu, br, off);
         const int oc = __shfl_down_sync(0xffffffffu, bc, off);
         if (better(ov, orow, bv, br)) { bv = ov; br = orow; bc = oc; }
       }
       if (t == 0) {
         __threadfence();  // the winner's row was published before its word
-        s_row = br;
+        // a NaN winner ties no row: p = m, its pivot row row m - 1
+        s_row = bv > INF_KEY ? m : br;
         s_cta = bc;
-        if (cta == 0) piv[j] = br;
+        if (cta == 0) piv[j] = s_row;
       }
     }
     __syncthreads();
     const int p = s_row;
-    if (t < W) B.prow[t] = __ldcg(cand_rows + (static_cast<size_t>(j) * G + s_cta) * W + t);
+    if (p == m) {
+      // row m - 1 as it stands, through the last CTA's candidate slot (no
+      // CTA reads a candidate of this column)
+      float* slot_row = cand_rows + (static_cast<size_t>(j) * G + G - 1) * W;
+      if (last) {
+        if (t < W) slot_row[t] = B.s[(m - 1 - r0) * LDS + t];
+        __syncthreads();
+        if (t == 0) {
+          __threadfence();
+          nan_flags[j] = 1ull;
+        }
+      }
+      if (t == 0) {
+        const long long t0 = clock64();
+        while (nan_flags[j] == 0ull)
+          if (clock64() - t0 > WAIT_CYCLES) __trap();
+        __threadfence();
+      }
+      __syncthreads();
+      if (t < W) B.prow[t] = __ldcg(slot_row + t);
+    } else if (t < W) {
+      B.prow[t] = __ldcg(cand_rows + (static_cast<size_t>(j) * G + s_cta) * W + t);
+    }
     __syncthreads();
 
     // 2. multipliers, and column j+1 only
@@ -188,14 +226,14 @@ lu_block_kernel(int m, const float* __restrict__ a, int lda, long long sa,
 
     // 3. publish column j+1's candidate; its row is finished on the fly
     //    (the same FMAs its owner applies in step 4)
-    float val;
+    int val;
     const int lw = local_argmax(B, j + 1, r0, mine, live, &val) - r0;
     if (t < W) {
       // a live winner (score >= 0; dead rows score -1) was eliminated in
       // step 2 and holds its multiplier in column j
       const float* wr = B.s + lw * LDS;
       float x = wr[t];
-      if (t > j + 1 && val >= 0.f) x = __fmaf_rn(-wr[j], B.prow[t], x);
+      if (t > j + 1 && val >= 0) x = __fmaf_rn(-wr[j], B.prow[t], x);
       cand_rows[(static_cast<size_t>(j + 1) * G + cta) * W + t] = x;
     }
     __syncthreads();
@@ -276,7 +314,7 @@ extern "C" int conflux_lu_block_wave_slots(int device, int m) {
 // One cooperative launch over `slots` blocks of (m, w) f32: slot s's block
 // starts at a + s * sa (leading dimension lda); alive_in, alive_out: (slots,
 // m) int32; out: (slots, m, w) f32 contiguous; piv: (slots, w) int32.
-// Scratch per slot, G = ctas(m): words (w * G) uint64 zeroed, cand_rows
+// Scratch per slot, G = ctas(m): words (w * G + w) uint64 zeroed, cand_rows
 // (w * G * w) f32, slot-major. slots must not exceed wave_slots(m).
 // Returns the cudaError_t of the launch.
 extern "C" int conflux_lu_block(int device, int slots, int m, int w,

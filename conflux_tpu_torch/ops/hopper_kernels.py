@@ -11,8 +11,11 @@ is CUDA C++ for sm_90a under `ops/csrc/`, built at first use by
 - `lu_block` (`csrc/lu_block.cu`) replaces `pallas_kernels._lu_block`: the
   masked panel elimination of one (m, 128) column block, or of a batch of
   independent blocks in one cooperative launch;
-- `btrsm` (`csrc/btrsm.cu`) replaces `batched_trsm._pallas_btrsm`: the
-  batched blocked triangular solve through diagonal-block inverses;
+- `btrsm` and `btrsm_pair` (`csrc/btrsm.cu`) replace
+  `batched_trsm._pallas_btrsm`: the batched blocked triangular solve
+  through diagonal-block inverses, one substitution or a whole solve round
+  (forward on the permuted right-hand side, back, the probe stats) in one
+  launch of a thread-block cluster per system;
 - `batched_lu` (`csrc/batched_lu.cu`) replaces `pallas_factor._pallas_blu`:
   the batched partial-pivot LU of the LU serve plans' factor, with the
   fused probe row;
@@ -26,7 +29,8 @@ trailing updates back `kb` columns, applied per element in column order
 the same chain of roundings per element as their plain versions.
 
 Beside each kernel sits its plain PyTorch version (`gemm_plain`,
-`lu_block_plain`, `btrsm_plain`, `batched_lu_plain`, `batched_chol_plain`),
+`lu_block_plain`, `btrsm_plain`, `btrsm_pair_plain`, `batched_lu_plain`,
+`batched_chol_plain`),
 the same function written with tensor ops. The dispatch
 rule: a CUDA tensor goes to the kernel (or the call raises), a CPU tensor
 goes to the plain version; nothing falls back. `LAUNCHES` counts each
@@ -254,8 +258,9 @@ def lu_block(a: torch.Tensor, alive: torch.Tensor):
         g = lib.conflux_lu_block_ctas(m)
         per = lu_block_wave_slots(m, dev)
         # per slot, column and CTA: one (score, row) word, zero until
-        # published, and the candidate row; one memset for the whole batch
-        words = torch.zeros((B, w * g), dtype=torch.int64, device=dev)
+        # published, and the candidate row; per column a flag raised where
+        # a NaN election publishes row m - 1; one memset for the whole batch
+        words = torch.zeros((B, w * g + w), dtype=torch.int64, device=dev)
         cand = torch.empty((B, w * g * w), dtype=torch.float32, device=dev)
         for s0 in range(0, B, per):
             rc = lib.conflux_lu_block(
@@ -273,11 +278,11 @@ def lu_block(a: torch.Tensor, alive: torch.Tensor):
 
 
 # --------------------------------------------------------------------------- #
-# K3: batched blocked triangular solve
+# K3: batched blocked triangular solve, one substitution or a whole round
 # --------------------------------------------------------------------------- #
 
-_BTRSM_KT = 16  # right-hand-side columns per CTA
-_SMEM_MAX = 227 * 1024  # dynamic shared memory one H100 CTA may use
+_BTRSM_MAX_BS = 32  # widest diagonal block of a K3 launch (wider ones are split)
+_BTRSM_MODES = {"lower": 0, "upper": 1, "pair": 2}
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -327,41 +332,148 @@ def btrsm_plain(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
     return torch.cat(xs, -2)[..., :n, :].to(b.dtype)
 
 
+def _operand(x: torch.Tensor | None, dtype: torch.dtype, device: torch.device, name: str):
+    """x as the kernel reads it: on `device`, contiguous, of `dtype` (no
+    copy where it already is)."""
+    if x is None:
+        return None
+    if x.device != device:
+        raise ValueError(f"btrsm: {name} is on {x.device}, T on {device}")
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _narrow_blocks(d: torch.Tensor, n: int) -> torch.Tensor:
+    """The (w, w) diagonal sub-blocks of a (B, nb, bs, bs) stack of
+    diagonal-block inverses, w the widest of 32 or less that divides bs,
+    as a (B, ceil(n / w), w, w) stack. The inverse of a block triangle has
+    the inverses of its diagonal blocks on its diagonal, so a launch with
+    blocks w wide (panels inside the wide blocks read from T) solves the
+    same triangle."""
+    B, nb, bs = d.shape[0], d.shape[1], d.shape[-1]
+    w = next(w for w in range(_BTRSM_MAX_BS, 0, -1) if bs % w == 0)
+    m = bs // w
+    sub = d.reshape(B, nb, m, w, m, w).diagonal(dim1=2, dim2=4)  # (B, nb, w, w, m)
+    return sub.permute(0, 1, 4, 2, 3).reshape(B, nb * m, w, w)[:, :-(-n // w)]
+
+
+def _btrsm_launch(mode: str, T, d1, d2, b, perm=None, trans=False, wA=None):
+    """One K3 launch on the card. Returns x (B, n, k) in the accumulation
+    dtype and, with wA, the stats (2, B): xsum and wAx of the final solve."""
+    acc = _acc_dtype(T.dtype)
+    if acc not in _F32_F64:
+        raise ValueError(f"btrsm accumulates in float32 or float64, got {acc}")
+    B, n, k = b.shape
+    if d1.shape[-1] > _BTRSM_MAX_BS:
+        d1 = _narrow_blocks(d1, n)
+        d2 = None if d2 is None else _narrow_blocks(d2, n)
+    nb, bs = d1.shape[1], d1.shape[-1]
+    dev = T.device
+    Tc = _operand(T, acc, dev, "T")
+    D1 = _operand(d1, acc, dev, "dinv")
+    D2 = _operand(d2, acc, dev, "Du")
+    bc = _operand(b, acc, dev, "b")
+    wc = _operand(wA, acc, dev, "wA")
+    pc = _operand(perm, torch.int64, dev, "perm")
+    x = torch.empty((B, n, k), dtype=acc, device=dev)
+    stats = None if wA is None else torch.empty((2, B), dtype=acc, device=dev)
+    if B == 0 or n == 0 or k == 0:
+        return x, None if stats is None else stats.zero_()
+    from conflux_tpu_torch.ops import _build
+
+    sp = None if stats is None else stats.data_ptr()
+    rc = _build.load().conflux_btrsm(
+        _F32_F64[acc], dev.index or 0, B, n, nb, bs, k, _BTRSM_MODES[mode], int(trans),
+        Tc.data_ptr(), D1.data_ptr(), None if D2 is None else D2.data_ptr(), bc.data_ptr(),
+        None if pc is None else pc.data_ptr(), None if wc is None else wc.data_ptr(),
+        x.data_ptr(), sp, None if sp is None else sp + B * stats.element_size(), _stream(T))
+    if rc != 0:
+        raise RuntimeError(f"btrsm kernel launch failed: cudaError {rc} (n={n} {acc}, k={k})")
+    LAUNCHES["btrsm"] += 1
+    return x, stats
+
+
 def btrsm(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
           lower: bool = True) -> torch.Tensor:
     """Solve T x = b for a batch of triangles through their diagonal-block
     inverses: T (B, n, n) (a packed LU is fine: the other triangle is never
     read), dinv (B, nb, bs, bs) from `batched_trsm.diag_block_inverses`,
     b (B, n, k). Accumulates in promote(T.dtype, f32); returns x (B, n, k)
-    in b.dtype."""
+    in b.dtype. One K3 launch."""
     _check_btrsm(T, dinv, b)
     if T.device.type == "cpu":
         return btrsm_plain(T, dinv, b, lower)
     if T.device.type != "cuda":
         raise ValueError(f"btrsm runs on cuda or cpu tensors, got {T.device}")
-    acc = _acc_dtype(T.dtype)
-    if acc not in _F32_F64:
-        raise ValueError(f"btrsm accumulates in float32 or float64, got {acc}")
-    B, n, k = b.shape
-    nb, bs = dinv.shape[1], dinv.shape[-1]
-    Tc, Dc, bc = (x.to(acc).contiguous() for x in (T, dinv, b))
-    x = torch.empty((B, n, k), dtype=acc, device=T.device)
-    if B == 0 or k == 0:
-        return x.to(b.dtype)
-    row_bytes = (nb * bs + bs) * Tc.element_size()
-    kt = min(k, _BTRSM_KT, _SMEM_MAX // row_bytes)
-    if kt < 1:
-        raise ValueError(f"btrsm: n={n} {acc} does not fit one CTA's shared memory")
-    from conflux_tpu_torch.ops import _build
+    return _btrsm_launch("lower" if lower else "upper", T, dinv, None, b)[0].to(b.dtype)
 
-    lib = _build.load()
-    rc = lib.conflux_btrsm(
-        _F32_F64[acc], T.device.index or 0, B, n, nb, bs, k, kt, int(lower),
-        Tc.data_ptr(), Dc.data_ptr(), bc.data_ptr(), x.data_ptr(), _stream(T))
-    if rc != 0:
-        raise RuntimeError(f"btrsm kernel launch failed: cudaError {rc}")
-    LAUNCHES["btrsm"] += 1
-    return x.to(b.dtype)
+
+def _check_pair(T, Dl, Du, b, perm, trans_back, wA) -> None:
+    _check_btrsm(T, Dl, b)
+    if trans_back:
+        if Du is not None:
+            raise ValueError("btrsm_pair with trans_back reads Dl transposed: pass Du=None")
+    elif Du is None or Du.shape != Dl.shape:
+        raise ValueError(f"Du {None if Du is None else tuple(Du.shape)} must match Dl "
+                         f"{tuple(Dl.shape)}")
+    want = tuple(b.shape[:2])
+    if perm is not None and (tuple(perm.shape) != want or perm.is_floating_point()):
+        raise ValueError(f"perm must be integer {want}, got {tuple(perm.shape)} {perm.dtype}")
+    if wA is not None and tuple(wA.shape) != want:
+        raise ValueError(f"wA must be {want}, got {tuple(wA.shape)}")
+
+
+def btrsm_pair_plain(T: torch.Tensor, Dl: torch.Tensor, Du: torch.Tensor | None,
+                     b: torch.Tensor, perm: torch.Tensor | None = None,
+                     trans_back: bool = False, wA: torch.Tensor | None = None):
+    """The plain version of :func:`btrsm_pair`: :func:`btrsm_plain` forward
+    through (T, Dl) on b[perm], then back through (T, Du), or through
+    (T^T, Dl^T) with `trans_back`. With wA, the probe stats of the back
+    solve are added per block in its order (the last block first), in the
+    accumulation dtype, as the JAX `_blocked_core(..., wA=...)` adds them
+    in its block loop. Leading axes are batch axes."""
+    r = b if perm is None else torch.gather(b, -2, perm[..., None].expand(b.shape))
+    y = btrsm_plain(T, Dl, r, lower=True)
+    if trans_back:
+        x = btrsm_plain(T.mT, Dl.mT, y, lower=False)
+    else:
+        x = btrsm_plain(T, Du, y, lower=False)
+    if wA is None:
+        return x
+    acc = _acc_dtype(T.dtype)
+    xc, wc = x.to(acc), wA.to(acc)
+    nb, bs = Dl.shape[-3], Dl.shape[-1]
+    xsum = xc.new_zeros(xc.shape[:-2])
+    wAx = xc.new_zeros(xc.shape[:-2])
+    for j in range(nb - 1, -1, -1):
+        blk = xc[..., j * bs:(j + 1) * bs, :]
+        xsum = xsum + blk.sum(dim=(-2, -1))
+        wAx = wAx + (wc[..., j * bs:(j + 1) * bs] * blk[..., 0]).sum(-1)
+    return x, xsum, wAx
+
+
+def btrsm_pair(T: torch.Tensor, Dl: torch.Tensor, Du: torch.Tensor | None,
+               b: torch.Tensor, *, perm: torch.Tensor | None = None,
+               trans_back: bool = False, wA: torch.Tensor | None = None):
+    """A whole solve round in one K3 launch: T_fwd y = b[perm], then
+    T_bwd x = y. T (B, n, n) is a packed LU (forward through its unit
+    lower triangle's inverses Dl, back through its upper triangle's Du)
+    or, with `trans_back`, the Cholesky factor L (back through L^T and
+    Dl^T, read transposed in place: pass Du=None). perm (B, n), when
+    given, picks b's rows as they are read. With the probe row wA (B, n),
+    returns (x, xsum, wAx): xsum = sum(x) per system (NaN or Inf anywhere
+    in x poisons it) and wAx = wA . x[:, 0], accumulated per block of the
+    back solve in its order; x's bits do not depend on whether wA is
+    given. Else returns x (B, n, k) in b.dtype."""
+    _check_pair(T, Dl, Du, b, perm, trans_back, wA)
+    if T.device.type == "cpu":
+        return btrsm_pair_plain(T, Dl, Du, b, perm, trans_back, wA)
+    if T.device.type != "cuda":
+        raise ValueError(f"btrsm_pair runs on cuda or cpu tensors, got {T.device}")
+    x, stats = _btrsm_launch("pair", T, Dl, Du, b, perm, trans_back, wA)
+    x = x.to(b.dtype)
+    return x if wA is None else (x, stats[0], stats[1])
 
 
 # --------------------------------------------------------------------------- #

@@ -15,10 +15,10 @@ with only the O(N^2) substitution against factors that stay on the card:
 
     plan = FactorPlan.create((32, 256, 256), torch.float32, v=128)
     session = plan.factor(A)          # O(N^3), once, on the K4 kernel
-    x = session.solve(b)              # O(N^2), two K3 launches
+    x = session.solve(b)              # O(N^2), one K3 launch
 
     spd = FactorPlan.create((32, 256, 256), torch.float32, v=128, kind="chol")
-    x = spd.factor(S).solve(b)        # K5 once, then two K3 launches
+    x = spd.factor(S).solve(b)        # K5 once, then one K3 launch a round
 
 Every plan factors through a batched factor kernel (`ops.batched_factor`):
 LU plans through K4, SPD plans (``kind="chol"``, or the legacy
@@ -27,8 +27,10 @@ plan made with ``backend="pallas"``. ``plan.factor`` rides bucket 1 of the
 factor lane's stacked program, so a session it opens and one opened by a
 coalesced bucket carry the same bits. Blocked plans (the default) solve
 through the batched blocked triangular-solve kernel (K3,
-`ops.batched_trsm.blocked_trsm`): the batched form of the block loop the
-JAX programs vmap; an SPD plan's back solve runs through L^T.
+`hopper_kernels.btrsm_pair`): the batched form of the block loop the JAX
+programs vmap, a whole round (the row permutation, forward, back, and
+for checked solves the probe stats) in one launch; an SPD plan's back
+solve reads L^T in place.
 
 Ported: LU and Cholesky plans (single and batched, float32 and float64,
 substitution blocked|trsm|inv, `refine` sweeps), checked solves and the
@@ -52,8 +54,8 @@ from conflux_tpu_torch import profiler
 from conflux_tpu_torch.batched import cholesky_solve_batched, unstack_tree
 from conflux_tpu_torch.device import resolve_device
 from conflux_tpu_torch.lu.single import from_numpy
-from conflux_tpu_torch.ops import blas
-from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses, probe_stats
+from conflux_tpu_torch.ops import blas, hopper_kernels
+from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
 from conflux_tpu_torch.solvers import lu_solve
 from conflux_tpu_torch.update import (
     DriftPolicy,
@@ -271,14 +273,34 @@ class FactorPlan:
     # solve programs
     # ------------------------------------------------------------------ #
 
-    def _btrsm(self, T, D, r, lower: bool):
-        """Blocked substitution of every system of a stack at once on the
-        K3 kernel: leading axes fold into its batch."""
+    @staticmethod
+    def _pair(T, Dl, Du, r, perm=None, wA=None):
+        """A blocked solve round of every system of a stack at once, one
+        K3 launch (`hopper_kernels.btrsm_pair`): leading axes fold into its
+        batch. Du None: the SPD back solve through T^T and Dl^T. Returns x,
+        or (x, xsum, wAx) with the probe row wA."""
         n, k = r.shape[-2:]
-        x = blas.blocked_trsm(T.reshape(-1, n, n), r.reshape(-1, n, k),
-                              lower=lower, dinv=D.reshape((-1,) + D.shape[-3:]),
-                              backend=self.key.backend)
-        return x.reshape(r.shape)
+        lead = r.shape[:-2]
+
+        def fold(x, tail):
+            return None if x is None else x.reshape((-1,) + x.shape[x.dim() - tail:])
+
+        out = hopper_kernels.btrsm_pair(
+            fold(T, 2), fold(Dl, 3), fold(Du, 3), r.reshape(-1, n, k),
+            perm=fold(perm, 1), trans_back=Du is None, wA=fold(wA, 1))
+        if wA is None:
+            return out.reshape(r.shape)
+        x, xsum, wAx = out
+        return x.reshape(r.shape), xsum.reshape(lead), wAx.reshape(lead)
+
+    def _blocked_round(self, factors, r, wA=None):
+        """A blocked plan's solve round on its factors, (LU, Dl, Du, perm)
+        or, SPD, (L, Dl): :meth:`_pair`."""
+        if self._spd:
+            L, Dl = factors
+            return self._pair(L.to(Dl.dtype), Dl, None, r.to(Dl.dtype), None, wA)
+        LU, Dl, Du, perm = factors
+        return self._pair(LU.to(Dl.dtype), Dl, Du, r.to(Dl.dtype), perm, wA)
 
     @property
     def _spd(self) -> bool:
@@ -293,14 +315,7 @@ class FactorPlan:
         if self._spd:
             return self._spd_corr(factors)
         if k.substitution == "blocked":
-            LU, Dl, Du, perm = factors
-
-            def corr(r):
-                LUc = LU.to(Dl.dtype)
-                y = self._btrsm(LUc, Dl, _take_rows(r.to(Dl.dtype), perm),
-                                lower=True)
-                return self._btrsm(LUc, Du, y, lower=False)
-            return corr
+            return lambda r: self._blocked_round(factors, r)
         if k.substitution == "inv":
             Li, Ui, perm = factors
 
@@ -320,17 +335,11 @@ class FactorPlan:
 
     def _spd_corr(self, factors):
         """:meth:`_base_corr` of an SPD plan: forward through L, back
-        through L^T. Blocked plans run both on K3, the back solve with the
-        transposed diagonal-block inverses Du = Dl^T."""
+        through L^T. Blocked plans run both in one K3 launch, the back solve
+        reading L and the diagonal-block inverses Dl transposed."""
         k = self.key
         if k.substitution == "blocked":
-            L, Dl = factors
-
-            def corr(r):
-                Lc = L.to(Dl.dtype)
-                y = self._btrsm(Lc, Dl, r.to(Dl.dtype), lower=True)
-                return self._btrsm(Lc.mT, Dl.mT, y, lower=False)
-            return corr
+            return lambda r: self._blocked_round(factors, r)
         if k.substitution == "inv":
             Li = factors[0]
 
@@ -568,12 +577,12 @@ class FactorPlan:
     def _blocked_probe_body(self, factors, wA, b2):
         """Blocked solve plus the probe stats: (x, xsum, wAx) with
         xsum = sum(x) per system (the finite accumulator) and
-        wAx = wA . x[:, 0] (`batched_trsm.probe_stats`). The JAX package
-        accumulates them inside its block loop; K3 has no epilogue yet, so
-        here they are two reductions over x after the back solve."""
+        wAx = wA . x[:, 0], accumulated per block of the back solve in the
+        same K3 launch, as the JAX package accumulates them in its block
+        loop."""
         cdtype = blas.compute_dtype(_torch_dtype(self.key.dtype))
-        x = self._base_corr(factors)(b2).to(cdtype)
-        return (x, *probe_stats(x, wA))
+        x, xsum, wAx = self._blocked_round(factors, b2, wA)
+        return x.to(cdtype), xsum, wAx
 
     def _solve_health_fn(self, nrhs: int):
         """The checked substitution program per RHS bucket, what

@@ -1,12 +1,15 @@
 """Host-clock times of the serving rounds of `conflux_tpu_torch` on the card.
 
-    python scripts/torch_serve_rounds.py [--serve a|c] [--trials 10] [--root DIR]
+    python scripts/torch_serve_rounds.py [--serve a|c] [--trials 10] [--repeat 1] [--root DIR]
 
 Builds `chip_smoke.py`'s serving configuration (a), a (32, 256, 256) f32
 LU plan with v=128, or (c), the same shape as an SPD plan (kind="chol"),
 factors it once, and then in each trial times 16 `solve` rounds and 16
 `solve_checked` rounds (one right-hand side per system) with the host clock
-and one synchronize per 16 rounds, as `chip_smoke.py` does. `--root` imports
+and one synchronize per 16 rounds, as `chip_smoke.py` does; `--repeat R`
+runs the 16 rounds R times in each timing, one synchronize at the end (a
+longer window: the host clock of one 16-round window varies by tens of
+percent between trials and processes). `--root` imports
 the package from another checkout, so that two commits can be compared on
 one card in one call: run parent, change, change, parent. Prints one JSON
 line: the microseconds per round of every trial, their medians, and the
@@ -32,6 +35,7 @@ def main(argv=None) -> int:
     p.add_argument("--serve", choices=("a", "c"), default="a")
     p.add_argument("--trials", type=int, default=10)
     p.add_argument("--rounds", type=int, default=16)
+    p.add_argument("--repeat", type=int, default=1)
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    help="checkout whose conflux_tpu_torch is imported")
     args = p.parse_args(argv)
@@ -62,10 +66,11 @@ def main(argv=None) -> int:
 
     def per_round_us(fn) -> float:
         t0 = time.perf_counter()
-        for b in rhs:
-            fn(b)
+        for _ in range(args.repeat):
+            for b in rhs:
+                fn(b)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / args.rounds * 1e6
+        return (time.perf_counter() - t0) / (args.rounds * args.repeat) * 1e6
 
     solve_us, checked_us = [], []
     for _ in range(args.trials):
@@ -73,7 +78,7 @@ def main(argv=None) -> int:
         checked_us.append(per_round_us(s.solve_checked))
     print(json.dumps({
         "root": os.path.abspath(args.root), "serve": args.serve, "nvidia_smi": smi,
-        "rounds": args.rounds, "solve_us": solve_us, "checked_us": checked_us,
+        "rounds": args.rounds, "repeat": args.repeat, "solve_us": solve_us, "checked_us": checked_us,
         "solve_us_median": statistics.median(solve_us),
         "checked_us_median": statistics.median(checked_us)}))
     return 0

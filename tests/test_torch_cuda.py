@@ -80,6 +80,58 @@ def test_lu_block_kernel_matches_plain(cuda, m, dead):
     torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
 
 
+def _nan_blocks(m=512):
+    """(m, 128) blocks whose elections meet NaN scores: all zero (column 1
+    turns NaN after the first elimination), column 0 all NaN, and one NaN
+    in column 0 of a random block."""
+    rng = np.random.default_rng(61)
+    zero = np.zeros((m, 128), np.float32)
+    nan_col = rng.uniform(-1, 1, (m, 128)).astype(np.float32)
+    nan_col[:, 0] = np.nan
+    one_nan = rng.uniform(-1, 1, (m, 128)).astype(np.float32)
+    one_nan[300, 0] = np.nan
+    return [zero, nan_col, one_nan]
+
+
+def _k2_equal(got, want):
+    """piv and alive equal, NaNs of out in the same places and its other
+    entries within the K2 tolerance (the plain version emulates the FMA)."""
+    (out, al, piv), (out_p, al_p, piv_p) = got, want
+    if not (torch.equal(piv, piv_p) and torch.equal(al, al_p)):
+        return False
+    if not torch.equal(torch.isnan(out), torch.isnan(out_p)):
+        return False
+    return torch.allclose(out, out_p, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", ["all_zero", "nan_column", "one_nan"])
+def test_lu_block_nan_election_matches_plain(cuda, case):
+    """A NaN score wins the election as in jnp.max: the step records m,
+    reads row m - 1 as its pivot row and kills no row, as the plain
+    version does; alone (B = 1) and as slot 2 of a batch of live random
+    blocks, whose other slots keep their bits."""
+    m = 512
+    blk = torch.from_numpy(_nan_blocks(m)[["all_zero", "nan_column", "one_nan"].index(case)]
+                           ).to(cuda)
+    alive = torch.ones((m, 1), dtype=torch.int32, device=cuda)
+    want = hk.lu_block_plain(blk, alive)
+    got = hk.lu_block(blk, alive)
+    assert _k2_equal(got, want)
+    piv = want[2][0]
+    if case == "all_zero":
+        assert int(piv[0]) == 0 and bool((piv[1:] == m).all())
+    else:
+        assert bool((piv == m).all())
+    batch = _rand((4, m, 128), 62, cuda)
+    batch[2] = blk
+    alive4 = torch.ones((4, m, 1), dtype=torch.int32, device=cuda)
+    out, al, piv4 = hk.lu_block(batch, alive4)
+    for i in range(4):
+        one = hk.lu_block(batch[i], alive4[i])
+        assert all(_same_bits(x, y) for x, y in zip((out[i], al[i], piv4[i]), one))
+    assert _k2_equal((out[2], al[2], piv4[2]), want)
+
+
 @pytest.mark.parametrize("M,K,N", [(1000, 1000, 777), (300, 70, 516), (129, 33, 260),
                                    (256, 1024, 512)])
 def test_gemm_tma_instance_matches_plain(cuda, M, K, N):
@@ -199,6 +251,155 @@ def test_btrsm_kernel_matches_plain(cuda, B, n, k, lower):
     want = hk.btrsm_plain(T, D, b, lower=lower)
     # f32 sums in another order: relative Frobenius 1e-5
     assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-5
+
+
+def _round_case(kind, B, n, seed, device, dtype=torch.float32):
+    """The operands of a serving round: a packed LU and its permutation
+    from K4, or a Cholesky factor from K5, with the diagonal-block
+    inverses the plans keep."""
+    from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
+
+    if kind == "lu":
+        LU, perm, _ = hk.batched_lu(_systems(B, n, seed, device, dtype))
+        return (LU, diag_block_inverses(LU, lower=True, unit_diagonal=True),
+                diag_block_inverses(LU, lower=False), perm)
+    L, _ = hk.batched_chol(_spd_systems(B, n, seed, device, dtype))
+    return L, diag_block_inverses(L, lower=True), None, None
+
+
+# the serving shapes (32, 256) and (2, 1024) at k = 1, 16 columns, a ragged
+# n with 3 columns, f64, and 40 columns (three column tiles, walked by one
+# cluster when the probe is on)
+PAIR_SHAPES = [(32, 256, 1, torch.float32), (32, 256, 16, torch.float32),
+               (2, 1024, 1, torch.float32), (4, 200, 3, torch.float32),
+               (8, 256, 1, torch.float64), (3, 48, 40, torch.float32)]
+
+
+@pytest.mark.parametrize("B,n,k,dtype", PAIR_SHAPES)
+@pytest.mark.parametrize("kind", ["lu", "spd"])
+def test_btrsm_pair_kernel_matches_plain(cuda, kind, B, n, k, dtype):
+    T, Dl, Du, perm = _round_case(kind, B, n, n + k, cuda, dtype)
+    b = _rand((B, n, k), 13, cuda, dtype)
+    wA = _rand((B, n), 14, cuda, dtype)
+    spd = kind == "spd"
+    before = hk.LAUNCHES["btrsm"]
+    x = hk.btrsm_pair(T, Dl, Du, b, perm=perm, trans_back=spd)
+    assert hk.LAUNCHES["btrsm"] == before + 1
+    want, xs_p, wax_p = hk.btrsm_pair_plain(T, Dl, Du, b, perm, spd, wA)
+    # sums in another order: relative Frobenius 1e-5 (f32), 1e-12 (f64)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float(torch.linalg.norm(x - want) / torch.linalg.norm(want)) <= tol
+    # the probe epilogue: one launch, x's bits unchanged, the stats within
+    # the summation order's error of the plain version's
+    before = hk.LAUNCHES["btrsm"]
+    xp, xsum, wAx = hk.btrsm_pair(T, Dl, Du, b, perm=perm, trans_back=spd, wA=wA)
+    assert hk.LAUNCHES["btrsm"] == before + 1
+    assert torch.equal(xp, x)
+    scale = x.abs().sum(dim=(1, 2))
+    assert bool(((xsum - xs_p).abs() <= 1e-4 * scale).all())
+    assert bool(((wAx - wax_p).abs() <= 1e-4 * (wA * x[:, :, 0]).abs().sum(1)).all())
+    # a B=1 launch (another cluster geometry) is bitwise slot i of the batch
+    for i in (0, B - 1):
+        one = hk.btrsm_pair(T[i:i + 1], Dl[i:i + 1], None if spd else Du[i:i + 1],
+                            b[i:i + 1], perm=None if spd else perm[i:i + 1],
+                            trans_back=spd, wA=wA[i:i + 1])
+        assert all(torch.equal(got[0], ref) for got, ref in
+                   zip(one, (x[i], xsum[i], wAx[i])))
+
+
+def test_btrsm_pair_nan_poisons_its_slot_alone(cuda):
+    T, Dl, Du, perm = _round_case("lu", 32, 256, 3, cuda)
+    b = _rand((32, 256, 1), 15, cuda)
+    wA = _rand((32, 256), 16, cuda)
+    x, xsum, _ = hk.btrsm_pair(T, Dl, Du, b, perm=perm, wA=wA)
+    bad = b.clone()
+    bad[5, 17, 0] = float("nan")
+    xn, xsn, _ = hk.btrsm_pair(T, Dl, Du, bad, perm=perm, wA=wA)
+    keep = [i for i in range(32) if i != 5]
+    assert bool(torch.isnan(xsn[5])) and torch.equal(xsn[keep], xsum[keep])
+    assert torch.equal(xn[keep], x[keep])
+
+
+def _packed_lu(B, n, seed, device):
+    """A well-conditioned packed LU made on the card: unit lower and upper
+    triangles with off-diagonal entries ~ N(0, 1) / n, upper diagonal 3
+    (no factorization, so that n may be large), and a row permutation."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    T = torch.randn((B, n, n), generator=gen, device=device) / n
+    T.diagonal(dim1=-2, dim2=-1).add_(3.0)
+    perm = torch.stack([torch.randperm(n, generator=gen, device=device) for _ in range(B)])
+    return T, perm
+
+
+def _rel(x, ref):
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+
+def test_btrsm_pair_kernel_x_blocks_in_global_memory(cuda):
+    """n = 20000 f32: a round's x blocks do not fit shared memory at any
+    cluster size, so they go to global memory; same function, a B=1
+    launch bitwise slot 1 of a batch of 2, x's bits kept with the probe.
+    One substitution at that n (x blocks still in shared memory) too."""
+    from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
+
+    B, n = 2, 20000
+    T, perm = _packed_lu(B, n, 21, cuda)
+    Dl = diag_block_inverses(T, lower=True, unit_diagonal=True)
+    Du = diag_block_inverses(T, lower=False)
+    b = _rand((B, n, 1), 22, cuda)
+    wA = _rand((B, n), 23, cuda)
+    x = hk.btrsm_pair(T, Dl, Du, b, perm=perm)
+    assert _rel(x, hk.btrsm_pair_plain(T, Dl, Du, b, perm)) <= 1e-5
+    xp, xsum, wAx = hk.btrsm_pair(T, Dl, Du, b, perm=perm, wA=wA)
+    assert torch.equal(xp, x)
+    one = hk.btrsm_pair(T[1:], Dl[1:], Du[1:], b[1:], perm=perm[1:], wA=wA[1:])
+    assert all(torch.equal(g[0], r) for g, r in zip(one, (x[1], xsum[1], wAx[1])))
+    L = T[:1]  # SPD plans' round: back through L^T, read in place
+    Dc = diag_block_inverses(L, lower=True)
+    xs = hk.btrsm_pair(L, Dc, None, b[:1], trans_back=True)
+    assert _rel(xs, hk.btrsm_pair_plain(L, Dc, None, b[:1], trans_back=True)) <= 1e-5
+    for lower, D in ((True, Dl), (False, Du)):
+        got = hk.btrsm(T[:1], D[:1], b[:1], lower=lower)
+        assert _rel(got, hk.btrsm_plain(T[:1], D[:1], b[:1], lower)) <= 1e-5
+
+
+def test_btrsm_kernel_wide_rhs_in_global_memory(cuda):
+    """One substitution whose 16-column x blocks do not fit shared memory
+    at n = 12000 (any column tile): the global-memory instance, walking
+    its column tiles in parallel clusters."""
+    from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
+
+    T, _ = _packed_lu(1, 12000, 24, cuda)
+    b = _rand((1, 12000, 16), 25, cuda)
+    for lower in (True, False):
+        D = diag_block_inverses(T, lower=lower, unit_diagonal=lower)
+        got = hk.btrsm(T, D, b, lower=lower)
+        assert _rel(got, hk.btrsm_plain(T, D, b, lower)) <= 1e-5
+
+
+@pytest.mark.parametrize("bs", [48, 64])
+@pytest.mark.parametrize("n", [256, 200])
+def test_btrsm_kernel_wide_diagonal_blocks(cuda, n, bs):
+    """Diagonal blocks wider than 32 run as their diagonal sub-blocks (24
+    or 32 wide): btrsm, btrsm_pair with and without trans_back, and the
+    public blocked_trsm, each against its plain version on the wide
+    blocks, one launch a call."""
+    from conflux_tpu_torch.ops.batched_trsm import blocked_trsm, diag_block_inverses
+
+    T, perm = _packed_lu(4, n, 26, cuda)
+    b = _rand((4, n, 3), 27, cuda)
+    Dl = diag_block_inverses(T, lower=True, unit_diagonal=True, block_size=bs)
+    Du = diag_block_inverses(T, lower=False, block_size=bs)
+    Dc = diag_block_inverses(T, lower=True, block_size=bs)
+    before = hk.LAUNCHES["btrsm"]
+    got = [hk.btrsm(T, Du, b, lower=False), hk.btrsm_pair(T, Dl, Du, b, perm=perm),
+           hk.btrsm_pair(T, Dc, None, b, trans_back=True),
+           blocked_trsm(T, b, lower=True, unit_diagonal=True, block_size=bs)]
+    assert hk.LAUNCHES["btrsm"] == before + 4
+    want = [hk.btrsm_plain(T, Du, b, False), hk.btrsm_pair_plain(T, Dl, Du, b, perm),
+            hk.btrsm_pair_plain(T, Dc, None, b, trans_back=True), hk.btrsm_plain(T, Dl, b, True)]
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-5
 
 
 # shapes across the kernels' 32-column blocks, 64-wide trailing tiles and
