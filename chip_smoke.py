@@ -66,7 +66,43 @@ Phases, each of which must pass or the script exits non-zero:
  14. the Cholesky miniapp's `main(argv)`: N=32768 f32 --tile 1024 with
      --validate (the tile `choose_cholesky_tile` picks), then BASELINE
      config #2, N=4096 --tile 256 --validate --refine 4; K1's launches
-     counted over each run, every one the TMA instance.
+     counted over each run, every one the TMA instance;
+ 15. (L64) BASELINE config #1 on the library route the JAX miniapp runs
+     (`--dtype float64`: backend "xla", panel algo "auto", its `_route_`
+     line checked), N=2048 b=128 --validate --refine 2, and (L64-full) the
+     same route at N=32768 b=1024 (the library tournament above 4096 rows)
+     with its rate against the float64 peak, one tournament round and the
+     pivots' host conversion timed; no kernel launches on this route, and
+     the port's library LU of a batch of panels taller than MAGMA's
+     batched limit prints nothing to the process's stdout;
+ 16. (Lxla32) the float32 library route at N=32768 v=1024 through
+     `lu_factor_blocked(..., backend="xla", panel_algo="auto")`, beside
+     phase 5's kernel route;
+ 17. (C64) the Cholesky miniapp at float64, N=32768 --tile 1024
+     --validate, and a complex128 HPD Cholesky (`make_hpd_matrix`) on
+     backend "xla" at N=2048;
+ 18. serving (e), a backend="xla" f32 LU plan at (32, 1024, 1024), v=256:
+     factor, the factor lane's checked program, 16 solve and 16 checked
+     rounds (one K3 launch each; nothing printed to the process's stdout),
+     the factor's library LU and pivot conversion timed apart at each
+     superstep's panels, and a non-SPD slot of an xla SPD plan's bucket
+     (NaN, flagged alone);
+ 19. serving (f), the HPL-MxP plan: a kernel-route (32, 1024, 1024) f32
+     plan with factor_dtype bfloat16 and refine 2, v=256: K1, K2 and K3
+     launches against the counts the code predicts (K1 once per system
+     and superstep), the factor's residual before any sweep, the first K1
+     and K2 call at each of the factor's shapes held against its plain
+     version on the path's own operands, the solve after 2 sweeps, and
+     K3's bfloat16-T
+     instance on the plan's factor against its plain version and bit for
+     bit the float32 instance on the upcast factor, with both times;
+ 20. (s) the solver API at N=4096, float64 and float32: `solve` (N=4093,
+     padded) against `torch.linalg.solve`, `slogdet_from_lu`,
+     `inv_from_lu`, `cond_estimate_1` (within 3x of `torch.linalg.cond(A,
+     1)`), and FGMRES on bf16 factors at the JAX test's setup (1e-6, where
+     6 classic sweeps stay above 1e-4); the float32 factor's residual, and
+     its first K1 and K2 call at each shape held against the plain
+     versions as in (f).
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round.
@@ -84,8 +120,10 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -106,6 +144,7 @@ K3_STATS_TOL = 1e-4   # probe stats: error over sum |terms|, the summation order
 K4_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 K4_WA_TOL = 1e-5      # relative Frobenius of the probe rows wA
 SOLVE_TOL = 1e-4      # max |A x - b|, the JAX bar (tests/test_batched_trsm.py:185)
+BF16_FACTOR_BAR = 1e-2  # LU residual of bf16-stored factors (the port's bf16 tests)
 # K5 and its plain version round each product, quotient, difference and
 # square root once, in the same order: bit for bit
 K5_TOL = 0.0
@@ -477,7 +516,7 @@ def run_miniapp(argv: list[str], app: str = "conflux_miniapp",
     lines = buf.getvalue().splitlines()
     print(f"[{tag}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s wall", flush=True)
     for line in lines:
-        if line.startswith(("_result_", "_residual_", "_solve_residual_")):
+        if line.startswith(("_route_", "_result_", "_residual_", "_solve_residual_")):
             print(f"[{tag}]   {line}", flush=True)
     print(f"[{tag}]   launches: {counts} (warm-up + 1 timed factorization)", flush=True)
     check(all(counts[k] > 0 for k in kernels),
@@ -535,7 +574,7 @@ def phase_main() -> dict:
     check(math.isfinite(res2) and res2 <= bar2, f"N=8192 residual {res2:.3e}")
     check("PASS" in _field(lines2, "_solve_residual_"), "N=8192 solve residual not PASS")
     torch.cuda.empty_cache()
-    return counts
+    return counts, ms
 
 
 def _systems(B: int, n: int, seed: int, dtype=torch.float32) -> torch.Tensor:
@@ -1092,6 +1131,514 @@ def phase_chol_main() -> dict:
     return counts
 
 
+# ----------------------------------------------------------------------- #
+# the library routes (backend "xla", panel algos "partial" / "tournament" /
+# "auto"), float64, the plans outside the batched factor kernels' gate and
+# the solver API
+# ----------------------------------------------------------------------- #
+
+# H100 SXM float64 peak on the tensor cores (NVIDIA data sheet; 34e12
+# outside them): DGEMM, the bulk of a float64 factorization, runs there
+PEAK_F64_FLOPS = 67e12
+SOLVE_RESIDUAL_BAR = 1e-6  # the --refine bar of the miniapps (PERF.md section 2)
+
+
+@contextlib.contextmanager
+def _library_route():
+    """The registry on the JAX package's default route, xla / auto, and
+    back to the port's kernel / kernel after."""
+    from conflux_tpu_torch.ops import blas
+
+    blas.set_backend("xla")
+    blas.set_panel_algo("auto")
+    try:
+        yield
+    finally:
+        blas.set_backend("kernel")
+        blas.set_panel_algo("kernel")
+
+
+def _no_kernel(counts: dict, tag: str) -> None:
+    """The library route runs no kernel of the port: K1..K5 all at 0."""
+    check(all(v == 0 for v in counts.values()), f"{tag} launched a kernel: {counts}")
+
+
+def phase_l64() -> dict:
+    """(L64) BASELINE config #1 and (L64-full) the same route at N=32768."""
+    from conflux_tpu_torch.ops import blas
+    from conflux_tpu_torch.validation import residual_bound
+
+    lines, counts = run_miniapp(["-N", "2048", "-b", "128", "-r", "1", "--dtype", "float64",
+                                 "--validate", "--refine", "2"], kernels=())
+    _no_kernel(counts, "L64")
+    check(_field(lines, "_route_") == "_route_ backend=xla panel_algo=auto (float64)",
+          "L64 route line")
+    ms = float(_field(lines, "_result_").split(",")[8])
+    res = float(_field(lines, "_residual_").split()[1])
+    bar = residual_bound(2048, torch.float64)
+    solve = _field(lines, "_solve_residual_")
+    check(math.isfinite(res) and res <= bar and "PASS" in solve,
+          f"L64 residual {res:.3e} (bar {bar:.3e}), {solve}")
+    print(f"[L64] BASELINE config #1 (N=2048 b=128 float64, 1x1x1): {ms:.3f} ms per "
+          f"factorization; residual {res:.3e} <= {bar:.3e}; {solve}", flush=True)
+    torch.cuda.empty_cache()
+
+    lines, counts = run_miniapp(["-N", "32768", "-b", "1024", "-r", "1", "--dtype", "float64",
+                                 "--validate"], kernels=())
+    _no_kernel(counts, "L64-full")
+    ms_full = float(_field(lines, "_result_").split(",")[8])
+    res = float(_field(lines, "_residual_").split()[1])
+    bar = residual_bound(32768, torch.float64)
+    check(math.isfinite(res) and res <= bar, f"L64-full residual {res:.3e} > {bar:.3e}")
+    rate = 2 / 3 * 32768 ** 3 / (ms_full * 1e-3)
+    print(f"[L64-full] N=32768 b=1024 float64: {ms_full:.1f} ms per factorization = "
+          f"{rate / 1e12:.2f} TFLOP/s, {100 * rate / PEAK_F64_FLOPS:.1f}% of the "
+          f"{PEAK_F64_FLOPS / 1e12:g} TFLOP/s float64 peak; residual {res:.3e} <= {bar:.3e}",
+          flush=True)
+    torch.cuda.empty_cache()
+    # one round of the library tournament at this run's first panel, and the
+    # host conversion of the library LU's pivots (one host copy a call)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    chunks = torch.randn((8, 4096, 1024), generator=gen, device="cuda", dtype=torch.float64)
+    lib_was = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library(blas._library_lu_backend(chunks.shape))
+    round_ms = time_ms(lambda: torch.linalg.lu_factor_ex(chunks), 3)
+    torch.backends.cuda.preferred_linalg_library(lib_was)
+    lu_round_ms = time_ms(lambda: blas._library_lu(chunks), 3)
+    piv = torch.linalg.lu_factor_ex(chunks[0])[1]
+    conv_ms = time_ms(lambda: blas._swaps_to_perm(piv, 32768), 10)
+    panel = torch.randn((32768, 1024), generator=gen, device="cuda", dtype=torch.float64)
+    tw_ms = time_ms(lambda: blas.tournament_winners(panel, use_pallas=False), 3)
+    print(f"[L64-full] library tournament at the first panel (32768, 1024) float64: "
+          f"chunk round lu_factor_ex (8, 4096, 1024) {round_ms:.2f} ms, with the pivots' "
+          f"conversion {lu_round_ms:.2f} ms; one conversion of 1024 pivots to a 32768-row "
+          f"permutation {conv_ms:.3f} ms (host); whole election {tw_ms:.2f} ms", flush=True)
+    del chunks, panel
+    # a batch of panels taller than MAGMA's batched limit: factored, and
+    # nothing printed to the process's stdout (MAGMA's banner would be)
+    tall = torch.randn((16, 4096, 256), generator=gen, device="cuda", dtype=torch.float64)
+    printed: list = []
+    with _stdout_fd(printed):
+        LU, perm = blas._library_lu(tall)
+        torch.cuda.synchronize()
+    L = torch.tril(LU, -1) + torch.eye(4096, 256, dtype=LU.dtype, device=LU.device)
+    R = torch.gather(tall, 1, perm[:, :, None].expand(-1, -1, 256)) - L @ torch.triu(LU[:, :256])
+    res = float((torch.linalg.norm(R, dim=(1, 2)) / torch.linalg.norm(tall, dim=(1, 2))).max())
+    bar = residual_bound(4096, torch.float64)
+    print(f"[L64-full] library LU of (16, 4096, 256) float64 panels: {len(printed[0])} bytes "
+          f"on stdout; residual {res:.2e} <= {bar:.2e}", flush=True)
+    check(printed[0] == "", f"the library LU printed to stdout: {printed[0][:200]!r}")
+    check(res <= bar, f"library LU of (16, 4096, 256) residual {res:.3e}")
+    del L, R
+    del tall, LU, perm
+    torch.cuda.empty_cache()
+    return {"ms": ms, "full_ms": ms_full}
+
+
+def phase_lxla32(kernel_ms: float) -> None:
+    """(Lxla32) the float32 library route at N=32768 v=1024 through the
+    Python API, beside the kernel route's time of phase 5."""
+    import numpy as np
+
+    from conflux_tpu_torch.lu.single import lu_factor_blocked
+    from conflux_tpu_torch.ops import hopper_kernels
+    from conflux_tpu_torch.validation import lu_residual_device, make_test_matrix, residual_bound
+
+    A = torch.from_numpy(make_test_matrix(32768, 32768, dtype=np.float32)).cuda()
+    hopper_kernels.reset_launches()
+    LU, perm = lu_factor_blocked(A, 1024, backend="xla", panel_algo="auto")  # warm-up
+    del LU, perm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    LU, perm = lu_factor_blocked(A, 1024, backend="xla", panel_algo="auto")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _no_kernel(dict(hopper_kernels.LAUNCHES), "Lxla32")
+    res = lu_residual_device(A, LU, perm)
+    bar = residual_bound(32768, torch.float32)
+    check(math.isfinite(res) and res <= bar, f"Lxla32 residual {res:.3e} > {bar:.3e}")
+    print(f"[Lxla32] N=32768 v=1024 float32, backend xla / panel algo auto: {ms:.1f} ms per "
+          f"factorization = {2 / 3 * 32768 ** 3 / ms / 1e9:.1f} TFLOP/s (host clock, one "
+          f"synchronize), beside the kernel route's {kernel_ms:.1f} ms (phase 5); residual "
+          f"{res:.3e} <= {bar:.3e}", flush=True)
+    del A, LU, perm
+    torch.cuda.empty_cache()
+
+
+def phase_c64() -> None:
+    """(C64) the Cholesky miniapp at float64, N=32768, and a complex128
+    HPD Cholesky on backend xla at N=2048."""
+    from conflux_tpu_torch.cholesky import cholesky_blocked
+    from conflux_tpu_torch.validation import make_hpd_matrix, residual_bound
+
+    lines, counts = run_miniapp(["--dim", "32768", "--tile", "1024", "--run", "1",
+                                 "--dtype", "float64", "--validate"], app="cholesky_miniapp",
+                                kernels=())
+    _no_kernel(counts, "C64")
+    ms = float(_field(lines, "_result_").split(",")[8])
+    res = float(_field(lines, "_residual_").split()[1])
+    bar = residual_bound(32768, torch.float64)
+    check(math.isfinite(res) and res <= bar, f"C64 residual {res:.3e} > {bar:.3e}")
+    rate = 32768 ** 3 / 3 / (ms * 1e-3)
+    print(f"[C64] Cholesky N=32768 tile 1024 float64: {ms:.1f} ms per factorization = "
+          f"{rate / 1e12:.2f} TFLOP/s (N^3/3), {100 * rate / PEAK_F64_FLOPS:.1f}% of the "
+          f"float64 peak; residual {res:.3e} <= {bar:.3e}", flush=True)
+    torch.cuda.empty_cache()
+    n = 2048
+    A = make_hpd_matrix(n, device="cuda")
+    L = cholesky_blocked(A, 128, backend="xla")
+    ms_c = time_ms(lambda: cholesky_blocked(A, 128, backend="xla"), 3)
+    res_c = float(torch.linalg.norm(L @ L.mH - A) / torch.linalg.norm(A))
+    bar_c = residual_bound(n, torch.float64)
+    check(math.isfinite(res_c) and res_c <= bar_c, f"complex HPD residual {res_c:.3e}")
+    print(f"[C64] complex128 HPD Cholesky N={n} tile 128, backend xla: {ms_c:.2f} ms; "
+          f"||A - L L^H||_F / ||A||_F {res_c:.3e} <= {bar_c:.3e}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def _rounds(s, rhs, checked: bool) -> float:
+    """Host microseconds per solve round of session s over rhs (one
+    synchronize at the end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in rhs:
+        (s.solve_checked if checked else s.solve)(b)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(rhs) * 1e6
+
+
+def _library_lu_split(A: torch.Tensor, v: int) -> None:
+    """Time apart the two parts of each superstep's library LU of the
+    batched factor of A (B, n, n): `lu_factor_ex` of the (B, n - k v, v)
+    panels on the backend the route picks (CUDA events, median of 5 calls)
+    and the pivots' conversion to a permutation (host clock around the
+    call, its device-to-host copy included; median of 5)."""
+    import statistics
+
+    from conflux_tpu_torch.ops import blas
+
+    B, n = A.shape[:2]
+    parts = []
+    for k in range(n // v):
+        P = A[:, k * v:, k * v:k * v + v].contiguous()
+        lib = blas._library_lu_backend(P.shape)
+        was = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library(lib)
+        lu = statistics.median(time_ms(lambda: torch.linalg.lu_factor_ex(P), 1) for _ in range(5))
+        piv = torch.linalg.lu_factor_ex(P)[1]
+        torch.backends.cuda.preferred_linalg_library(was)
+        conv = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blas._swaps_to_perm(piv, P.shape[1])
+            torch.cuda.synchronize()
+            conv.append((time.perf_counter() - t0) * 1e3)
+        parts.append((tuple(P.shape), lib, lu, statistics.median(conv)))
+    lu_sum, conv_sum = sum(p[2] for p in parts), sum(p[3] for p in parts)
+    steps = "; ".join(f"{shape} {lib}: LU {lu:.3f} ms, conversion {cv:.3f} ms"
+                      for shape, lib, lu, cv in parts)
+    print(f"[serve e] the factor's library LU by superstep: {steps}; in all LU {lu_sum:.3f} ms, "
+          f"conversion {conv_sum:.3f} ms", flush=True)
+
+
+def phase_serve_e() -> dict:
+    """(e) serving on the library route: a backend="xla" f32 LU plan at
+    (32, 1024, 1024), v=256; then a poisoned slot of an xla SPD plan."""
+    from conflux_tpu_torch import serve
+
+    B, n, rounds = 32, 1024, 16
+    limit = 1e4 * torch.finfo(torch.float32).eps * math.sqrt(n)  # JAX HealthPolicy default
+    with _library_route():
+        serve.clear_plans()
+        plan = serve.FactorPlan.create((B, n, n), torch.float32, v=256, backend="xla")
+        check(plan.key.backend == "xla" and plan.key.panel_algo == "auto", f"(e) {plan.key}")
+        A = _systems(B, n, 20)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        rhs = [torch.randn((B, n), generator=gen, device="cuda") for _ in range(rounds)]
+
+        def drive():
+            s = plan.factor(A)
+            F, _wA, verdict = plan._factor_health_fn(1)(A[None])
+            xs = [s.solve(b) for b in rhs]
+            checked = [s.solve_checked(b) for b in rhs]
+            return s, verdict, xs, checked
+
+        printed: list = []
+        with _stdout_fd(printed):
+            (s, verdict, xs, checked), counts = _serve_counts(drive)
+        print(f"[serve e] plan {plan.key.shape} backend xla / auto, v=256: launches {counts}; "
+              f"{len(printed[0])} bytes on stdout", flush=True)
+        check(printed[0] == "", f"serving (e) printed to stdout: {printed[0][:200]!r}")
+        check(counts["btrsm"] == 2 * rounds + 1 and counts["batched_lu"] == 0
+              and counts["gemm"] == 0 and counts["lu_block"] == 0,
+              f"serving (e) is not one K3 launch a round (and one for the lane): {counts}")
+        worst = max(float((torch.einsum("bij,bj->bi", A, x) - b).abs().max())
+                    for x, b in zip(xs, rhs))
+        verdicts = torch.stack([v for _x, v in checked])
+        lane_clean = bool((verdict[0] == 1.0).all()) and float(verdict[1].max()) <= limit
+        print(f"[serve e] max |A x - b| {worst:.3e} (bar {SOLVE_TOL:g}); checked verdicts "
+              f"finite min {float(verdicts[:, 0].min()):g}, residual max "
+              f"{float(verdicts[:, 1].max()):.3e}; factor lane verdict clean {lane_clean} "
+              f"(residual {float(verdict[1].max()):.3e}, limit {limit:.3e})", flush=True)
+        check(worst < SOLVE_TOL, f"serving (e) max |A x - b| {worst:.3e}")
+        check(bool((verdicts[:, 0] == 1.0).all()) and float(verdicts[:, 1].max()) < SOLVE_TOL,
+              "serving (e) checked verdicts")
+        check(lane_clean, "serving (e) factor lane verdict")
+        fac_ms = time_ms(lambda: plan.factor(A), 3)
+        lane_ms = time_ms(lambda: plan._factor_health_fn(1)(A[None]), 3)
+        solve_us, checked_us = _rounds(s, rhs, False), _rounds(s, rhs, True)
+        print(f"[serve e] {fac_ms:.3f} ms per factor, {lane_ms:.3f} ms per coalesced checked "
+              f"factor (CUDA events, 3 calls); {solve_us:.1f} us per solve round, "
+              f"{checked_us:.1f} us per checked round (host clock, {rounds} rounds)", flush=True)
+        _library_lu_split(A, 256)
+        del s, xs, checked
+        # a non-SPD slot of an xla SPD plan's bucket: NaN, and flagged alone
+        serve.clear_plans()
+        spd = serve.FactorPlan.create((256, 256), torch.float32, v=64, backend="xla",
+                                      kind="chol")
+        S = _spd_systems(4, 256, 21)
+        S[2, 7, 7] = -1e3
+        F, _wA, v = spd._factor_health_fn(4)(S)
+        healthy = (v[0] >= 0.5) & (v[1] <= 1e4 * torch.finfo(torch.float32).eps * 16)
+        poisoned = bool(torch.isnan(F[0][2]).any()) and not bool(healthy[2])
+        others = bool(healthy[[0, 1, 3]].all()) and bool(torch.isfinite(F[0][[0, 1, 3]]).all())
+        print(f"[serve e] xla SPD plan, a non-SPD slot of 4: NaN and flagged {poisoned}, the "
+              f"others clean {others}", flush=True)
+        check(poisoned and others, "serving (e) poisoned SPD slot")
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def _stdout_fd(box: list):
+    """Whatever is written to file descriptor 1 inside the block (a C
+    library's printf goes there, past Python's sys.stdout) is appended to
+    box as text instead of reaching the output."""
+    import ctypes
+
+    libc = ctypes.CDLL(None)
+    sys.stdout.flush()
+    libc.fflush(None)
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as tmp:
+        os.dup2(tmp.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            libc.fflush(None)
+            os.dup2(saved, 1)
+            os.close(saved)
+            tmp.seek(0)
+            box.append(tmp.read().decode(errors="replace"))
+
+
+@contextlib.contextmanager
+def _held_to_plain(tag: str):
+    """Inside the block, the first K1 (`hopper_kernels.gemm`) and K2
+    (`hopper_kernels.lu_block`) call at each distinct operand shape is
+    held against its plain version on the same card tensors: the plain
+    version runs just before the kernel, so an update in place is compared
+    on its inputs. K1 by relative Frobenius error (K1_TOL_F32 or
+    K1_TOL_BF16), K2 by equal pivots and alive rows in every slot and its
+    output allclose K2_TOL. One line a kernel after the block; fails the
+    phase on any disagreement, or if either kernel never ran."""
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    gemm, lu_block = hk.gemm, hk.lu_block
+    k1: dict = {}  # shape -> (rel_fro, tol, instance)
+    k2: dict = {}  # shape -> (pivots and alive equal, max_abs, allclose)
+
+    def held_gemm(a, b, c=None, alpha=1.0, beta=1.0, out=None):
+        key = (str(a.dtype).removeprefix("torch."), tuple(a.shape), tuple(b.shape))
+        if key in k1:
+            return gemm(a, b, c, alpha, beta, out=out)
+        want = hk.gemm_plain(a, b, c, alpha, beta)
+        got = gemm(a, b, c, alpha, beta, out=out)
+        tol = K1_TOL_BF16 if a.dtype == torch.bfloat16 else K1_TOL_F32
+        k1[key] = (rel_fro(got, want), tol, hk.gemm_instance(a, b, c, got))
+        return got
+
+    def held_lu_block(a, alive):
+        got = lu_block(a, alive)
+        if tuple(a.shape) not in k2:
+            want = hk.lu_block_plain(a, alive)
+            k2[tuple(a.shape)] = (torch.equal(got[2], want[2]) and torch.equal(got[1], want[1]),
+                                  float((got[0] - want[0]).abs().max()),
+                                  torch.allclose(got[0], want[0], rtol=K2_TOL, atol=K2_TOL))
+        return got
+
+    hk.gemm, hk.lu_block = held_gemm, held_lu_block
+    try:
+        yield
+    finally:
+        hk.gemm, hk.lu_block = gemm, lu_block
+    k1_ok = all(err <= tol for err, tol, _i in k1.values())
+    k2_ok = all(same and close for same, _e, close in k2.values())
+    print(f"[{tag}] K1 on the path's own operands at {len(k1)} shapes "
+          f"({', '.join(f'{a}@{b} {d} {r[2]}' for (d, a, b), r in k1.items())}): worst rel_fro "
+          f"{max((r[0] for r in k1.values()), default=float('nan')):.2e} against the plain "
+          f"version (bounds {sorted({r[1] for r in k1.values()})}); all within {k1_ok}", flush=True)
+    print(f"[{tag}] K2 on the path's own operands at {len(k2)} shapes ({', '.join(map(str, k2))}): "
+          f"pivots and alive rows equal in every slot and allclose {K2_TOL:g} {k2_ok}, worst "
+          f"max_abs {max((r[1] for r in k2.values()), default=float('nan')):.2e}", flush=True)
+    check(len(k1) > 0 and len(k2) > 0, f"{tag}: the held factor ran no K1 or no K2 call")
+    check(k1_ok and k2_ok, f"{tag}: a kernel disagrees with its plain version on the path")
+
+
+def phase_serve_f(k3: dict) -> dict:
+    """(f) the HPL-MxP plan: a "kernel" LU plan at (32, 1024, 1024), f32,
+    factor_dtype bfloat16, refine 2, v=256 (K2 panels and K1 updates on
+    the bf16 factor, K3's bfloat16-T instance in every round)."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.ops.hopper_kernels import (btrsm_pair, btrsm_pair_plain,
+                                                      lu_block_wave_slots)
+
+    B, n, v, rounds = 32, 1024, 256, 16
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((B, n, n), torch.float32, v=v,
+                                   factor_dtype=torch.bfloat16, refine=2)
+    check(plan.key.backend == "kernel" and plan.key.panel_algo == "kernel"
+          and not plan._kernel_factor, f"(f) {plan.key}")
+    A = _systems(B, n, 30)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rhs = [torch.randn((B, n), generator=gen, device="cuda") for _ in range(rounds)]
+
+    def drive():
+        s = plan.factor(A)
+        return s, [s.solve(b) for b in rhs]
+
+    (s, xs), counts = _serve_counts(drive)
+    # the code's own counts: K1 once per system and superstep with a
+    # trailing block; K2 per 128-wide column block of each panel, one
+    # launch per wave of the 32 slots; K3 once per substitution (the solve
+    # and each of its 2 sweeps)
+    steps = n // v
+    want = {"gemm": B * (steps - 1),
+            "lu_block": sum((v // 128) * -(-B // lu_block_wave_slots(n - k * v,
+                                                                     torch.device("cuda")))
+                            for k in range(steps)),
+            "btrsm": 3 * rounds}
+    print(f"[serve f] plan {plan.key.shape} factor_dtype bfloat16 refine 2, v={v}: launches "
+          f"{counts}, predicted {want}", flush=True)
+    check(all(counts[k] == w for k, w in want.items()) and counts["batched_lu"] == 0,
+          f"serving (f) launches {counts}, predicted {want}")
+    check(counts["gemm_tma"] == counts["gemm"], f"serving (f) ran K1's SIMT instance: {counts}")
+    # the factor itself, before any sweep could hide a fault in it
+    LU, Dl, Du, perm = s.factors
+    check(LU.dtype == torch.bfloat16, f"(f) factor dtype {LU.dtype}")
+    fres = float(_lu_residuals(A, LU, perm).max())
+    print(f"[serve f] factor residual max ||A[perm] - L U||_F / ||A||_F {fres:.3e} (bar "
+          f"{BF16_FACTOR_BAR:g}, bf16 storage)", flush=True)
+    check(fres <= BF16_FACTOR_BAR, f"serving (f) factor residual {fres:.3e}")
+    # each K1 and K2 shape of the factor on the path's own operands
+    with _held_to_plain("serve f"):
+        plan.factor(A)
+    worst = max(float((torch.einsum("bij,bj->bi", A, x) - b).abs().max())
+                for x, b in zip(xs, rhs))
+    print(f"[serve f] max |A x - b| after 2 sweeps {worst:.3e} (bar {SOLVE_TOL:g})", flush=True)
+    check(worst < SOLVE_TOL, f"serving (f) max |A x - b| {worst:.3e}")
+    fac_ms = time_ms(lambda: plan.factor(A), 3)
+    solve_us = _rounds(s, rhs, False)
+    print(f"[serve f] {fac_ms:.3f} ms per factor (CUDA events, 3 calls; {want['gemm']} K1 "
+          f"launches, one per system and superstep); {solve_us:.1f} us per solve of 3 rounds "
+          f"(host clock)", flush=True)
+    # K3's bfloat16-T instance on the plan's own factors: against its plain
+    # version, and bit for bit the float32 instance on the upcast factor
+    b = rhs[0][:, :, None]
+    wA = torch.randn((B, n), generator=gen, device="cuda")
+    LUf = LU.float()
+    x, xsum, wAx = btrsm_pair(LU, Dl, Du, b, perm=perm, wA=wA)
+    ref = btrsm_pair(LUf, Dl, Du, b, perm=perm, wA=wA)
+    want_x = btrsm_pair_plain(LU, Dl, Du, b, perm)
+    torch.cuda.synchronize()
+    err = rel_fro(x, want_x)
+    same = all(torch.equal(g, r) for g, r in zip((x, xsum, wAx), ref))
+    ev, ms = _both_ms(lambda: btrsm_pair(LU, Dl, Du, b, perm=perm))
+    ev32, ms32 = _both_ms(lambda: btrsm_pair(LUf, Dl, Du, b, perm=perm))
+    cast = time_ms(lambda: LU.float(), 20)
+    print(f"[serve f] K3 bfloat16-T round at ({B}, {n}, {n}) k=1: rel_fro {err:.2e} against the "
+          f"plain version (bound {K3_TOL:g}); bitwise the float32 instance on the upcast factor "
+          f"{same}; a call (device): bf16-T {ev * 1e3:.1f} ({ms * 1e3:.1f}) us, f32-T "
+          f"{ev32 * 1e3:.1f} ({ms32 * 1e3:.1f}) us; the per-round cast it saves "
+          f"{cast * 1e3:.1f} us", flush=True)
+    check(err <= K3_TOL and same, "K3 bfloat16-T instance")
+    k3["max_abs_err"] = max(k3["max_abs_err"], float((x - want_x).abs().max()))
+    del s, xs, LU, Dl, Du, LUf
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _rel64(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """Relative Frobenius error in float64 (`rel_fro` rounds to float32)."""
+    x, ref = x.double(), ref.double()
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+
+def phase_solvers() -> None:
+    """(s) the solver API at N=4096 in float64 (library route) and float32
+    (kernel route), against torch.linalg; FGMRES at the JAX test's setup."""
+    import numpy as np
+
+    from conflux_tpu_torch import solvers
+    from conflux_tpu_torch.lu.single import lu_factor_blocked
+    from conflux_tpu_torch.validation import make_test_matrix, residual_bound
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for dtype, tol, route in ((torch.float64, 1e-10, _library_route),
+                              (torch.float32, 1e-4, contextlib.nullcontext)):
+        name = str(dtype).removeprefix("torch.")
+        with route():
+            Ap = _systems(1, 4093, 40, dtype)[0]
+            bp = torch.randn(4093, generator=gen, device="cuda", dtype=dtype)
+            x = solvers.solve(Ap, bp)
+            xr = torch.linalg.solve(Ap, bp)
+            e_solve = _rel64(x, xr)
+            A = _systems(1, 4096, 41, dtype)[0]
+            held = _held_to_plain(f"solvers {name}") if route is contextlib.nullcontext \
+                else contextlib.nullcontext()
+            with held:
+                LU, perm = lu_factor_blocked(A, 256)
+            fres = float(_lu_residuals(A[None], LU[None], perm[None])[0])
+            check(fres <= residual_bound(4096, dtype), f"solvers {name} factor residual {fres:.3e}")
+            sign, logabs = solvers.slogdet_from_lu(LU, perm)
+            s_ref, l_ref = torch.linalg.slogdet(A)
+            e_det = abs(logabs - float(l_ref)) / abs(float(l_ref))
+            e_inv = _rel64(solvers.inv_from_lu(LU, perm), torch.linalg.inv(A))
+            est = solvers.cond_estimate_1(A, LU, perm)
+            exact = float(torch.linalg.cond(A.double(), 1))
+        print(f"[solvers] {name} N=4096: factor residual {fres:.2e}; solve (N=4093, padded) "
+              f"rel {e_solve:.2e} against "
+              f"torch.linalg.solve; slogdet sign {sign:g} (torch {float(s_ref):g}), log|det| rel "
+              f"{e_det:.2e}; inv_from_lu rel {e_inv:.2e}; cond_estimate_1 {est:.4g}, "
+              f"torch.linalg.cond(A, 1) {exact:.4g}", flush=True)
+        check(e_solve <= tol and sign == float(s_ref) and e_det <= tol and e_inv <= tol
+              and exact / 3 <= est <= 3 * exact, f"solvers {name}")
+        del A, LU, Ap
+    # FGMRES with bf16 factors as the preconditioner (tests/test_solve.py's
+    # setup: make_test_matrix(512) f32, cond ~1.4e3, v=64)
+    n = 512
+    A = torch.from_numpy(make_test_matrix(n, n, dtype=np.float32)).cuda()
+    b_r = torch.ones(n, dtype=torch.float64, device="cuda")
+    with _library_route():
+        LU, perm = lu_factor_blocked(A.bfloat16(), 64)
+    x = solvers.lu_solve(LU, perm, b_r.float()).double()
+    for _ in range(6):
+        r = solvers._residual_strips(A, x, b_r, torch.float64)
+        x = x + solvers.lu_solve(LU, perm, r.float()).double()
+    r = solvers._residual_strips(A, x, b_r, torch.float64)
+    classic = float(torch.linalg.norm(r) / torch.linalg.norm(b_r))
+    Ad = A.double()
+    xg, info = solvers.fgmres(lambda v: Ad @ v, lambda rr: solvers.lu_solve(LU, perm, rr.float()),
+                              b_r, tol=1e-6, restart=16, max_restarts=8, rdtype=torch.float64)
+    print(f"[solvers] FGMRES on bf16 factors (N={n}, v=64): residual {info['residual']:.2e} "
+          f"after {info['restarts']} cycles (bar 1e-6); 6 classic sweeps {classic:.2e} (stays "
+          "above 1e-4)", flush=True)
+    check(info["residual"] <= 1e-6 and classic > 1e-4, "FGMRES against classic refinement")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -1112,7 +1659,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_k2(k2)
     torch.cuda.empty_cache()
-    counts = phase_main()
+    counts, kernel_ms = phase_main()
     k1["launches"], k2["launches"] = counts["gemm"], counts["lu_block"]
     k3 = {"name": "btrsm", "route": "cuda",
           "source": "conflux_tpu_torch/ops/csrc/btrsm.cu",
@@ -1134,8 +1681,16 @@ def main() -> int:
     cd = phase_serve_d()
     torch.cuda.empty_cache()
     cm = phase_chol_main()
-    k1["launches"] += cm["gemm"]
-    k3["launches"] = ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"]
+    phase_l64()
+    phase_lxla32(kernel_ms)
+    phase_c64()
+    ce = phase_serve_e()
+    cf = phase_serve_f(k3)
+    phase_solvers()
+    k1["launches"] += cm["gemm"] + cf["gemm"]
+    k2["launches"] += cf["lu_block"]
+    k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]
+                      + cf["btrsm"])
     k4["launches"] = ca["batched_lu"] + cb["batched_lu"]
     k5["launches"] = cc["batched_chol"] + cd["batched_chol"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -2,11 +2,16 @@
 `conflux_tpu/batched.py`).
 
 The pytree helpers of the serve layer over tuples of tensors (a factor
-pytree in the port is a tuple, with None for absent leaves),
-`lu_factor_batched` and `cholesky_factor_batched` on the kernel route
-(mesh-less, float32 or float64, the batch in the K4 or K5 kernel's grid),
-and `cholesky_solve_batched`. The vmapped blocked body, mesh sharding and
-the batched LU solves are not ported yet.
+pytree in the port is a tuple, with None for absent leaves), the batched
+factors `lu_factor_batched` and `cholesky_factor_batched`, the batched
+substitutions `lu_solve_batched` and `cholesky_solve_batched`, and the
+one-shot pipeline `solve_batched`. A factor on backend "kernel" with a
+float32 or float64 batch runs in the K4 or K5 kernel's grid (the JAX
+`_pallas_factor_eligible` route); every other batch (bfloat16 storage, or
+backend "xla") runs the batched blocked factor (`lu.single`,
+`cholesky.single` on a (B, N, N) batch), the counterpart of the JAX
+package's `jax.vmap` of its blocked body. Mesh sharding and the Woodbury
+`solve_updated_batched` are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,54 +43,168 @@ def unstack_tree(tree, B: int):
     return [_tree_map(lambda l, i=i: l[i], tree) for i in range(B)]
 
 
-def _check_kernel_batch(A: torch.Tensor, v: int, mesh) -> None:
-    """The kernel route's gate: a (B, N, N) batch, N a multiple of v, no
-    mesh, float32 or float64."""
-    if A.dim() != 3 or A.shape[1] != A.shape[2]:
-        raise ValueError(f"A must be (B, N, N), got {tuple(A.shape)}")
+def _check_batch(A: torch.Tensor, v: int, mesh) -> None:
+    """A (B, N, N) batch, N a multiple of v, no mesh."""
+    _check_batched_square(A)
     N = A.shape[1]
     if N % v:
         raise ValueError(f"N={N} not a multiple of tile size v={v}")
     if mesh is not None:
         raise NotImplementedError("mesh-sharded batches are not ported yet")
-    if A.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"{A.dtype} batches take the vmapped blocked factor, which is not "
-            "ported yet (the kernel route takes float32 and float64)")
+
+
+def _check_batched_square(A: torch.Tensor, what: str = "A") -> None:
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"{what} must be a (B, N, N) batch of square systems, got "
+                         f"{tuple(A.shape)}")
+
+
+def _kernel_factor_eligible(A: torch.Tensor, backend: str) -> bool:
+    """Whether a batched factor runs in the K4 / K5 kernel's grid: backend
+    "kernel" and a float32 or float64 batch (the JAX package's
+    `_pallas_factor_eligible`)."""
+    return backend == "kernel" and A.dtype in (torch.float32, torch.float64)
+
+
+def _rhs_3d(b: torch.Tensor, B: int, N: int):
+    """A batched rhs as (B, N, k); returns (b3, squeeze)."""
+    if b.dim() == 2:
+        if tuple(b.shape) != (B, N):
+            raise ValueError(f"rhs {tuple(b.shape)} does not match batch ({B}, {N})")
+        return b[:, :, None], True
+    if b.dim() == 3:
+        if tuple(b.shape[:2]) != (B, N):
+            raise ValueError(f"rhs {tuple(b.shape)} does not match batch ({B}, {N}, k)")
+        return b, False
+    raise ValueError(f"rhs must be (B, N) or (B, N, k), got {tuple(b.shape)}")
 
 
 def lu_factor_batched(A: torch.Tensor, v: int, *, mesh=None,
                       backend: str | None = None):
     """Pivoted LU of a (B, N, N) batch: (LU (B, N, N), perm (B, N)) with
-    A[i][perm[i]] == L_i @ U_i. Runs on the K4 kernel
-    (`blas.batched_lu_factor`); mesh sharding and the vmapped blocked body
-    (other dtypes) are not ported yet."""
-    _check_kernel_batch(A, v, mesh)
-    return blas.batched_lu_factor(A, backend=backend)
+    A[i][perm[i]] == L_i @ U_i. Backend "kernel" with float32 or float64
+    runs the K4 kernel (`blas.batched_lu_factor`); any other batch the
+    batched blocked factor (`lu.single.lu_factor_blocked`) with the
+    registry's panel algo."""
+    from conflux_tpu_torch.lu.single import lu_factor_blocked
+
+    _check_batch(A, v, mesh)
+    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    if _kernel_factor_eligible(A, backend):
+        return blas.batched_lu_factor(A, backend=backend)
+    return lu_factor_blocked(A, v, backend=backend)
 
 
 def cholesky_factor_batched(A: torch.Tensor, v: int, *, mesh=None,
                             backend: str | None = None):
     """Lower Cholesky factors of a (B, N, N) SPD batch: L (B, N, N), strict
-    upper parts zero. Runs on the K5 kernel (`blas.batched_cholesky_factor`);
-    mesh sharding and the vmapped blocked body (other dtypes) are not
-    ported yet."""
-    _check_kernel_batch(A, v, mesh)
-    return blas.batched_cholesky_factor(A, backend=backend)
+    upper parts zero. Backend "kernel" with float32 or float64 runs the K5
+    kernel (`blas.batched_cholesky_factor`); any other batch the batched
+    blocked factor (`cholesky.single.cholesky_blocked`)."""
+    from conflux_tpu_torch.cholesky.single import cholesky_blocked
+
+    _check_batch(A, v, mesh)
+    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    if _kernel_factor_eligible(A, backend):
+        return blas.batched_cholesky_factor(A, backend=backend)
+    return cholesky_blocked(A, v, backend=backend)
 
 
-def cholesky_solve_batched(L: torch.Tensor, b: torch.Tensor, *, mesh=None):
+def lu_solve_batched(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor, *,
+                     mesh=None) -> torch.Tensor:
+    """Batched substitution through packed LU factors (B, N, N) with
+    A[i][perm[i]] == L_i U_i: b is (B, N) or (B, N, k); returns x of b's
+    shape, in the factors' compute dtype. Two batched library triangular
+    solves, as the JAX package vmaps `solvers.lu_solve`."""
+    _check_batched_square(LU, "LU")
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded batches are not ported yet")
+    B, N = LU.shape[0], LU.shape[1]
+    b3, squeeze = _rhs_3d(b, B, N)
+    cdtype = blas.compute_dtype(LU.dtype)
+    Lu = LU.to(cdtype)
+    r = torch.gather(b3.to(cdtype), 1, perm.long()[:, :, None].expand(b3.shape))
+    x = blas.trsm_left_upper(Lu, blas.trsm_left_lower_unit(Lu, r))
+    return x[:, :, 0] if squeeze else x
+
+
+def cholesky_solve_batched(L: torch.Tensor, b: torch.Tensor, *, mesh=None) -> torch.Tensor:
     """Batched substitution through lower Cholesky factors L (B, N, N): b
-    is (B, N) or (B, N, k); returns x of b's shape. Each system runs
-    `solvers.cholesky_solve`."""
-    from conflux_tpu_torch.solvers import cholesky_solve
-
-    if L.dim() != 3 or L.shape[1] != L.shape[2]:
-        raise ValueError(f"L must be a (B, N, N) batch of square systems, got "
-                         f"{tuple(L.shape)}")
+    is (B, N) or (B, N, k); returns x of b's shape. Two batched library
+    triangular solves (forward through L, back through L^H)."""
+    _check_batched_square(L, "L")
     if mesh is not None:
         raise NotImplementedError("mesh-sharded batches are not ported yet")
     B, N = L.shape[0], L.shape[1]
-    if b.dim() not in (2, 3) or tuple(b.shape[:2]) != (B, N):
-        raise ValueError(f"rhs {tuple(b.shape)} does not match batch ({B}, {N}[, k])")
-    return torch.stack([cholesky_solve(L[i], b[i]) for i in range(B)])
+    b3, squeeze = _rhs_3d(b, B, N)
+    cdtype = blas.compute_dtype(L.dtype)
+    Lc = L.to(cdtype)
+    x = blas.trsm_left_lower_t(Lc, blas.trsm_left_lower(Lc, b3.to(cdtype)))
+    return x[:, :, 0] if squeeze else x
+
+
+def _batched_corr(spd: bool, substitution: str, backend: str, Af: torch.Tensor,
+                  v: int, panel_algo: str):
+    """Factor a (B, N, N) batch with the blocked body and return its
+    substitution closure r -> A^{-1} r. `substitution='blocked'` runs a
+    whole solve round in one K3 launch (`hopper_kernels.btrsm_pair`, the
+    plain version on the CPU) through diagonal-block inverses made here;
+    'trsm' the batched library substitutions."""
+    from conflux_tpu_torch.cholesky.single import cholesky_blocked
+    from conflux_tpu_torch.lu.single import lu_factor_blocked
+    from conflux_tpu_torch.ops import hopper_kernels
+    from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
+
+    cdtype = blas.compute_dtype(Af.dtype)
+    if spd:
+        L = cholesky_blocked(Af, v, backend=backend)
+        if substitution != "blocked":
+            return lambda r: cholesky_solve_batched(L, r)
+        Dl = diag_block_inverses(L.to(cdtype), lower=True)
+        return lambda r: hopper_kernels.btrsm_pair(L, Dl, None, r.to(cdtype), trans_back=True)
+    LU, perm = lu_factor_blocked(Af, v, backend=backend, panel_algo=panel_algo)
+    if substitution != "blocked":
+        return lambda r: lu_solve_batched(LU, perm, r)
+    LUc = LU.to(cdtype)
+    Dl = diag_block_inverses(LUc, lower=True, unit_diagonal=True)
+    Du = diag_block_inverses(LUc, lower=False)
+    return lambda r: hopper_kernels.btrsm_pair(LU, Dl, Du, r.to(cdtype), perm=perm)
+
+
+def solve_batched(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtype=None,
+                  refine: int = 0, spd: bool = False, mesh=None,
+                  backend: str | None = None, substitution: str = "trsm") -> torch.Tensor:
+    """Solve B independent systems A[i] x[i] = b[i]: the batched
+    counterpart of `solvers.solve` (the same `factor_dtype` / `refine`
+    HPL-MxP recipe and `spd` Cholesky switch). A is (B, N, N), b (B, N)
+    or (B, N, k); returns x of b's shape in A's compute dtype. The batch
+    is factored in `factor_dtype` by the blocked body (as the JAX
+    package's vmapped program does, whatever the backend), substituted
+    by `substitution` ('trsm' or 'blocked'), and `refine` classic sweeps
+    take their residuals in A's compute dtype."""
+    if substitution not in ("trsm", "blocked"):
+        raise ValueError(f"unknown substitution {substitution!r} (trsm|blocked)")
+    _check_batched_square(A)
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded batches are not ported yet")
+    B, N = A.shape[0], A.shape[1]
+    v = min(v, N)
+    if N % v:
+        raise ValueError(f"N={N} not a multiple of tile size v={v}; pre-pad the batch "
+                         "with an identity extension (cf. solvers.solve)")
+    b3, squeeze = _rhs_3d(b, B, N)
+    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    fdtype = A.dtype if factor_dtype is None else factor_dtype
+    corr = _batched_corr(spd, substitution, backend, A.to(fdtype), v, blas.get_panel_algo())
+    cdtype = blas.compute_dtype(A.dtype)
+    Ac, bc = A.to(cdtype), b3.to(cdtype)
+    x = corr(b3).to(cdtype)
+    for _ in range(refine):
+        x = x + corr(bc - torch.matmul(Ac, x)).to(cdtype)
+    return x[:, :, 0] if squeeze else x
+
+
+def solve_updated_batched(*args, **kwargs):
+    """Not ported yet: the Woodbury drift path (`update.py`) comes with a
+    later slice."""
+    raise NotImplementedError("solve_updated_batched (the Woodbury path) is not ported yet")

@@ -9,12 +9,15 @@ report and the machine-parsable result protocol:
 
 plus --validate (||A - L L^T||_F / ||A||_F, computed on the device in
 float64 strips) and --refine K (solve A x = 1 with K refinement sweeps).
-Only the single-device route is ported: the flags of the distributed
+A `_route_` line names the route before the result lines: float32 and
+bfloat16 run the trailing update on K1, float64 on the library product
+(backend "xla"). Only the single-device route is ported: the flags of the distributed
 program exit with a message naming it.
 
 Examples:
     python -m conflux_tpu_torch.cli.cholesky_miniapp --dim 32768 --tile 1024 --run 1 --validate
     python -m conflux_tpu_torch.cli.cholesky_miniapp --dim 256 --tile 64 --platform cpu --validate
+    python -m conflux_tpu_torch.cli.cholesky_miniapp --dim 4096 --tile 256 --dtype float64 --validate
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from conflux_tpu_torch.cli.common import (
     add_experiment_type_arg,
     np_dtype,
     platform_device,
+    print_route,
     result_line,
     sync,
 )
@@ -86,10 +90,6 @@ def main(argv=None) -> int:
     if grid.P != 1:
         raise SystemExit(f"grid {grid}: the distributed Cholesky route is not "
                          "ported yet; conflux_tpu_torch runs on one device")
-    if args.dtype == "float64":
-        raise SystemExit("--dtype float64 needs a float64 trailing GEMM (the "
-                         "GEMM kernel takes float32 and bfloat16), which is "
-                         "not ported yet")
     if args.refine is not None and args.refine < 0:
         raise SystemExit("--refine needs a sweep count >= 0")
     v = args.tile or choose_cholesky_tile(args.dim, grid.P)
@@ -107,11 +107,12 @@ def main(argv=None) -> int:
         dev = A_dev.to(torch.bfloat16) if args.dtype == "bfloat16" else A_dev
         sync(device)
 
+    backend, _panel_algo = print_route(args.dtype)
     times = []
     for rep in range(args.run + 1):  # rep 0 is the warm-up
         with WallTimer() as t:
             with profiler.region("cholesky_factorization"):
-                out = cholesky_blocked(dev, v=geom.v)
+                out = cholesky_blocked(dev, v=geom.v, backend=backend)
                 sync(device)
         if rep > 0:
             times.append(t.ms)

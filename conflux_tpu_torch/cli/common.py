@@ -19,9 +19,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
         "one); cpu runs the kernels' plain PyTorch versions")
     p.add_argument(
         "--dtype", default="float32", choices=["float32", "float64", "bfloat16"],
-        help="element type (float64 is not ported yet: each miniapp's message "
-        "names what it needs; bfloat16 stores the matrix in bf16 with f32 "
-        "panel math)")
+        help="element type: float32 and bfloat16 (bf16 storage, f32 panel "
+        "math) run the kernel route (backend and panel algo 'kernel'); "
+        "float64 runs the JAX package's default library route (backend "
+        "'xla', panel algo 'auto'), as no kernel has a float64 instance")
     p.add_argument("--profile", action="store_true", help="print region timings")
 
 
@@ -29,6 +30,15 @@ def platform_device(args) -> torch.device:
     """The device `--platform` names; raises without a card unless the
     caller asked for the CPU."""
     return resolve_device("cpu" if args.platform == "cpu" else "cuda")
+
+
+def print_route(dtype: str) -> tuple[str, str]:
+    """(backend, panel algo) a miniapp runs `dtype` on, printed as its
+    `_route_` line: the kernels take float32 and bfloat16, and float64
+    takes the library route the JAX miniapp itself runs."""
+    backend, panel_algo = ("xla", "auto") if dtype == "float64" else ("kernel", "kernel")
+    print(f"_route_ backend={backend} panel_algo={panel_algo} ({dtype})")
+    return backend, panel_algo
 
 
 def np_dtype(name: str):

@@ -7,12 +7,17 @@ Same CLI vocabulary and the same machine-parsable result protocol:
 
 plus --validate (||A[perm] - L U||_F / ||A||_F, computed on the device in
 float64 strips) and --refine K (solve A x = 1 with K refinement sweeps).
+A `_route_ backend=... panel_algo=... (<dtype>)` line names the route
+before the result lines: float32 and bfloat16 run the kernels, float64
+the JAX package's default library route (backend "xla", panel algo
+"auto").
 Only the single-device route is ported: the flags of the distributed
 program exit with a message naming it.
 
 Examples:
     python -m conflux_tpu_torch.cli.conflux_miniapp -N 32768 -b 1024 -r 1 --validate
     python -m conflux_tpu_torch.cli.conflux_miniapp -N 256 -b 128 --platform cpu --validate
+    python -m conflux_tpu_torch.cli.conflux_miniapp -N 2048 -b 128 --dtype float64 --validate --refine 2
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from conflux_tpu_torch.cli.common import (
     add_experiment_type_arg,
     np_dtype,
     platform_device,
+    print_route,
     result_line,
     sync,
 )
@@ -85,9 +91,6 @@ def main(argv=None) -> int:
     if grid.P != 1:
         raise SystemExit(f"grid {grid}: the distributed LU route is not "
                          "ported yet; conflux_tpu_torch runs on one device")
-    if args.dtype == "float64":
-        raise SystemExit("--dtype float64 needs the library panel LU "
-                         "(panel algo 'partial'), which is not ported yet")
     device = platform_device(args)
 
     M = args.M or args.N
@@ -110,11 +113,13 @@ def main(argv=None) -> int:
         dev = A_dev.to(torch.bfloat16) if args.dtype == "bfloat16" else A_dev
         sync(device)
 
+    backend, panel_algo = print_route(args.dtype)
     times = []
     for rep in range(args.n_rep + 1):  # rep 0 is the mandatory warm-up
         with WallTimer() as t:
             with profiler.region("lu_factorization"):
-                out, perm_dev = lu_factor_blocked(dev, v=geom.v)
+                out, perm_dev = lu_factor_blocked(dev, v=geom.v, backend=backend,
+                                                  panel_algo=panel_algo)
                 sync(device)
         if rep > 0:
             times.append(t.ms)

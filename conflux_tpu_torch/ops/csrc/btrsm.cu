@@ -53,9 +53,14 @@
 // pad rows are zero and never downdated, pad columns of T never read. Sums
 // are fused multiply-adds in the accumulation type (f32 for f32 operands,
 // f64 for f64); no tensor cores (at one right-hand side the work is a
-// latency chain, not a product).
+// latency chain, not a product). T may also be stored in bfloat16 with
+// float32 accumulation (the factors of a bfloat16 factor plan): its panel
+// tiles are copied into the ring as they are stored and each element is
+// converted where a dot product reads it, an exact conversion, so the bits
+// are those of the float32 instance on the upcast T.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,18 +84,28 @@ constexpr int MAX_CS = 8;      // largest cluster
 // lanes), the QS x 8 lanes of a warp read 32 banks (float32)
 template <typename T>
 __host__ __device__ constexpr int pitch() { return sizeof(T) == 4 ? MAX_BS + 4 : MAX_BS + 2; }
+// The pitch of a panel tile of T stored as TS: a bfloat16 row of 80 bytes
+// keeps 16-byte pieces aligned, and the 8 rows a warp reads at once in 8
+// distinct pairs of banks; a ring slot (bs rows of pitch<T>() elements of
+// the accumulation type) holds it.
+template <typename TS>
+__host__ __device__ constexpr int pitch_s() { return sizeof(TS) == 2 ? MAX_BS + 8 : pitch<TS>(); }
+
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
 constexpr int MAX_UNIT = 4;    // tiles per unit of the ring
 constexpr int MAX_AHEAD = 7;   // units in flight past the one consumed
 constexpr int KT_MAX = 16;     // right-hand-side columns per pass
 constexpr size_t SMEM_MAX = 227 * 1024;  // dynamic shared memory of one H100 CTA
 
-template <typename T>
+template <typename T, typename TS>
 struct Args {
   int n, nb, bs, k, kt, as;  // as: odd row stride of the rhs tiles
   int ntiles, serial;        // column tiles; serial: one cluster walks them all
   int mode, trans, ring, nblm;  // ring: a power of two
   int vec;                   // T, D1, D2 rows copy in 16-byte pieces
-  const T* t;
+  const TS* t;               // T as stored: T, or bfloat16 with T = float
   const T* d1;
   const T* d2;
   const T* b;
@@ -123,8 +138,8 @@ struct Step {
   bool back;           // the round's back solve (its rhs is y)
 };
 
-template <typename T, int BS>
-__device__ Step<T> step_at(const Args<T>& a, const Geo<BS>& g, int s) {
+template <typename T, typename TS, int BS>
+__device__ Step<T> step_at(const Args<T, TS>& a, const Geo<BS>& g, int s) {
   Step<T> st;
   const bool back = a.mode == 2 && s >= a.nb;
   const int p = back ? s - a.nb : s;
@@ -291,39 +306,25 @@ __device__ __forceinline__ void st_async(uint32_t ra, double v, uint32_t rm) {
                : "memory");
 }
 
-// Issue the cp.asyncs of one tile into `dst` (rows of pitch<T>()): a panel
-// tile (rows of block i, the columns of block st.jp) or Dinv_i. Each tile
-// row is a row of T or D in memory, copied in 16-byte pieces where a.vec
-// (else element by element): a tile of T's panel is [r][q]; read
-// transposed (st.tT), a tile holds L's rows, [q][r], and so does Dinv.
-template <typename T, int BS>
-__device__ __forceinline__ void load_tile(const Args<T>& a, const Geo<BS>& g, const Step<T>& st,
-                                          size_t sys, bool isD, int i, T* dst) {
-  constexpr int P = pitch<T>(), V = 16 / sizeof(T);
-  const int bs = g.bs, n = a.n, tid = threadIdx.x;
-  const T* src;
-  int ld, rows, cols;
-  if (isD) {
-    src = st.D + (sys * a.nb + i) * bs * bs;
-    ld = rows = cols = bs;
-  } else {
-    const int i0 = i * bs, c0 = st.jp * bs;
-    const int ri = min(bs, n - i0), cq = min(bs, n - c0);
-    ld = n;
-    if (st.tT) {  // L[c0 + q, i0 + r]
-      src = a.t + sys * n * n + static_cast<size_t>(c0) * n + i0;
-      rows = cq, cols = ri;
-    } else {  // T[i0 + r, c0 + q]
-      src = a.t + sys * n * n + static_cast<size_t>(i0) * n + c0;
-      rows = ri, cols = cq;
-    }
-  }
-  if (a.vec) {
+// Issue the cp.asyncs of one tile into ring slot `dst`: a panel tile (rows
+// of block i, the columns of block st.jp), rows of pitch_s<TS>() elements
+// of T's storage type, or Dinv_i, rows of pitch<T>(). Each tile row is a
+// row of T or D in memory, copied in 16-byte pieces where a.vec (else
+// element by element; a 2-byte element by a plain load and store, which
+// the unit's barrier orders as it orders the cp.asyncs): a tile of T's
+// panel is [r][q]; read transposed (st.tT), a tile holds L's rows, [q][r],
+// and so does Dinv.
+template <typename E>
+__device__ __forceinline__ void copy_rows(int vec, E* dst, int pitch, const E* src, int ld,
+                                          int rows, int cols, int bs) {
+  constexpr int V = 16 / sizeof(E);
+  const int tid = threadIdx.x;
+  if (vec) {
     const int cpr = bs / V;  // pieces a row; cols is a multiple of V
     for (int e = tid; e < rows * cpr; e += NT) {
       const int r = e / cpr, c = (e % cpr) * V;
       if (c < cols) {
-        const unsigned d = smem_addr(dst + r * P + c);
+        const unsigned d = smem_addr(dst + r * pitch + c);
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                      "l"(src + static_cast<size_t>(r) * ld + c)
                      : "memory");
@@ -331,20 +332,45 @@ __device__ __forceinline__ void load_tile(const Args<T>& a, const Geo<BS>& g, co
     }
   } else {
     for (int e = tid; e < rows * bs; e += NT) {
-      const int r = g.div_bs(e), c = g.mod_bs(e);
-      if (c < cols) cp_async(dst + r * P + c, src + static_cast<size_t>(r) * ld + c);
+      const int r = e / bs, c = e % bs;
+      if (c < cols) {
+        if constexpr (sizeof(E) >= 4)
+          cp_async(dst + r * pitch + c, src + static_cast<size_t>(r) * ld + c);
+        else
+          dst[r * pitch + c] = src[static_cast<size_t>(r) * ld + c];
+      }
     }
   }
+}
+
+template <typename T, typename TS, int BS>
+__device__ __forceinline__ void load_tile(const Args<T, TS>& a, const Geo<BS>& g,
+                                          const Step<T>& st, size_t sys, bool isD, int i,
+                                          T* dst) {
+  const int bs = g.bs, n = a.n;
+  if (isD) {
+    copy_rows<T>(a.vec, dst, pitch<T>(), st.D + (sys * a.nb + i) * bs * bs, bs, bs, bs, bs);
+    return;
+  }
+  const int i0 = i * bs, c0 = st.jp * bs;
+  const int ri = min(bs, n - i0), cq = min(bs, n - c0);
+  TS* ds = reinterpret_cast<TS*>(dst);
+  if (st.tT)  // L[c0 + q, i0 + r]
+    copy_rows<TS>(a.vec, ds, pitch_s<TS>(), a.t + sys * n * n + static_cast<size_t>(c0) * n + i0,
+                  n, cq, ri, bs);
+  else  // T[i0 + r, c0 + q]
+    copy_rows<TS>(a.vec, ds, pitch_s<TS>(), a.t + sys * n * n + static_cast<size_t>(i0) * n + c0,
+                  n, ri, cq, bs);
 }
 
 // acc[rows of the unit's tiles] -= tile x xs: each (row, column group) a
 // dot product split over QS lanes (lane qs takes q = qs, qs + QS, ...),
 // partials met in a fixed shuffle tree.
-template <typename T, int KC, int BS, bool GM>
-__device__ __forceinline__ void downdate(const Args<T>& a, const Geo<BS>& g, const Step<T>& st,
+template <typename T, typename TS, int KC, int BS, bool GM>
+__device__ __forceinline__ void downdate(const Args<T, TS>& a, const Geo<BS>& g, const Step<T>& st,
                                          int u, int ntl, const T* ring, int g0, const T* xs,
                                          T* acc) {
-  constexpr int P = pitch<T>();
+  constexpr int P = pitch<T>(), PS = pitch_s<TS>();
   const int bs = g.bs, as = KC == 1 ? 1 : a.as;  // one column: as is 1
   const int qmax = min(bs, a.n - st.jp * bs);
   // a whole warp where blocks are 32 wide (the items fill whole warps),
@@ -359,21 +385,22 @@ __device__ __forceinline__ void downdate(const Args<T>& a, const Geo<BS>& g, con
     bool isD;
     const int i = tile_block(st, u, e, &isD);
     const bool valid = i * bs + r < a.n;
-    // element (r, q) at r * P + q, or at q * P + r in a transposed tile
-    const T* tile = ring + static_cast<size_t>((g0 + e) & g.ringm) * bs * P +
-                    (st.tT ? r : r * P);
-    const int qstep = st.tT ? P : 1;  // q's stride in the tile
+    // element (r, q) at r * PS + q, or at q * PS + r in a transposed tile
+    const TS* tile =
+        reinterpret_cast<const TS*>(ring + static_cast<size_t>((g0 + e) & g.ringm) * bs * P) +
+        (st.tT ? r : r * PS);
+    const int qstep = st.tT ? PS : 1;  // q's stride in the tile
     T s[KC];
 #pragma unroll
     for (int c = 0; c < KC; ++c) s[c] = T(0);
     if (valid) {
       // lane qs's terms q = qs + QS qq: strides fixed before the loop, and a
       // full block unrolled, so that the loads run ahead of the FMA chain
-      const T* tq = tile + qs * qstep;
+      const TS* tq = tile + qs * qstep;
       const T* xq = xs + qs * as + cg_ * KC;
       const int ts = QS * qstep, xst = QS * as;
       auto term = [&](int qq) {
-        const T tv = tq[qq * ts];
+        const T tv = to_acc(tq[qq * ts]);
 #pragma unroll
         for (int c = 0; c < KC; ++c) s[c] = fma(tv, ldx<GM>(xq + qq * xst + c), s[c]);
       };
@@ -409,9 +436,9 @@ __host__ __device__ __forceinline__ size_t mbar_bytes(int nb, bool pair) {
 // barrier of its CTA, arrives on every CTA's mbarrier of block j with a
 // cluster-scope release; readers wait with a cluster-scope acquire and
 // read x past L1. Same operations in the same order: same bits.
-template <typename T, int KC, int BS, bool GM>
+template <typename T, typename TS, int KC, int BS, bool GM>
 __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 3 : 2)
-btrsm_kernel(const Args<T> a) {
+btrsm_kernel(const Args<T, TS> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   Geo<BS> g;
@@ -531,7 +558,7 @@ btrsm_kernel(const Args<T> a) {
         const int g0 = begin_unit(nt, false);
         if (st.jp >= 0) {
           mbar_wait<GM>(xr + st.jp, parity);
-          downdate<T, KC, BS, GM>(a, g, st, 0, 1, ring, g0, xprev, acc);
+          downdate<T, TS, KC, BS, GM>(a, g, st, 0, 1, ring, g0, xprev, acc);
           __syncthreads();
         }
         const T* Dt = ring + static_cast<size_t>((g0 + nt - 1) & g.ringm) * bs * P;
@@ -615,7 +642,7 @@ btrsm_kernel(const Args<T> a) {
         const int nt = tiles_of(st, u);
         const int g0 = begin_unit(nt, true);
         if (u == (st.own ? 1 : 0)) mbar_wait<GM>(xr + st.jp, parity);
-        downdate<T, KC, BS, GM>(a, g, st, u, nt, ring, g0, xprev, acc);
+        downdate<T, TS, KC, BS, GM>(a, g, st, u, nt, ring, g0, xprev, acc);
       }
     }
     // every x block of the pass has landed here, and everywhere: the
@@ -687,15 +714,15 @@ size_t scratch_elems(int cs, int bs, int as, int nblm, int nb, bool pair) {
 // What one launch runs as: the kernel instance, the cluster size (0: no
 // size fits), the column tile kt, the ring's tiles, and whether the x
 // blocks live in global memory.
-template <typename T>
+template <typename T, typename TS>
 struct Geometry {
-  void (*kernel)(const Args<T>);
+  void (*kernel)(const Args<T, TS>);
   int cs, kt, ring, ntiles, serial, gm;
   size_t smem;
 };
 
-template <typename T, int KC, int BS, bool GM>
-Geometry<T> geometry_of(int device, int clusters, int nb, int bs, int kt, bool pair) {
+template <typename T, typename TS, int KC, int BS, bool GM>
+Geometry<T, TS> geometry_of(int device, int clusters, int nb, int bs, int kt, bool pair) {
   // a power of two, 2 MAX_UNIT or more; a deeper ring was slower on an H100
   // (`scripts/torch_btrsm_variants.py`) and a smaller CTA fits more a SM
   const int ring = 2 * MAX_UNIT;
@@ -707,7 +734,7 @@ Geometry<T> geometry_of(int device, int clusters, int nb, int bs, int kt, bool p
     const size_t s = smem_bytes<T>(ring, bs, as, (nb + cs - 1) / cs, nb, pair, GM);
     return s > SMEM_MAX ? static_cast<size_t>(-1) : s;
   };
-  auto kernel = btrsm_kernel<T, KC, BS, GM>;
+  auto kernel = btrsm_kernel<T, TS, KC, BS, GM>;
   // the attribute first: the occupancy query reads it
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(SMEM_MAX));
@@ -725,24 +752,24 @@ Geometry<T> geometry_of(int device, int clusters, int nb, int bs, int kt, bool p
       waves = w;
     }
   }
-  Geometry<T> g{kernel, cs, kt, ring, 0, 0, GM, cs ? smem_of(cs) : 0};
+  Geometry<T, TS> g{kernel, cs, kt, ring, 0, 0, GM, cs ? smem_of(cs) : 0};
   return g;
 }
 
-template <typename T, int KC, bool GM>
-Geometry<T> geometry_bs(int device, int clusters, int nb, int bs, int kt, bool pair) {
+template <typename T, typename TS, int KC, bool GM>
+Geometry<T, TS> geometry_bs(int device, int clusters, int nb, int bs, int kt, bool pair) {
   // blocks 32 wide at compile time, any narrower one (and GM) at run time
   if constexpr (!GM)
-    if (bs == MAX_BS) return geometry_of<T, KC, MAX_BS, GM>(device, clusters, nb, bs, kt, pair);
-  return geometry_of<T, KC, 0, GM>(device, clusters, nb, bs, kt, pair);
+    if (bs == MAX_BS) return geometry_of<T, TS, KC, MAX_BS, GM>(device, clusters, nb, bs, kt, pair);
+  return geometry_of<T, TS, KC, 0, GM>(device, clusters, nb, bs, kt, pair);
 }
 
 // The launch geometry, cached per (device, shape, mode, probe): the
 // occupancy queries and the attribute run on a shape's first launch only.
-template <typename T>
-Geometry<T> geometry(int device, int batch, int n, int nb, int bs, int k, int mode, bool probe) {
+template <typename T, typename TS>
+Geometry<T, TS> geometry(int device, int batch, int n, int nb, int bs, int k, int mode, bool probe) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int, int, int, int, int, bool>, Geometry<T>>
+  static std::map<std::tuple<int, int, int, int, int, int, int, bool>, Geometry<T, TS>>
       cache;  // guarded-by: mu
   const auto key = std::make_tuple(device, batch, n, nb, bs, k, mode, probe);
   {
@@ -755,18 +782,18 @@ Geometry<T> geometry(int device, int batch, int n, int nb, int bs, int k, int mo
   // none fits, the x blocks and right-hand sides go to global memory
   const bool pair = mode == 2;
   const int kt0 = k == 1 ? 1 : (k <= 4 ? 4 : (k <= 8 ? 8 : KT_MAX));
-  Geometry<T> g{nullptr, 0, 0, 0, 0, 0, 0, 0};
+  Geometry<T, TS> g{nullptr, 0, 0, 0, 0, 0, 0, 0};
   for (int gm = 0; gm < 2 && g.cs == 0; ++gm) {
     for (int kt = kt0; kt >= 1 && g.cs == 0; kt = (kt == 4 || gm) ? 0 : kt / 2) {
       const int ntiles = (k + kt - 1) / kt;
       const int serial = probe || ntiles == 1;
       const int clusters = batch * (serial ? 1 : ntiles);
       if (gm)
-        g = kt == 1 ? geometry_bs<T, 1, true>(device, clusters, nb, bs, kt, pair)
-                    : geometry_bs<T, 4, true>(device, clusters, nb, bs, kt, pair);
+        g = kt == 1 ? geometry_bs<T, TS, 1, true>(device, clusters, nb, bs, kt, pair)
+                    : geometry_bs<T, TS, 4, true>(device, clusters, nb, bs, kt, pair);
       else
-        g = kt == 1 ? geometry_bs<T, 1, false>(device, clusters, nb, bs, kt, pair)
-                    : geometry_bs<T, 4, false>(device, clusters, nb, bs, kt, pair);
+        g = kt == 1 ? geometry_bs<T, TS, 1, false>(device, clusters, nb, bs, kt, pair)
+                    : geometry_bs<T, TS, 4, false>(device, clusters, nb, bs, kt, pair);
       g.ntiles = ntiles;
       g.serial = serial;
     }
@@ -776,14 +803,14 @@ Geometry<T> geometry(int device, int batch, int n, int nb, int bs, int k, int mo
   return g;
 }
 
-template <typename T>
+template <typename T, typename TS>
 int launch(int device, int batch, int n, int nb, int bs, int k, int mode, int trans,
            const void* t, const void* d1, const void* d2, const void* b,
            const long long* perm, const void* wa, void* x, void* xsum, void* wax,
            cudaStream_t stream) {
-  const Geometry<T> g = geometry<T>(device, batch, n, nb, bs, k, mode, wa != nullptr);
+  const Geometry<T, TS> g = geometry<T, TS>(device, batch, n, nb, bs, k, mode, wa != nullptr);
   if (g.cs == 0) return cudaErrorInvalidValue;  // does not fit shared memory
-  Args<T> a;
+  Args<T, TS> a;
   a.n = n;
   a.nb = nb;
   a.bs = bs;
@@ -796,10 +823,11 @@ int launch(int device, int batch, int n, int nb, int bs, int k, int mode, int tr
   a.trans = trans;
   a.ring = g.ring;
   a.nblm = (nb + g.cs - 1) / g.cs;
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(T), VS = 16 / sizeof(TS);
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  a.vec = n % V == 0 && bs % V == 0 && aligned(t) && aligned(d1) && (!d2 || aligned(d2));
-  a.t = static_cast<const T*>(t);
+  a.vec = n % VS == 0 && bs % VS == 0 && bs % V == 0 && aligned(t) && aligned(d1) &&
+          (!d2 || aligned(d2));
+  a.t = static_cast<const TS*>(t);
   a.d1 = static_cast<const T*>(d1);
   a.d2 = static_cast<const T*>(d2);
   a.b = static_cast<const T*>(b);
@@ -828,8 +856,9 @@ bool bad_shape(int batch, int n, int nb, int bs, int k, int mode) {
 
 }  // namespace
 
-// dtype 0: float32, 1: float64. t: (batch, n, n); d1, d2: (batch, nb, bs,
-// bs); b and x: (batch, n, k); all contiguous and of that dtype, with
+// dtype 0: float32, 1: float64, 2: float32 with t stored in bfloat16. t:
+// (batch, n, n); d1, d2: (batch, nb, bs, bs); b and x: (batch, n, k); all
+// contiguous and of that dtype (t in bfloat16 for dtype 2), with
 // bs <= 32 and nb = ceil(n / bs). mode 0: T x = b lower through d1; 1:
 // upper through d1; 2: the round, lower through d1 on b[perm], then upper
 // through d2 or, with trans, through T^T and d1^T. perm: (batch, n) int64 or
@@ -846,10 +875,13 @@ extern "C" int conflux_btrsm(int dtype, int device, int batch, int n, int nb, in
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(device, batch, n, nb, bs, k, mode, trans, t, d1, d2, b, perm, wa, x,
+    return launch<float, float>(device, batch, n, nb, bs, k, mode, trans, t, d1, d2, b, perm, wa, x,
                          xsum, wax, s);
   if (dtype == 1)
-    return launch<double>(device, batch, n, nb, bs, k, mode, trans, t, d1, d2, b, perm, wa, x,
-                          xsum, wax, s);
+    return launch<double, double>(device, batch, n, nb, bs, k, mode, trans, t, d1, d2, b, perm,
+                                  wa, x, xsum, wax, s);
+  if (dtype == 2)
+    return launch<float, __nv_bfloat16>(device, batch, n, nb, bs, k, mode, trans, t, d1, d2, b,
+                                        perm, wa, x, xsum, wax, s);
   return cudaErrorInvalidValue;
 }

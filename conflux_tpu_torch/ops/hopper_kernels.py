@@ -360,17 +360,21 @@ def _narrow_blocks(d: torch.Tensor, n: int) -> torch.Tensor:
 
 def _btrsm_launch(mode: str, T, d1, d2, b, perm=None, trans=False, wA=None):
     """One K3 launch on the card. Returns x (B, n, k) in the accumulation
-    dtype and, with wA, the stats (2, B): xsum and wAx of the final solve."""
+    dtype and, with wA, the stats (2, B): xsum and wAx of the final solve.
+    A bfloat16 T is read as it is stored (the instance converts each
+    element where it reads it, exactly), everything else in the
+    accumulation dtype."""
     acc = _acc_dtype(T.dtype)
     if acc not in _F32_F64:
         raise ValueError(f"btrsm accumulates in float32 or float64, got {acc}")
+    t_bf16 = T.dtype == torch.bfloat16
     B, n, k = b.shape
     if d1.shape[-1] > _BTRSM_MAX_BS:
         d1 = _narrow_blocks(d1, n)
         d2 = None if d2 is None else _narrow_blocks(d2, n)
     nb, bs = d1.shape[1], d1.shape[-1]
     dev = T.device
-    Tc = _operand(T, acc, dev, "T")
+    Tc = _operand(T, torch.bfloat16 if t_bf16 else acc, dev, "T")
     D1 = _operand(d1, acc, dev, "dinv")
     D2 = _operand(d2, acc, dev, "Du")
     bc = _operand(b, acc, dev, "b")
@@ -384,7 +388,8 @@ def _btrsm_launch(mode: str, T, d1, d2, b, perm=None, trans=False, wA=None):
 
     sp = None if stats is None else stats.data_ptr()
     rc = _build.load().conflux_btrsm(
-        _F32_F64[acc], dev.index or 0, B, n, nb, bs, k, _BTRSM_MODES[mode], int(trans),
+        2 if t_bf16 else _F32_F64[acc], dev.index or 0, B, n, nb, bs, k,
+        _BTRSM_MODES[mode], int(trans),
         Tc.data_ptr(), D1.data_ptr(), None if D2 is None else D2.data_ptr(), bc.data_ptr(),
         None if pc is None else pc.data_ptr(), None if wc is None else wc.data_ptr(),
         x.data_ptr(), sp, None if sp is None else sp + B * stats.element_size(), _stream(T))
@@ -398,9 +403,10 @@ def btrsm(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
           lower: bool = True) -> torch.Tensor:
     """Solve T x = b for a batch of triangles through their diagonal-block
     inverses: T (B, n, n) (a packed LU is fine: the other triangle is never
-    read), dinv (B, nb, bs, bs) from `batched_trsm.diag_block_inverses`,
-    b (B, n, k). Accumulates in promote(T.dtype, f32); returns x (B, n, k)
-    in b.dtype. One K3 launch."""
+    read; float32, float64, or bfloat16 read as stored), dinv (B, nb, bs,
+    bs) from `batched_trsm.diag_block_inverses`, b (B, n, k). Accumulates
+    in promote(T.dtype, f32); returns x (B, n, k) in b.dtype. One K3
+    launch."""
     _check_btrsm(T, dinv, b)
     if T.device.type == "cpu":
         return btrsm_plain(T, dinv, b, lower)

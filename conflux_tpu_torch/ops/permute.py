@@ -42,31 +42,31 @@ def swap_minimal_perm(gpiv: torch.Tensor, m: int) -> torch.Tensor:
     vacated (in ascending order), and every other row stays put. gpiv
     entries outside [0, m) (tournament pad ids from a rank-deficient panel)
     are replaced by the lowest unused row ids, so the result is always a
-    valid permutation.
+    valid permutation. A (B, v) batch of winners gives (B, m), row by row.
     """
-    v = gpiv.shape[0]
-    dev = gpiv.device
-    gpiv = gpiv.long()
-    pos = torch.arange(m, device=dev)
-    valid = (gpiv >= 0) & (gpiv < m)
+    g = (gpiv if gpiv.dim() == 2 else gpiv[None]).long()
+    B, v = g.shape
+    dev = g.device
+    pos = torch.arange(m, device=dev).expand(B, m)
+    valid = (g >= 0) & (g < m)
     # slot m is the dump for invalid ids (the JAX scatter drops them)
-    is_w = torch.zeros(m + 1, dtype=torch.bool, device=dev)
-    is_w[torch.where(valid, gpiv, m)] = valid
-    is_w = is_w[:m]
+    is_w = torch.zeros((B, m + 1), dtype=torch.bool, device=dev)
+    is_w.scatter_(1, torch.where(valid, g, m), valid)
+    is_w = is_w[:, :m]
     # lowest unused rows, ascending, to stand in for invalid winner ids
-    unused = torch.sort(torch.where(is_w, m, pos)).values
-    bad_rank = torch.cumsum((~valid).long(), 0) - 1
-    gpiv = torch.where(valid, gpiv, unused[bad_rank.clamp(0, m - 1)])
-    is_w = torch.zeros(m, dtype=torch.bool, device=dev)
-    is_w[gpiv.clamp(0, m - 1)] = True
+    unused = torch.sort(torch.where(is_w, m, pos), dim=1).values
+    bad_rank = torch.cumsum((~valid).long(), 1) - 1
+    g = torch.where(valid, g, torch.gather(unused, 1, bad_rank.clamp(0, m - 1)))
+    is_w = torch.zeros((B, m), dtype=torch.bool, device=dev)
+    is_w.scatter_(1, g.clamp(0, m - 1), True)
     # non-winner rows in the top v slots, ascending (padded with m, which
     # the clamp keeps in range; #vacant slots == #displaced rows)
-    disp = torch.sort(torch.where((pos < v) & ~is_w, pos, m)).values
+    disp = torch.sort(torch.where((pos < v) & ~is_w, pos, m), dim=1).values
     vac = (pos >= v) & is_w
-    rank = torch.cumsum(vac.long(), 0) - 1
-    sperm = torch.where(vac, disp[rank.clamp(0, m - 1)], pos)
-    sperm[:v] = gpiv
-    return sperm
+    rank = torch.cumsum(vac.long(), 1) - 1
+    sperm = torch.where(vac, torch.gather(disp, 1, rank.clamp(0, m - 1)), pos)
+    sperm[:, :v] = g
+    return sperm if gpiv.dim() == 2 else sperm[0]
 
 
 def push_pivots_up(A: torch.Tensor, pivot_mask: torch.Tensor):

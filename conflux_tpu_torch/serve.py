@@ -20,25 +20,33 @@ with only the O(N^2) substitution against factors that stay on the card:
     spd = FactorPlan.create((32, 256, 256), torch.float32, v=128, kind="chol")
     x = spd.factor(S).solve(b)        # K5 once, then one K3 launch a round
 
-Every plan factors through a batched factor kernel (`ops.batched_factor`):
-LU plans through K4, SPD plans (``kind="chol"``, or the legacy
-``spd=True``) through the batched Cholesky K5, the counterparts of a JAX
-plan made with ``backend="pallas"``. ``plan.factor`` rides bucket 1 of the
-factor lane's stacked program, so a session it opens and one opened by a
-coalesced bucket carry the same bits. Blocked plans (the default) solve
+A plan on backend "kernel" with float32 or float64 systems and
+``factor_dtype == dtype`` factors through a batched factor kernel
+(`ops.batched_factor`): LU plans through K4, SPD plans (``kind="chol"``,
+or the legacy ``spd=True``) through the batched Cholesky K5, the
+counterparts of a JAX plan made with ``backend="pallas"``. Every other
+plan (bfloat16 storage, ``factor_dtype != dtype`` such as the HPL-MxP
+``factor_dtype=bfloat16`` plan, ``backend="xla"``) factors through the
+batched blocked factor (`lu.single.lu_factor_blocked`,
+`cholesky.single.cholesky_blocked` on the stacked batch), the
+counterpart of the JAX package's vmapped `_one_factor`: on "kernel" its
+panels run on K2 and its trailing updates on K1. ``plan.factor`` rides
+bucket 1 of the factor lane's stacked program, so a session it opens and
+one opened by a coalesced bucket come from the same program (bit for bit
+on the kernel route). Blocked plans (the default) solve
 through the batched blocked triangular-solve kernel (K3,
 `hopper_kernels.btrsm_pair`): the batched form of the block loop the JAX
 programs vmap, a whole round (the row permutation, forward, back, and
 for checked solves the probe stats) in one launch; an SPD plan's back
 solve reads L^T in place.
 
-Ported: LU and Cholesky plans (single and batched, float32 and float64,
+Ported: LU and Cholesky plans (single and batched; float32, float64,
+bfloat16 storage and any factor dtype; backends "kernel" and "xla";
 substitution blocked|trsm|inv, `refine` sweeps), checked solves and the
 factor lane's coalesced programs. Not ported yet, each raising
 NotImplementedError: QR plans, mesh plans, the precision ladder, Woodbury
 update/refactor, gang stacks, tier residency and bucket retirement, device
-moves, the plan codec and the engine. Plans outside the kernels' gate
-(`factor_dtype != dtype`, other dtypes) raise too.
+moves, the plan codec and the engine.
 """
 
 from __future__ import annotations
@@ -153,6 +161,14 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return from_numpy(np.asarray(x), device)
 
 
+def _round_operand(T: torch.Tensor, cdtype: torch.dtype) -> torch.Tensor:
+    """A factor as K3 reads it in a solve round: a bfloat16 factor with
+    float32 inverses as it is stored, anything else in `cdtype`."""
+    if T.dtype == torch.bfloat16 and cdtype == torch.float32:
+        return T
+    return T.to(cdtype)
+
+
 def _take_rows(r: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """r[..., perm, :] per system: (..., N, k) rows by (..., N) indices."""
     return torch.gather(r, -2, perm[..., None].expand(r.shape))
@@ -185,11 +201,13 @@ class FactorPlan:
             raise ValueError(f"N={self.N} not a multiple of v={key.v}; pre-pad "
                              "with an identity extension")
         if not self._kernel_factor:
-            raise _not_ported(
-                f"a plan outside the batched factor kernels' gate (dtype "
-                f"{key.dtype}, factor_dtype {key.factor_dtype}: the kernels "
-                "take float32 or float64 with factor_dtype == dtype) needs "
-                "the vmapped blocked factor, which")
+            # the blocked factor's routes, refused here rather than at the
+            # first factor: K1 takes float32 and bfloat16, K2 float32
+            fd = _torch_dtype(key.factor_dtype)
+            blas.check_gemm_route(key.backend, fd)
+            if key.kind == "lu":
+                blas._resolve_panel_algo(blas.compute_dtype(fd), self.N, key.v,
+                                         key.panel_algo)
         self.trace_counts = {"factor": 0, "solve": 0}
         # concurrent first callers fill the memoized program caches
         # double-checked under this lock
@@ -295,12 +313,13 @@ class FactorPlan:
 
     def _blocked_round(self, factors, r, wA=None):
         """A blocked plan's solve round on its factors, (LU, Dl, Du, perm)
-        or, SPD, (L, Dl): :meth:`_pair`."""
+        or, SPD, (L, Dl): :meth:`_pair`. A bfloat16 factor goes to K3 as it
+        is stored (its bfloat16 instance reads it, no cast per round)."""
         if self._spd:
             L, Dl = factors
-            return self._pair(L.to(Dl.dtype), Dl, None, r.to(Dl.dtype), None, wA)
+            return self._pair(_round_operand(L, Dl.dtype), Dl, None, r.to(Dl.dtype), None, wA)
         LU, Dl, Du, perm = factors
-        return self._pair(LU.to(Dl.dtype), Dl, Du, r.to(Dl.dtype), perm, wA)
+        return self._pair(_round_operand(LU, Dl.dtype), Dl, Du, r.to(Dl.dtype), perm, wA)
 
     @property
     def _spd(self) -> bool:
@@ -393,9 +412,8 @@ class FactorPlan:
         for LU, K5 for Cholesky), the counterpart of the JAX
         `_pallas_factor` gate: the "kernel" backend, no mesh, LU or
         Cholesky, and float32 or float64 with `dtype == factor_dtype` (so
-        the kernel's probe row reads the operand `probe_row` would). The
-        port has no other factor route yet, so the constructor refuses
-        plans outside it."""
+        the kernel's probe row reads the operand `probe_row` would). Other
+        plans factor through :meth:`_blocked_factor_core`."""
         k = self.key
         return (k.backend == "kernel" and k.mesh_key is None
                 and k.kind in ("lu", "chol") and k.dtype == k.factor_dtype
@@ -413,8 +431,37 @@ class FactorPlan:
             return out if probe else (out,)
         return blas.batched_lu_factor(A2, probe_w=w, backend=self.key.backend)
 
-    def _kernel_factor_epilogue(self, core, probe: bool = False):
-        """Second half: the substitution epilogue on the kernel's output
+    def _blocked_factor_core(self, Ast, probe: bool = False):
+        """First half of the stacked factor of a plan outside the kernel
+        gate: fold the stack (batched plans fold (bb, B) into one batch),
+        cast it to the factor dtype and run the batched blocked factor on
+        the plan's backend and panel algo, the counterpart of the JAX
+        package's vmapped `_one_factor`; with `probe`, the probe rows
+        wA = w^T A off the stack in the plan's dtype, as the JAX
+        `_stacked_factor_body` computes them beside the factor. Returns
+        (LU, perm[, wA]) or (L[, wA])."""
+        from conflux_tpu_torch.cholesky.single import cholesky_blocked
+        from conflux_tpu_torch.lu.single import lu_factor_blocked
+
+        k = self.key
+        A2 = Ast.reshape((-1,) + tuple(Ast.shape[-2:]))
+        Af = A2.to(_torch_dtype(k.factor_dtype))
+        if self._spd:
+            core = (cholesky_blocked(Af, k.v, backend=k.backend),)
+        else:
+            core = lu_factor_blocked(Af, k.v, backend=k.backend, panel_algo=k.panel_algo)
+        if not probe:
+            return core
+        return (*core, probe_row(self._probe_w_on(Ast.device), A2))
+
+    def _factor_core(self, Ast, probe: bool = False):
+        """The stacked factor's first half on this plan's route."""
+        if self._kernel_factor:
+            return self._kernel_factor_core(Ast, probe)
+        return self._blocked_factor_core(Ast, probe)
+
+    def _factor_epilogue(self, core, probe: bool = False):
+        """Second half: the substitution epilogue on the factor's output
         (per-slot diagonal-block inverses for 'blocked', full triangular
         inverses for 'inv') and the (bb, B) unflatten of batched plans.
         Every op is per slot, so the kernel's per-slot bits survive into
@@ -465,16 +512,17 @@ class FactorPlan:
     def _stacked_factor_fn(self, bb: int):
         """The factor lane's coalesced program: `bb` systems of this plan
         stacked on a new leading axis, (bb,) + key.shape, factored in one
-        K4 launch at power-of-two batch buckets. Each slot's factors are
-        bitwise invariant to the bucket and to the pad contents, which is
-        why :meth:`factor` itself rides this program at bucket 1."""
+        call (a K4 or K5 launch, or the batched blocked factor) at
+        power-of-two batch buckets. On the kernel route each slot's
+        factors are bitwise invariant to the bucket and to the pad
+        contents; :meth:`factor` itself rides this program at bucket 1."""
         self._check_bucket("_stacked_factor_fn", bb)
 
         def build():
             self._bump("factor")
 
             def run(Ast):
-                return self._kernel_factor_epilogue(self._kernel_factor_core(Ast))
+                return self._factor_epilogue(self._factor_core(Ast))
             return run
 
         return self._memo(self._factor_cache, ("factor", bb), build)
@@ -483,7 +531,7 @@ class FactorPlan:
         """Checked coalesced program: factor the stack and produce each
         slot's health evidence in the same call, (bb,)+shape A ->
         (factors, wA, verdict (2, bb)). wA[i] = w^T A_i comes out of the K4
-        or K5 launch; the verdict solves A_i x = w through the fresh factors
+        or K5 launch (beside the blocked factor elsewhere); the verdict solves A_i x = w through the fresh factors
         and projects the residual through wA, so slot i's verdict depends
         only on slot i. Blocked plans without sweeps take the stats from the
         back substitution (:meth:`_blocked_probe_body`)."""
@@ -518,8 +566,8 @@ class FactorPlan:
                                     res.to(torch.float32)])
 
             def run(Ast):
-                F, wA = self._kernel_factor_epilogue(
-                    self._kernel_factor_core(Ast, probe=True), probe=True)
+                F, wA = self._factor_epilogue(
+                    self._factor_core(Ast, probe=True), probe=True)
                 return F, wA, check(F, wA, Ast)
             return run
 

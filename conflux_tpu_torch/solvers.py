@@ -1,14 +1,22 @@
 """Direct solves on the factorization, with iterative refinement (the
 single-device half of `conflux_tpu/solvers.py`).
 
+    x = solve(A, b)                                         # direct
+    x = solve(A, b, factor_dtype=torch.bfloat16, refine=3)  # HPL-MxP mode
+
 `lu_solve` is the triangular-substitution half for factors from
 `lu_factor_blocked`, `cholesky_solve` the same for a lower Cholesky factor;
-`refine_classic` is the HPL-MxP recipe's refinement
-loop: cheap factors, residuals in a higher precision.
+`refine_classic` is the HPL-MxP recipe's refinement loop (cheap factors,
+residuals in a higher precision) and `fgmres` its GMRES-IR engine for
+systems where the classic loop stalls. `lu_solve_transposed`,
+`slogdet_from_lu`, `cond_estimate_1` and `inv_from_lu` are the LAPACK
+getrs-T / det / gecon / getri roles on the same factors. The distributed
+solvers, `lstsq` (QR) and `solve_updated` (Woodbury) are not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from conflux_tpu_torch.ops import blas
@@ -72,3 +80,217 @@ def _residual_strips(A: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     xr = x.to(rdtype)
     return torch.cat([b[i:i + strip].to(rdtype) - A[i:i + strip].to(rdtype) @ xr
                       for i in range(0, N, strip)])
+
+
+def _as_2d(b: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    return (b[:, None], True) if b.dim() == 1 else (b, False)
+
+
+def solve(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtype=None,
+          refine: int = 0, spd: bool = False) -> torch.Tensor:
+    """Solve A x = b by blocked factorization plus optional refinement, on
+    A's device with the registry's backend and panel algo.
+
+    `factor_dtype` (default A's dtype) is the dtype the factorization runs
+    in: bfloat16 with 2-3 `refine` sweeps is the HPL-MxP trade (each
+    sweep's residual in A's compute dtype, the correction through the cheap
+    factors). `spd` factors by Cholesky. N need not be a multiple of v:
+    the system is padded to one with an identity-extended diagonal (the
+    extra rows and columns are decoupled unit pivots) and x sliced back.
+    """
+    N = A.shape[0]
+    v = min(v, N)
+    pad = (-N) % v
+    if pad:
+        Np = N + pad
+        Ap = A.new_zeros((Np, Np))
+        Ap[:N, :N] = A
+        idx = torch.arange(N, Np, device=A.device)
+        Ap[idx, idx] = 1
+        A = Ap
+        b2, squeezed = _as_2d(b)
+        b = torch.nn.functional.pad(b2, (0, 0, 0, pad))
+        if squeezed:
+            b = b[:, 0]
+    fdtype = A.dtype if factor_dtype is None else factor_dtype
+    Af = A.to(fdtype)
+    if spd:
+        from conflux_tpu_torch.cholesky.single import cholesky_blocked
+
+        L = cholesky_blocked(Af, v)
+
+        def solve_corr(r):
+            return cholesky_solve(L, r)
+    else:
+        from conflux_tpu_torch.lu.single import lu_factor_blocked
+
+        LU, perm = lu_factor_blocked(Af, v)
+
+        def solve_corr(r):
+            return lu_solve(LU, perm, r)
+
+    cdtype = blas.compute_dtype(A.dtype)
+    Ac, bc = A.to(cdtype), b.to(cdtype)
+    x = solve_corr(b).to(cdtype)
+    for _ in range(refine):
+        x = x + solve_corr(bc - torch.matmul(Ac, x)).to(cdtype)
+    return x[:N] if pad else x
+
+
+def fgmres(matvec, precond, b: torch.Tensor, *, args=(), x0=None, tol: float = 1e-6,
+           restart: int = 16, max_restarts: int = 12, rdtype=torch.float64):
+    """Flexible GMRES with right preconditioning: the GMRES-IR engine.
+
+    Solves A x = b where `matvec(x, *args)` applies A (accumulating in
+    `rdtype`) and `precond(r, *args)` applies an approximate inverse,
+    typically a low-precision LU solve (classic refinement diverges once
+    cond(A) eps_factor nears 1; FGMRES with the same factors converges
+    where the preconditioned spectrum clusters). Each restart cycle is the
+    Arnoldi process with masked reorthogonalized Gram-Schmidt (CGS2) as a
+    loop of tensor ops on b's device; the (m+1, m) least squares of a
+    cycle runs on the host in numpy, as the JAX package runs it. `rdtype`
+    is explicit (float64 by default): the JAX default follows its x64
+    switch, which the port does not have.
+
+    Returns (x, info) with info = {'restarts', 'residual'}, residual the
+    ||b - A x|| / ||b|| of the final x, measured with `matvec`.
+    """
+    b_r = b.to(rdtype)
+    N = b_r.shape[0]
+    m = int(restart)
+    if m < 1:
+        raise ValueError(f"restart must be >= 1, got {restart}")
+    dev = b_r.device
+    x = torch.zeros((N,), dtype=rdtype, device=dev) if x0 is None else x0.to(rdtype)
+    done_restarts = 0
+    bnorm = float(torch.sqrt((b_r * b_r).sum()))
+    if bnorm == 0:
+        return x, {"restarts": 0, "residual": 0.0}
+    rows = torch.arange(m + 1, device=dev)
+    for k in range(max_restarts):
+        beta, H, Z = _fgmres_cycle(matvec, precond, m, x, b_r, args, rdtype, rows)
+        beta_f = float(beta)
+        done_restarts = k + 1
+        if beta_f / bnorm <= tol:
+            break
+        # small (m+1, m) least squares on the host; breakdown columns (a
+        # zero subdiagonal) are harmless, lstsq handles the rank
+        Hh = H.cpu().numpy().astype(np.float64)
+        e1 = np.zeros(m + 1)
+        e1[0] = beta_f
+        y, *_ = np.linalg.lstsq(Hh, e1, rcond=None)
+        x = x + Z.T @ torch.from_numpy(y).to(device=dev, dtype=rdtype)
+        # projected residual estimate: no further cycle if this one converged
+        if np.linalg.norm(e1 - Hh @ y) / bnorm <= tol:
+            break
+    r = b_r - matvec(x, *args).to(rdtype)
+    rel = float(torch.sqrt((r * r).sum())) / bnorm
+    return x, {"restarts": done_restarts, "residual": rel}
+
+
+def _fgmres_cycle(matvec, precond, m: int, x, b_r, args, rdtype, rows):
+    """One restart cycle of :func:`fgmres`: (beta, H (m+1, m), Z (m, N))."""
+    N = b_r.shape[0]
+    r = b_r - matvec(x, *args).to(rdtype)
+    beta = torch.sqrt((r * r).sum())
+    V = b_r.new_zeros((m + 1, N))
+    V[0] = r / torch.where(beta > 0, beta, 1)
+    Z = b_r.new_zeros((m, N))
+    H = b_r.new_zeros((m + 1, m))
+    for j in range(m):
+        z = precond(V[j], *args).to(rdtype)
+        w = matvec(z, *args).to(rdtype)
+        # masked classical Gram-Schmidt with reorthogonalization (CGS2):
+        # two projection passes against the whole basis, rows > j masked
+        mask = rows <= j
+        h = torch.where(mask, V @ w, 0)
+        w = w - V.T @ h
+        h2 = torch.where(mask, V @ w, 0)
+        w = w - V.T @ h2
+        h = h + h2
+        hn = torch.sqrt((w * w).sum())
+        V[j + 1] = w / torch.where(hn > 0, hn, 1)
+        H[:, j] = h
+        H[j + 1, j] = hn
+        Z[j] = z
+    return beta, H, Z
+
+
+def lu_solve_transposed(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A^T x = b from the packed LU factors of A (the getrs 'T'
+    path: A[perm] = L U, so A^T = U^T L^T P and x = P^T (L^T \\ (U^T \\ b)))."""
+    N = LU.shape[0]
+    if LU.shape[0] != LU.shape[1] or b.shape[0] != N:
+        raise ValueError(f"square factors and matching rhs required, got "
+                         f"{tuple(LU.shape)} and {tuple(b.shape)}")
+    cdtype = blas.compute_dtype(LU.dtype)
+    Lu = LU.to(cdtype)
+    b2, squeeze = _as_2d(b.to(cdtype))
+    z = blas.trsm_left_lower_unit_t(Lu, blas.trsm_left_upper_t(Lu, b2))
+    x = torch.empty_like(z)
+    x[perm.long()] = z  # apply P^T
+    return x[:, 0] if squeeze else x
+
+
+def slogdet_from_lu(LU, perm):
+    """(sign, log|det|) from packed LU factors (the LAPACK getrf -> det
+    recipe: det = sign(perm) prod(diag U)), with `np.linalg.slogdet`'s
+    conventions: sign 0 for an exactly singular matrix, complex for complex
+    input. On the host; the permutation's parity by cycle count."""
+    d = torch.as_tensor(LU).diagonal().cpu().numpy()
+    p = torch.as_tensor(perm).cpu().numpy()
+    n = p.shape[0]
+    seen = np.zeros(n, dtype=bool)
+    transpositions = 0
+    for i in range(n):
+        if seen[i]:
+            continue
+        j, clen = i, 0
+        while not seen[j]:
+            seen[j] = True
+            j = p[j]
+            clen += 1
+        transpositions += clen - 1
+    sign = -1.0 if transpositions % 2 else 1.0
+    if (d == 0).any():
+        return (0j if np.iscomplexobj(d) else 0.0), float("-inf")
+    if np.iscomplexobj(d):
+        sign = sign * np.exp(1j * np.angle(d).sum())
+    else:
+        sign = sign * (-1.0 if int((d < 0).sum()) % 2 else 1.0)
+    return sign, float(np.log(np.abs(d)).sum())
+
+
+def cond_estimate_1(A: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
+                    iters: int = 5) -> float:
+    """1-norm condition estimate from the factors (the `gecon` role):
+    ||A||_1 times Hager's power-iteration estimate of ||A^{-1}||_1, each
+    step one solve and one transposed solve through the factors."""
+    n = A.shape[0]
+    anorm = float(A.abs().sum(0).max())
+    x = torch.full((n,), 1.0 / n, dtype=blas.compute_dtype(A.dtype), device=A.device)
+    est = 0.0
+    iters = max(1, iters)
+    for it in range(iters):
+        y = lu_solve(LU, perm, x)                      # y = A^{-1} x
+        est_new = float(y.abs().sum())
+        if est_new <= est:  # converged: skip the dead solve pair
+            break
+        est = est_new
+        if it == iters - 1:  # count exit: the x update has no consumer
+            break
+        xi = torch.sign(torch.where(y == 0, 1.0, y))
+        z = lu_solve_transposed(LU, perm, xi)          # z = A^{-T} xi
+        j = int(z.abs().argmax())
+        x = torch.zeros_like(x)
+        x[j] = 1.0
+    return anorm * est
+
+
+def inv_from_lu(LU: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """A^{-1} from packed LU factors (the `getri` role): the substitutions
+    with the identity as the right-hand side."""
+    N = LU.shape[0]
+    if LU.shape[0] != LU.shape[1]:
+        raise ValueError(f"inverse needs square factors, got {tuple(LU.shape)}")
+    return lu_solve(LU, perm, torch.eye(N, dtype=LU.dtype, device=LU.device))

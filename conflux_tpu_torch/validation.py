@@ -138,3 +138,16 @@ def make_spd_matrix(N: int, seed: int = 7, dtype=np.float64, device="cpu") -> to
     A /= 2
     A.diagonal().add_(N)
     return A
+
+
+def make_hpd_matrix(N: int, seed: int = 7, dtype=np.complex128, device="cpu") -> torch.Tensor:
+    """Deterministic Hermitian positive-definite matrix (the JAX package's
+    generator, bit for bit: the Hermitian part of a complex uniform(-1, 1)
+    matrix plus N on the diagonal, the diagonal real by construction),
+    built on the host in numpy and put on `device`."""
+    rng = np.random.default_rng(seed)
+    B = (rng.uniform(-1.0, 1.0, size=(N, N))
+         + 1j * rng.uniform(-1.0, 1.0, size=(N, N))).astype(dtype)
+    A = (B + B.conj().T) / 2
+    A[np.arange(N), np.arange(N)] += N
+    return torch.from_numpy(A).to(device)

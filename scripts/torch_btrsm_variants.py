@@ -60,8 +60,8 @@ VARIANTS = {
     "cap4": [("constexpr int MAX_CS = 8;", "constexpr int MAX_CS = 4;")],
     # timing probes only, their bits are wrong: no tile loads at all, and
     # no downdates (x_j = Dinv_j b_j)
-    "skip_loads": [("  const int bs = g.bs, n = a.n, tid = threadIdx.x;\n  const T* src;",
-                    "  const int bs = g.bs, n = a.n, tid = threadIdx.x;\n  return;\n  const T* src;")],
+    "skip_loads": [("  const int bs = g.bs, n = a.n;\n  if (isD) {",
+                    "  const int bs = g.bs, n = a.n;\n  return;\n  if (isD) {")],
     "skip_downdates": [("  const int qmax = min(bs, a.n - st.jp * bs);\n",
                         "  const int qmax = min(bs, a.n - st.jp * bs);\n  return;\n")],
 }
@@ -99,9 +99,10 @@ TRACE = [
     ("        refill(g0);\n",
      "        if (sys == 0 && tid == 0 && s < 256) g_trace[1][s] = gtime();\n"
      "        if (sys == 0 && tid == 0 && s < 256) g_clk[3][s] = clock64();\n        refill(g0);\n"),
-    ("          downdate<T, KC, BS, GM>(a, g, st, 0, 1, ring, g0, xprev, acc);\n          __syncthreads();\n",
+    ("          downdate<T, TS, KC, BS, GM>(a, g, st, 0, 1, ring, g0, xprev, acc);\n"
+     "          __syncthreads();\n",
      "          if (sys == 0 && tid == 0 && s < 256) g_clk[0][s] = clock64();\n"
-     "          downdate<T, KC, BS, GM>(a, g, st, 0, 1, ring, g0, xprev, acc);\n"
+     "          downdate<T, TS, KC, BS, GM>(a, g, st, 0, 1, ring, g0, xprev, acc);\n"
      "          if (sys == 0 && tid == 0 && s < 256) g_clk[1][s] = clock64();\n"
      "          __syncthreads();\n"
      "          if (sys == 0 && tid == 0 && s < 256) g_clk[2][s] = clock64();\n"),

@@ -135,12 +135,18 @@ def test_registry_and_batched_entries_route_to_the_kernel_function():
               tblas.batched_cholesky_factor(A, backend="kernel"),
               tbatched.cholesky_factor_batched(A, 16)):
         assert torch.equal(L, kL)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tblas.batched_cholesky_factor(A, backend="xla")
+    # the library route (it raised before it was ported) against the JAX
+    # "xla" route, and the batched blocked factor for a bf16 batch
+    from conflux_tpu.ops import blas as jblas
+
+    xL = tblas.batched_cholesky_factor(A, backend="xla")
+    jL = jblas.batched_cholesky_factor(jnp.asarray(A.numpy()), backend="xla")
+    np.testing.assert_allclose(xL.numpy(), np.asarray(jL), rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="tile size"):
         tbatched.cholesky_factor_batched(A, 48)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbatched.cholesky_factor_batched(A.bfloat16(), 16)
+    bL = tbatched.cholesky_factor_batched(A.bfloat16(), 16)
+    assert bL.dtype == torch.bfloat16
+    assert float(torch.linalg.norm(bL.float() - kL) / torch.linalg.norm(kL)) < 2 ** -6
     with pytest.raises(NotImplementedError, match="not ported"):
         tbatched.cholesky_factor_batched(A, 16, mesh=object())
 

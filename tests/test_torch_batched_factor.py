@@ -119,12 +119,22 @@ def test_registry_and_batched_entry_route_to_the_kernel_function():
     for LU, perm in (tblas.batched_lu_factor(A), tblas.batched_lu_factor(A, backend="kernel"),
                      tbatched.lu_factor_batched(A, 16)):
         assert torch.equal(LU, kLU) and torch.equal(perm, kperm)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tblas.batched_lu_factor(A, backend="xla")
+    # the library route (it raised before it was ported): the JAX "xla"
+    # route's pivots, and the batched blocked factor for a bf16 batch
+    from conflux_tpu.ops import blas as jblas
+
+    xLU, xperm = tblas.batched_lu_factor(A, backend="xla")
+    jLU, jperm = jblas.batched_lu_factor(jnp.asarray(A.numpy()), backend="xla")
+    np.testing.assert_array_equal(xperm.numpy(), np.asarray(jperm))
+    np.testing.assert_allclose(xLU.numpy(), np.asarray(jLU), rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="tile size"):
         tbatched.lu_factor_batched(A, 48)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbatched.lu_factor_batched(A.bfloat16(), 16)
+    tblas.set_panel_algo("auto")
+    try:
+        bLU, bperm = tbatched.lu_factor_batched(A.bfloat16(), 16, backend="xla")
+    finally:
+        tblas.set_panel_algo("kernel")
+    assert bLU.dtype == torch.bfloat16 and tuple(bperm.shape) == (3, 64)
     with pytest.raises(NotImplementedError, match="not ported"):
         tbatched.lu_factor_batched(A, 16, mesh=object())
 

@@ -72,12 +72,17 @@ def test_chunk_ceilings_pinned_to_the_jax_values():
 
 
 def test_panel_algos_not_ported_raise():
-    panel = torch.zeros((256, 128))
+    """The library panel algos now run (they raised before the library
+    routes were ported) and match the JAX package's; a float64 panel on
+    the kernel route still raises, as the JAX "pallas" algo does."""
+    panel = np.random.default_rng(2).standard_normal((256, 128))
     for algo in ("auto", "partial", "tournament"):
-        with pytest.raises(NotImplementedError):
-            tblas.panel_lu(panel, algo=algo)
+        lu_t, perm_t = tblas.panel_lu(torch.from_numpy(panel), algo=algo)
+        lu_j, perm_j = jblas.panel_lu(jnp.asarray(panel), algo=algo)
+        np.testing.assert_array_equal(perm_t.numpy(), np.asarray(perm_j))
+        np.testing.assert_allclose(lu_t.numpy(), np.asarray(lu_j), rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError):
-        tblas.panel_lu(panel.double(), algo="kernel")
+        tblas.panel_lu(torch.from_numpy(panel), algo="kernel")
 
 
 @pytest.mark.parametrize("m,v", [(16, 4), (64, 8), (256, 32)])

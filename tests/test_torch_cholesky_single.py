@@ -137,12 +137,33 @@ def test_miniapp_default_tile_and_bfloat16(capsys):
     assert "PASS" in [l for l in out if l.startswith("_solve_residual_")][0]
 
 
+def test_miniapp_float64_runs_the_library_product(capsys):
+    """--dtype float64 runs the trailing update on the library product
+    (backend "xla"), named on a `_route_` line; the factor is the JAX
+    package's to rtol 1e-12."""
+    rc = cholesky_miniapp.main(["--platform", "cpu", "--dim", "256", "--tile", "64",
+                                "--run", "1", "--dtype", "float64", "--validate",
+                                "--refine", "2"])
+    assert rc == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "_route_ backend=xla panel_algo=auto (float64)" in out
+    assert re.match(r"_result_ cholesky,conflux_tpu_torch,256,256,1,1x1x1,time,weak,"
+                    r"([\d.]+),64,float64$", [l for l in out if l.startswith("_result_")][0])
+    res = [l for l in out if l.startswith("_residual_")]
+    assert float(res[0].split()[1]) <= tval.residual_bound(256, np.float64)
+    assert "PASS" in [l for l in out if l.startswith("_solve_residual_")][0]
+    A = tval.make_spd_matrix(256)
+    L = cholesky_blocked(A, 64, backend="xla")
+    Lj = np.asarray(jchol(jnp.asarray(A.numpy()), 64))
+    np.testing.assert_allclose(L.numpy(), Lj, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("argv,name", [
     (["--grid", "2,2,1"], "grid"),
     (["--lookahead"], "--lookahead"),
     (["--segs", "8x8"], "--segs"),
     (["--auto"], "--auto"),
-    (["--dtype", "float64"], "float64"),
+    (["--lookahead", "--auto"], "--lookahead"),
     (["--dim", "16384", "--tile", "128"], "Kappa"),  # the distributed program's job
 ])
 def test_miniapp_unported_routes_exit_naming_themselves(argv, name):

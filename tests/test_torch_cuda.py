@@ -621,3 +621,115 @@ def test_cholesky_blocked_cuda_matches_cpu(cuda, N, v):
     res = cholesky_residual_device(A.to(cuda), L_g)
     assert res < residual_bound(N, np.float32)
     assert torch.equal(make_spd_matrix(N, dtype=np.float32, device=cuda).cpu(), A)
+
+
+@pytest.mark.parametrize("B,n,k", [(32, 256, 1), (4, 200, 3), (4, 203, 3), (2, 1024, 1), (3, 48, 40)])
+@pytest.mark.parametrize("kind", ["lu", "spd"])
+def test_btrsm_pair_bf16_factor_matches_plain_and_f32_bitwise(cuda, kind, B, n, k):
+    """K3's bfloat16-T instance: a bf16 factor read as it is stored, held
+    to the plain version, and bit for bit the float32 instance on the
+    upcast factor (bf16 -> f32 is exact)."""
+    T, Dl, Du, perm = _round_case(kind, B, n, n + k, cuda)
+    Tb = T.bfloat16()
+    Tu = Tb.float()
+    b = _rand((B, n, k), 15, cuda)
+    wA = _rand((B, n), 16, cuda)
+    spd = kind == "spd"
+    before = hk.LAUNCHES["btrsm"]
+    x, xsum, wAx = hk.btrsm_pair(Tb, Dl, Du, b, perm=perm, trans_back=spd, wA=wA)
+    assert hk.LAUNCHES["btrsm"] == before + 1
+    want = hk.btrsm_pair_plain(Tb, Dl, Du, b, perm, spd)
+    assert float(torch.linalg.norm(x - want) / torch.linalg.norm(want)) <= 1e-5
+    ref = hk.btrsm_pair(Tu, Dl, Du, b, perm=perm, trans_back=spd, wA=wA)
+    assert all(torch.equal(got, r) for got, r in zip((x, xsum, wAx), ref))
+    for lower in (True, False):
+        d = Dl if lower or spd else Du
+        if spd and not lower:
+            continue
+        got = hk.btrsm(Tb, d, b, lower=lower)
+        assert torch.equal(got, hk.btrsm(Tu, d, b, lower=lower))
+
+
+@pytest.mark.parametrize("backend,dtype", [("kernel", torch.bfloat16), ("kernel", torch.float32),
+                                           ("xla", torch.float64)])
+def test_batched_blocked_lu_cuda_matches_cpu(cuda, backend, dtype):
+    """The batched blocked factor on the card: on "kernel" one K1 launch
+    per system and superstep and one batched K2 launch per column block;
+    on "xla" the library routes. Held to its CPU run by residual."""
+    from conflux_tpu_torch.validation import lu_residual
+
+    B, N, v = 3, 512, 128
+    A = torch.stack([torch.from_numpy(make_test_matrix(N, N, seed=s, dtype=np.float32))
+                     for s in range(B)]).to(dtype)
+    algo = "kernel" if backend == "kernel" else "auto"
+    hk.reset_launches()
+    LU, perm = lu_factor_blocked(A.to(cuda), v, backend=backend, panel_algo=algo)
+    counts = dict(hk.LAUNCHES)
+    if backend == "kernel":
+        assert counts["gemm"] == B * (N // v - 1)
+        assert counts["lu_block"] == (N // v) * (v // 128)
+    else:
+        assert counts["gemm"] == 0 and counts["lu_block"] == 0
+    LUc, permc = lu_factor_blocked(A, v, backend=backend, panel_algo=algo)
+    for i in range(B):
+        Ai = A[i].double().numpy()
+        res_g = lu_residual(Ai, LU[i].cpu().double().numpy(), perm[i].cpu().numpy())
+        res_c = lu_residual(Ai, LUc[i].double().numpy(), permc[i].numpy())
+        if dtype == torch.bfloat16:
+            # every trailing update rounds to bf16 (2^-8): ~3e-2 at N=512,
+            # within a factor 2 of the CPU run's (other sums, other ties)
+            assert res_c <= 0.1 and res_g <= 2 * res_c
+        else:
+            assert max(res_g, res_c) <= residual_bound(N, dtype)
+
+
+def test_xla_batched_cholesky_poisons_a_non_spd_slot_with_nan(cuda):
+    from conflux_tpu_torch.ops import blas
+    from conflux_tpu_torch.validation import make_spd_matrix
+
+    A = torch.stack([make_spd_matrix(64, seed=s, dtype=np.float64) for s in range(4)]).to(cuda)
+    A[2, 5, 5] = -1e3
+    L, wA = blas.batched_cholesky_factor(A, probe_w=torch.ones(64), backend="xla")
+    # as the JAX Cholesky returns it: NaN on and below the diagonal, zero above
+    lower = torch.ones(64, 64, dtype=torch.bool, device=cuda).tril()
+    assert bool(torch.isnan(L[2][lower]).all()) and not bool(L[2][~lower].any())
+    for i in (0, 1, 3):
+        assert bool(torch.isfinite(L[i]).all())
+        assert float(torch.linalg.norm(L[i] @ L[i].mT - A[i]) / torch.linalg.norm(A[i])) < 1e-14
+    assert torch.allclose(wA, A.sum(1))
+
+
+def test_library_lu_keeps_the_linalg_preference_across_threads(cuda):
+    """Concurrent library-route factors (cuSOLVER batches, which set torch's
+    process-wide linear-algebra preference for the call, beside default
+    ones) leave the preference as they found it, and a preference the
+    caller set stays in force; each thread's factor is right."""
+    import threading
+
+    from conflux_tpu_torch.ops import blas
+    from conflux_tpu_torch.validation import lu_residual
+
+    shapes = [(1, 512, 64), (4, 512, 64), (12, 256, 64), (12, 2304, 32)] * 3
+    panels = [torch.from_numpy(np.random.default_rng(s).standard_normal(shape)).to(cuda)
+              for s, shape in enumerate(shapes)]
+    for pref in ("default", "magma"):
+        torch.backends.cuda.preferred_linalg_library(pref)
+        was = torch.backends.cuda.preferred_linalg_library()
+        out = [None] * len(panels)
+
+        def run(i):
+            for _ in range(4):
+                out[i] = blas._library_lu(panels[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(panels))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert torch.backends.cuda.preferred_linalg_library() == was
+        for P, (LU, perm) in zip(panels, out):
+            for i in (0, P.shape[0] - 1):
+                assert lu_residual(P[i].cpu().numpy(), LU[i].cpu().numpy(),
+                                   perm[i].cpu().numpy()) <= residual_bound(P.shape[1],
+                                                                            torch.float64)
+    torch.backends.cuda.preferred_linalg_library("default")

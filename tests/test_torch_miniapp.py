@@ -35,12 +35,43 @@ def test_miniapp_result_line_validate_refine(capsys):
     ["--p_grid", "2,2,1"],
     ["--lookahead"],
     ["--tree", "flat"],
-    ["--dtype", "float64"],
+    ["--update", "x"],
     ["-N", "16384", "-b", "128"],  # 128 steps: the distributed program's job
 ])
 def test_miniapp_unported_routes_exit(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         conflux_miniapp.main(["--platform", "cpu", "-r", "0", *argv])
+
+
+def test_miniapp_float64_runs_the_library_route(capsys):
+    """--dtype float64 runs the JAX miniapp's own route (backend "xla",
+    panel algo "auto"), named on a `_route_` line before the result line;
+    its factors are the JAX route's (equal pivots, rtol 1e-12)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from conflux_tpu.lu.single import lu_factor_blocked as jlu
+    from conflux_tpu.validation import make_test_matrix
+    from conflux_tpu_torch.lu.single import lu_factor_blocked
+
+    rc = conflux_miniapp.main(["--platform", "cpu", "-N", "256", "-b", "64", "-r", "1",
+                               "--dtype", "float64", "--validate", "--refine", "2"])
+    assert rc == 0
+    out = capsys.readouterr().out.splitlines()
+    route = [i for i, l in enumerate(out) if l.startswith("_route_")]
+    result = [i for i, l in enumerate(out) if l.startswith("_result_")]
+    assert len(route) == 1 and route[0] < result[0]
+    assert out[route[0]] == "_route_ backend=xla panel_algo=auto (float64)"
+    assert re.match(r"_result_ lu,conflux_tpu_torch,256,256,1,1x1x1,time,weak,"
+                    r"([\d.]+),64,float64$", out[result[0]]), out[result[0]]
+    res = [l for l in out if l.startswith("_residual_")]
+    assert float(res[0].split()[1]) < residual_bound(256, torch.float64)
+    assert "PASS" in [l for l in out if l.startswith("_solve_residual_")][0]
+    A = make_test_matrix(256, 256)
+    LU, perm = lu_factor_blocked(torch.from_numpy(A), 64, backend="xla", panel_algo="auto")
+    LUj, permj = jlu(jnp.asarray(A), 64)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(permj))
+    np.testing.assert_allclose(LU.numpy(), np.asarray(LUj), rtol=1e-12, atol=1e-12)
 
 
 def test_miniapp_without_card_raises(monkeypatch):

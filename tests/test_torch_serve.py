@@ -51,9 +51,9 @@ def test_auto_resolves_to_blocked_and_explicit_substitutions_stay():
 
 
 @pytest.mark.parametrize("kw", [
-    {"kind": "chol", "mesh": object()}, {"kind": "chol", "factor_dtype": torch.float64},
+    {"kind": "chol", "mesh": object()}, {"kind": "chol", "precision": "default"},
     {"kind": "qr"}, {"mesh": object()},
-    {"factor_dtype": torch.float64}, {"precision": "default"}])
+    {"kind": "qr", "backend": "xla"}, {"precision": "default"}])
 def test_unported_plans_raise(kw):
     serve.clear_plans()
     with pytest.raises(NotImplementedError, match="not ported"):
