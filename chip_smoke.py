@@ -102,7 +102,38 @@ Phases, each of which must pass or the script exits non-zero:
      1)`), and FGMRES on bf16 factors at the JAX test's setup (1e-6, where
      6 classic sweeps stay above 1e-4); the float32 factor's residual, and
      its first K1 and K2 call at each shape held against the plain
-     versions as in (f).
+     versions as in (f);
+ 21. Woodbury serving at bench_refresh.py's shapes, float32, k=16: a
+     (1024, 1024) plan v=256, (32, 256, 256) v=128 and (32, 1024, 1024)
+     v=256, 8 rounds each of update(U, V, replace=True), solve and
+     solve_checked (K4 once, K3 once per capacitance, Woodbury solve and
+     checked solve: 24), max |(A + U V^T) x - b| < 1e-4 and clean
+     verdicts, times per update, round and checked round beside the
+     undrifted session's; then on the (1024, 1024) plan 9 accumulated
+     drifts (K3 at k=16, 32, 64 and 128, one refactor past max_rank),
+     refactor() and refine_checked, and a near-singular drift that trips
+     the cond trigger (backward error < 1e-5); every first K3 round at a
+     new shape held against its plain version on the path's operands;
+ 22. the precision ladder on a (32, 1024, 1024) kernel-route f32 LU plan,
+     v=256, refine 1: factor(precision="bf16_ir") (K1 96 and K2 launches
+     as predicted, each shape held against its plain version; nbytes below
+     0.85x the native session's), solves at bf16_ir, f32 (bit for bit the
+     native session: K4 factors) and f64 (library factor, no K1/K2/K4; K3's
+     float64-T instance), K3's bf16, f32 and f64 instances held against the
+     plain version, and 'auto' with `resilience.escalate_precision` on
+     cond-1e6 systems (the bf16 rung trips, the ladder climbs, the rung
+     sticks);
+ 23. the QR miniapp's `main(argv)`: --full -M 32768 --cols 32768 -b 1024
+     --validate, and tall mode at -M 1048576 --cols 256, --algo tsqr and
+     cholesky, --validate (orthogonality and reconstruction at most
+     `residual_bound(N, f32)`), ms and TFLOP/s at the LAPACK count
+     2MN^2 - 2N^3/3; no kernel launches; the tree's chunk round
+     (8, 4096, 1024) timed on torch's library QR;
+ 24. kind="qr" plans at (16384, 1024) f32 and f64 (factor, the factor
+     lane's checked program, 16 solve and 16 checked rounds against
+     `torch.linalg.lstsq`, the verdict tripping on a corrupted R) and
+     `lstsq` at (32768, 1024) f64 and f32 with bfloat16 factors and 2
+     sweeps; no kernel launches.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round.
@@ -505,7 +536,7 @@ def run_miniapp(argv: list[str], app: str = "conflux_miniapp",
     from conflux_tpu_torch.ops import hopper_kernels
 
     main = importlib.import_module(f"conflux_tpu_torch.cli.{app}").main
-    tag = "main" if app == "conflux_miniapp" else "chol"
+    tag = {"conflux_miniapp": "main", "cholesky_miniapp": "chol"}.get(app, "qr")
     buf = io.StringIO()
     hopper_kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1435,20 +1466,24 @@ def _stdout_fd(box: list):
 
 
 @contextlib.contextmanager
-def _held_to_plain(tag: str):
-    """Inside the block, the first K1 (`hopper_kernels.gemm`) and K2
-    (`hopper_kernels.lu_block`) call at each distinct operand shape is
-    held against its plain version on the same card tensors: the plain
-    version runs just before the kernel, so an update in place is compared
-    on its inputs. K1 by relative Frobenius error (K1_TOL_F32 or
-    K1_TOL_BF16), K2 by equal pivots and alive rows in every slot and its
-    output allclose K2_TOL. One line a kernel after the block; fails the
-    phase on any disagreement, or if either kernel never ran."""
+def _held_to_plain(tag: str, kernels: tuple = ("gemm", "lu_block")):
+    """Inside the block, the first call of each kernel in `kernels` at each
+    distinct operand shape is held against its plain version on the same
+    card tensors: the plain version runs just before the kernel, so an
+    update in place is compared on its inputs. K1 (`hopper_kernels.gemm`)
+    by relative Frobenius error (K1_TOL_F32 or K1_TOL_BF16), K2
+    (`lu_block`) by equal pivots and alive rows in every slot and its output
+    allclose K2_TOL, K3 (`btrsm_pair`, a solve round) by relative Frobenius
+    error K3_TOL (its probe stats K3_STATS_TOL). One line a kernel after the
+    block; fails the phase on any disagreement, or if a kernel of
+    `kernels` never ran. Yields the K3 records, {(T dtype, b shape): (x
+    rel_fro, stats error, max_abs)}."""
     from conflux_tpu_torch.ops import hopper_kernels as hk
 
-    gemm, lu_block = hk.gemm, hk.lu_block
+    gemm, lu_block, btrsm_pair = hk.gemm, hk.lu_block, hk.btrsm_pair
     k1: dict = {}  # shape -> (rel_fro, tol, instance)
     k2: dict = {}  # shape -> (pivots and alive equal, max_abs, allclose)
+    k3: dict = {}  # (T dtype, b shape) -> (rel_fro, stats error, max_abs)
 
     def held_gemm(a, b, c=None, alpha=1.0, beta=1.0, out=None):
         key = (str(a.dtype).removeprefix("torch."), tuple(a.shape), tuple(b.shape))
@@ -1469,22 +1504,50 @@ def _held_to_plain(tag: str):
                                   torch.allclose(got[0], want[0], rtol=K2_TOL, atol=K2_TOL))
         return got
 
-    hk.gemm, hk.lu_block = held_gemm, held_lu_block
+    def held_btrsm_pair(T, Dl, Du, b, *, perm=None, trans_back=False, wA=None):
+        got = btrsm_pair(T, Dl, Du, b, perm=perm, trans_back=trans_back, wA=wA)
+        key = (str(T.dtype).removeprefix("torch."), tuple(b.shape))
+        if key not in k3:
+            want = hk.btrsm_pair_plain(T, Dl, Du, b, perm, trans_back, wA)
+            x, xw = (got, want) if wA is None else (got[0], want[0])
+            st = 0.0
+            if wA is not None:
+                st = max(float(((got[1] - want[1]).abs() / x.abs().sum(dim=(1, 2))).max()),
+                         float(((got[2] - want[2]).abs()
+                                / (wA * x[:, :, 0]).abs().sum(1)).max()))
+            k3[key] = (rel_fro(x, xw), st, float((x - xw).abs().max()))
+        return got
+
+    hk.gemm, hk.lu_block, hk.btrsm_pair = held_gemm, held_lu_block, held_btrsm_pair
     try:
-        yield
+        yield k3
     finally:
-        hk.gemm, hk.lu_block = gemm, lu_block
-    k1_ok = all(err <= tol for err, tol, _i in k1.values())
-    k2_ok = all(same and close for same, _e, close in k2.values())
-    print(f"[{tag}] K1 on the path's own operands at {len(k1)} shapes "
-          f"({', '.join(f'{a}@{b} {d} {r[2]}' for (d, a, b), r in k1.items())}): worst rel_fro "
-          f"{max((r[0] for r in k1.values()), default=float('nan')):.2e} against the plain "
-          f"version (bounds {sorted({r[1] for r in k1.values()})}); all within {k1_ok}", flush=True)
-    print(f"[{tag}] K2 on the path's own operands at {len(k2)} shapes ({', '.join(map(str, k2))}): "
-          f"pivots and alive rows equal in every slot and allclose {K2_TOL:g} {k2_ok}, worst "
-          f"max_abs {max((r[1] for r in k2.values()), default=float('nan')):.2e}", flush=True)
-    check(len(k1) > 0 and len(k2) > 0, f"{tag}: the held factor ran no K1 or no K2 call")
-    check(k1_ok and k2_ok, f"{tag}: a kernel disagrees with its plain version on the path")
+        hk.gemm, hk.lu_block, hk.btrsm_pair = gemm, lu_block, btrsm_pair
+    ok = True
+    if "gemm" in kernels:
+        k1_ok = all(err <= tol for err, tol, _i in k1.values())
+        print(f"[{tag}] K1 on the path's own operands at {len(k1)} shapes "
+              f"({', '.join(f'{a}@{b} {d} {r[2]}' for (d, a, b), r in k1.items())}): worst "
+              f"rel_fro {max((r[0] for r in k1.values()), default=float('nan')):.2e} against "
+              f"the plain version (bounds {sorted({r[1] for r in k1.values()})}); all within "
+              f"{k1_ok}", flush=True)
+        ok = ok and k1_ok and len(k1) > 0
+    if "lu_block" in kernels:
+        k2_ok = all(same and close for same, _e, close in k2.values())
+        print(f"[{tag}] K2 on the path's own operands at {len(k2)} shapes "
+              f"({', '.join(map(str, k2))}): pivots and alive rows equal in every slot and "
+              f"allclose {K2_TOL:g} {k2_ok}, worst max_abs "
+              f"{max((r[1] for r in k2.values()), default=float('nan')):.2e}", flush=True)
+        ok = ok and k2_ok and len(k2) > 0
+    if "btrsm" in kernels:
+        k3_ok = all(err <= K3_TOL and st <= K3_STATS_TOL for err, st, _m in k3.values())
+        print(f"[{tag}] K3 rounds on the path's own operands at {len(k3)} shapes "
+              f"({', '.join(f'{d} {s}' for d, s in k3)}): worst rel_fro "
+              f"{max((r[0] for r in k3.values()), default=float('nan')):.2e} (bound "
+              f"{K3_TOL:g}), probe stats {max((r[1] for r in k3.values()), default=0.0):.2e} "
+              f"(bound {K3_STATS_TOL:g}); all within {k3_ok}", flush=True)
+        ok = ok and k3_ok and len(k3) > 0
+    check(ok, f"{tag}: a kernel disagrees with its plain version on the path, or never ran")
 
 
 def phase_serve_f(k3: dict) -> dict:
@@ -1639,6 +1702,476 @@ def phase_solvers() -> None:
     torch.cuda.empty_cache()
 
 
+def _drift(lead: tuple, n: int, k: int, gen) -> tuple:
+    """A rank-k drift (U, V), entries standard normal / sqrt(n) (the JAX
+    update tests' scale), made on the card."""
+    return tuple(torch.randn(lead + (n, k), generator=gen, device="cuda") / math.sqrt(n)
+                 for _ in range(2))
+
+
+def _drifted_resid(A, U, V, x, b) -> float:
+    """max |(A + U V^T) x - b| in float64, the drifted system's residual."""
+    A1 = A.double() + U.double() @ V.double().mT
+    return float((A1 @ x.double()[..., None] - b.double()[..., None]).abs().max())
+
+
+def _backward_error(A, x, b) -> float:
+    """Normwise backward error ||A x - b|| / (||A|| ||x|| + ||b||) per
+    system in float64, the worst: the accuracy a backward-stable solve owes
+    a near-singular system."""
+    A, x, b = A.double(), x.double()[..., None], b.double()[..., None]
+    r = torch.linalg.norm((A @ x - b).flatten(-2), dim=-1)
+    den = (torch.linalg.matrix_norm(A, ord=2) * torch.linalg.norm(x.flatten(-2), dim=-1)
+           + torch.linalg.norm(b.flatten(-2), dim=-1))
+    return float((r / den).max())
+
+
+def _near_singular_drift(A: torch.Tensor) -> tuple:
+    """U = [e0, e1], V = [-(1 - 1e-7) A^T e0, 0] per system: the
+    capacitance is diag(1e-7, 1) up to rounding (cond ~1e7, past the drift
+    policy's 1e6) and the drifted matrix's row 0 is rounding-sized."""
+    n = A.shape[-1]
+    U = torch.zeros(A.shape[:-2] + (n, 2), device=A.device)
+    U[..., 0, 0] = U[..., 1, 1] = 1.0
+    V = torch.zeros_like(U)
+    V[..., :, 0] = -(1 - 1e-7) * A[..., 0, :]
+    return U, V
+
+
+def phase_woodbury() -> dict:
+    """(21) Woodbury serving at bench_refresh.py's shapes, float32: B=1
+    (a (1024, 1024) plan, v=256), B=32 (256, 256) v=128, and serving (b)'s
+    N=1024 as a (32, 1024, 1024) v=256 plan; 8 rounds of
+    update(U, V, replace=True), solve and solve_checked at k=16. Then on
+    the (1024, 1024) plan an accumulating drift past max_rank (K3 at k=16,
+    32, 64 and 128, then one refactor), a near-singular drift (the cond
+    trigger), refactor() and refine_checked."""
+    from conflux_tpu_torch import resilience, serve
+
+    rounds, k = 8, 16
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    total: dict = {}
+
+    def add(counts):
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+
+    for name, B, n, v in (("B=1 N=1024", None, 1024, 256), ("B=32 N=256", 32, 256, 128),
+                          ("B=32 N=1024", 32, 1024, 256)):
+        lead = () if B is None else (B,)
+        serve.clear_plans()
+        plan = serve.FactorPlan.create(lead + (n, n), torch.float32, v=v)
+        A = _systems(B or 1, n, 210 + n + (B or 1))
+        A = A[0] if B is None else A
+        drifts = [_drift(lead, n, k, gen) for _ in range(rounds)]
+        rhs = [torch.randn(lead + (n,), generator=gen, device="cuda") for _ in range(rounds)]
+
+        def drive():
+            s = plan.factor(A)
+            out = []
+            for (U, V), b in zip(drifts, rhs):
+                s.update(U, V, replace=True)
+                out.append((s.solve(b), s.solve_checked(b)))
+            return s, out
+
+        with _held_to_plain(f"woodbury {name}", ("btrsm",)):
+            (s, out), counts = _serve_counts(drive)
+        add(counts)
+        # the code's counts: K4 once (the factor), K3 once per capacitance,
+        # per Woodbury solve and per checked solve (no sweeps)
+        want = {"batched_lu": 1, "btrsm": 3 * rounds, "gemm": 0, "lu_block": 0}
+        print(f"[woodbury] {name} plan {plan.key.shape} v={v} k={k}: launches {counts}, "
+              f"predicted {want}; trace counts {plan.trace_counts}", flush=True)
+        check(all(counts[c] == w for c, w in want.items()),
+              f"woodbury {name} launches {counts}, predicted {want}")
+        worst = max(_drifted_resid(A, U, V, x, b)
+                    for (U, V), b, (x, _c) in zip(drifts, rhs, out))
+        verdicts = torch.stack([c[1] for _x, c in out])
+        same = all(torch.equal(x, c[0]) for x, c in out)
+        print(f"[woodbury] {name}: max |(A + U V^T) x - b| {worst:.3e} (bar {SOLVE_TOL:g}); "
+              f"checked verdicts finite min {float(verdicts[:, 0].min()):g}, residual max "
+              f"{float(verdicts[:, 1].max()):.3e}; checked answers equal the plain ones {same}; "
+              f"capacitance cond1 {s.last_cond:.3e}", flush=True)
+        check(worst < SOLVE_TOL and same, f"woodbury {name} answers")
+        check(bool((verdicts[:, 0] == 1.0).all()) and float(verdicts[:, 1].max()) < SOLVE_TOL,
+              f"woodbury {name} checked verdicts")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for U, V in drifts:
+            s.update(U, V, replace=True)
+        torch.cuda.synchronize()
+        upd_us = (time.perf_counter() - t0) / rounds * 1e6
+        wood_us, wood_checked_us = _rounds(s, rhs, False), _rounds(s, rhs, True)
+        s0 = plan.factor(A)
+        plain_us, plain_checked_us = _rounds(s0, rhs, False), _rounds(s0, rhs, True)
+        print(f"[woodbury] {name}: {upd_us:.1f} us per update (its cond read syncs), "
+              f"{wood_us:.1f} us per Woodbury round, {wood_checked_us:.1f} us per checked "
+              f"round; the undrifted session {plain_us:.1f} / {plain_checked_us:.1f} us (host "
+              f"clock, {rounds} rounds)", flush=True)
+        del s, s0, out
+    # the (1024, 1024) plan: accumulate 9 drifts of rank 16 (capacitances at
+    # kb 16, 32, 64, 64, 128, 128, 128, 128; the 9th passes max_rank 128 and
+    # refactors), a solve, refactor() and refine_checked
+    n = 1024
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=256)
+    A = _systems(1, n, 220)[0]
+    drifts = [_drift((), n, k, gen) for _ in range(9)]
+    b = torch.randn((n,), generator=gen, device="cuda")
+
+    def accumulate():
+        s = plan.factor(A)
+        ranks = []
+        for U, V in drifts:
+            s.update(U, V)
+            ranks.append(s.update_rank)
+        x = s.solve(b)
+        s.refactor()
+        x2, verdict = s.refine_checked(b, s.solve(b))
+        return s, ranks, x, x2, verdict
+
+    with _held_to_plain("woodbury accumulate", ("btrsm",)) as k3:
+        (s, ranks, x, x2, verdict), counts = _serve_counts(accumulate)
+    add(counts)
+    want = {"batched_lu": 3, "btrsm": 8 + 1 + 2}
+    Uall = torch.cat([U for U, _V in drifts], -1)
+    Vall = torch.cat([V for _U, V in drifts], -1)
+    worst = max(_drifted_resid(A, Uall, Vall, y, b) for y in (x, x2))
+    widths = sorted({key[1][-1] for key in k3})
+    print(f"[woodbury] accumulate 9 x rank {k} at N={n}: ranks {ranks}, refactors "
+          f"{s.refactors}; launches {counts}, predicted {want}; K3 held at k {widths}; max "
+          f"|(A + sum U V^T) x - b| {worst:.3e} after the refactor, the refactor() and "
+          f"refine_checked (verdict {verdict.tolist()})", flush=True)
+    check(ranks == [16, 32, 48, 64, 80, 96, 112, 128, 0] and s.refactors == 2
+          and s.factorizations == 3, f"woodbury accumulate: ranks {ranks}, {s.refactors}")
+    check(all(counts[c] == w for c, w in want.items()) and 128 in widths,
+          f"woodbury accumulate launches {counts}, predicted {want}, widths {widths}")
+    check(worst < SOLVE_TOL and float(verdict[0]) == 1.0 and float(verdict[1]) < SOLVE_TOL,
+          "woodbury accumulate answers")
+    _k3_wide_times(plan, A, gen)
+    U2, V2 = _near_singular_drift(A)
+    before = resilience.health_stats()["cond_refactors"]
+
+    def near_singular():
+        s3 = plan.factor(A)
+        s3.update(U2, V2)
+        return s3, s3.solve(b)
+
+    (s3, x3), counts = _serve_counts(near_singular)
+    add(counts)
+    want = {"batched_lu": 2, "btrsm": 2}
+    berr = _backward_error(s3._A0, x3, b)
+    print(f"[woodbury] near-singular drift: cond1 {s3.last_cond:.3e} (limit 1e6), refactors "
+          f"{s3.refactors}, cond_refactors +"
+          f"{resilience.health_stats()['cond_refactors'] - before}; launches {counts}, "
+          f"predicted {want}; backward error of the refactored solve {berr:.2e} (bar 1e-5)",
+          flush=True)
+    check(s3.last_cond > 1e6 and s3.refactors == 1 and s3.update_rank == 0
+          and resilience.health_stats()["cond_refactors"] == before + 1,
+          "woodbury near-singular drift did not refactor on the cond trigger")
+    check(all(counts[c] == w for c, w in want.items()) and berr < 1e-5,
+          f"woodbury near-singular: launches {counts}, backward error {berr:.2e}")
+    del s, s3
+    torch.cuda.empty_cache()
+    return total
+
+
+def _k3_wide_times(plan, A, gen) -> None:
+    """K3's capacitance round on a (1024, 1024) plan's factors at k=16 and
+    k=128 (the max_rank bucket), a call's CUDA events and its device time
+    in a CUDA graph, beside its plain version, `torch.linalg.lu_solve` and
+    the round's bound."""
+    from conflux_tpu_torch.ops.hopper_kernels import btrsm_pair, btrsm_pair_plain
+
+    LU, Dl, Du, perm = plan._factor_once(A)
+    T, Dl, Du, perm = LU[None], Dl[None], Du[None], perm[None]
+    pivots = _lapack_pivots(perm)
+    for k in (16, 128):
+        U = torch.randn((1, A.shape[-1], k), generator=gen, device="cuda")
+        ev, ms = _both_ms(lambda: btrsm_pair(T, Dl, Du, U, perm=perm))
+        plain = time_ms(lambda: btrsm_pair_plain(T, Dl, Du, U, perm), 5)
+        lib, lib_g = _both_ms(lambda: torch.linalg.lu_solve(T, pivots, U))
+        r = _btrsm_bound(1, A.shape[-1], k, Dl.shape[1], Dl.shape[-1], 4)
+        print(f"[woodbury] K3 round at (1, {A.shape[-1]}, {A.shape[-1]}) k={k}, a call "
+              f"(device): kernel {ev * 1e3:.1f} ({ms * 1e3:.1f}) us, plain {plain * 1e3:.1f} us, "
+              f"torch.linalg.lu_solve {lib * 1e3:.1f} ({lib_g * 1e3:.1f}) us, bound "
+              f"{2 * r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})", flush=True)
+
+
+def _ill_conditioned(B: int, n: int, cond: float = 1e6) -> torch.Tensor:
+    """tests/test_precision.py's `_ill_conditioned` recipe at (B, n, n) on
+    the card: Q diag(logspace(0, -log10(cond), n)) Q^T, Q of a normal
+    matrix's QR in float64."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    Q = torch.linalg.qr(torch.randn((B, n, n), generator=g, device="cuda",
+                                    dtype=torch.float64))[0]
+    sv = torch.logspace(0, -math.log10(cond), n, dtype=torch.float64, device="cuda")
+    return ((Q * sv) @ Q.mT).float()
+
+
+def _rel_resid(A, x, b) -> float:
+    """max over systems of ||A x - b|| / ||b||, in float64."""
+    r = A.double() @ x.double()[..., None] - b.double()[..., None]
+    return float((torch.linalg.norm(r.flatten(-2), dim=-1)
+                  / torch.linalg.norm(b.double().flatten(-1), dim=-1)).max())
+
+
+def phase_ladder() -> dict:
+    """(22) The precision ladder on a (32, 1024, 1024) kernel-route float32
+    LU plan, v=256, refine 1: the bf16_ir session (K2, K1, then K3's
+    bfloat16-T instance), solves at bf16_ir, f32 (bit for bit the native
+    session) and f64 (the library route, K3's float64-T instance), and
+    'auto' with `resilience.escalate_precision` on cond-1e6 systems."""
+    from conflux_tpu_torch import resilience, serve
+    from conflux_tpu_torch.ops.hopper_kernels import lu_block_wave_slots
+
+    B, n, v = 32, 1024, 256
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((B, n, n), torch.float32, v=v, refine=1)
+    A = _systems(B, n, 50)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b = torch.randn((B, n), generator=gen, device="cuda")
+    total: dict = {}
+
+    def counted(tag, fn, want):
+        out, counts = _serve_counts(fn)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        print(f"[ladder] {tag}: launches {counts}, predicted {want}", flush=True)
+        check(all(counts[c] == w for c, w in want.items()), f"ladder {tag}: {counts}")
+        return out
+
+    native = counted("native factor", lambda: plan.factor(A),
+                     {"batched_lu": 1, "gemm": 0, "lu_block": 0, "btrsm": 0})
+    steps = n // v
+    k2 = sum((v // 128) * -(-B // lu_block_wave_slots(n - j * v, torch.device("cuda")))
+             for j in range(steps))
+    with _held_to_plain("ladder bf16_ir factor"):
+        tiered = counted("factor(precision='bf16_ir')",
+                         lambda: plan.factor(A, precision="bf16_ir"),
+                         {"batched_lu": 0, "gemm": B * (steps - 1), "lu_block": k2,
+                          "btrsm": 0})
+    ratio = tiered.nbytes / native.nbytes
+    print(f"[ladder] bf16_ir session {tiered.nbytes} bytes, native {native.nbytes}: ratio "
+          f"{ratio:.3f} (bar 0.85); factor dtype {tiered.factors[0].dtype}", flush=True)
+    check(ratio < 0.85 and tiered.served_tier == "bf16_ir"
+          and tiered.factors[0].dtype == torch.bfloat16, "ladder bf16_ir session")
+    with _held_to_plain("ladder solves", ("btrsm",)) as k3:
+        xb = counted("bf16_ir solve (1 sweep)", lambda: tiered.solve(b),
+                     {"btrsm": 2, "gemm": 0, "lu_block": 0})
+        x32 = counted("solve(precision='f32') on the native session (its tier factor: K4)",
+                      lambda: native.solve(b, precision="f32"),
+                      {"batched_lu": 1, "btrsm": 2, "gemm": 0, "lu_block": 0})
+        x64 = counted("solve(precision='f64') (library factor, K3 float64-T)",
+                      lambda: native.solve(b, precision="f64"),
+                      {"batched_lu": 0, "gemm": 0, "lu_block": 0, "btrsm": 2})
+    dtypes = sorted({d for d, _s in k3})
+    xnat = native.solve(b)
+    bitwise = torch.equal(x32, xnat) and all(
+        torch.equal(f, g) for f, g in zip(native._tier_factors["f32"], native.factors))
+    res = {t: _rel_resid(A, x, b) for t, x in (("bf16_ir", xb), ("f32", x32), ("f64", x64))}
+    print(f"[ladder] ||A x - b|| / ||b||: bf16_ir {res['bf16_ir']:.2e} (bar 1e-2), f32 "
+          f"{res['f32']:.2e}, f64 {res['f64']:.2e} (bar 1e-5); the f32 tier bit for bit the "
+          f"native session (factors and answer) {bitwise}; K3 instances held {dtypes}; f64 "
+          f"tier Dinv {native._tier_factors['f64'][1].dtype}", flush=True)
+    check(res["bf16_ir"] < 1e-2 and res["f32"] < 1e-5 and res["f64"] < 1e-5 and bitwise,
+          "ladder tier answers")
+    check(dtypes == ["bfloat16", "float32", "float64"]
+          and native._tier_factors["f64"][1].dtype == torch.float64, f"ladder K3 {dtypes}")
+    nat_ms = time_ms(lambda: plan.factor(A), 3)
+    bf_ms = time_ms(lambda: plan.factor(A, precision="bf16_ir"), 3)
+    f64_ms = time_ms(lambda: plan._tier_factor_once("f64", A), 2)
+    us = {t: _rounds_at(s_, b, p) for t, s_, p in (("bf16_ir", tiered, None),
+                                                   ("f32", native, "f32"),
+                                                   ("f64", native, "f64"))}
+    print(f"[ladder] factor ms (CUDA events): native (K4) {nat_ms:.3f}, bf16_ir (K2 + K1) "
+          f"{bf_ms:.3f}, f64 tier (library route) {f64_ms:.3f}; us per solve of 2 rounds (host "
+          f"clock): bf16_ir {us['bf16_ir']:.1f}, f32 {us['f32']:.1f}, f64 {us['f64']:.1f}",
+          flush=True)
+    del tiered
+    # 'auto' on ill-conditioned systems: the bf16 rung fails its verdict,
+    # the ladder climbs, and the rung sticks
+    Abad = _ill_conditioned(B, n)
+    pol = resilience.HealthPolicy()
+    limit = pol.resolved_residual_limit("float32", n)
+
+    def auto():
+        sa = plan.factor(Abad, precision="auto")
+        x, verdict = sa.solve_checked(b, precision="auto")
+        ok, finite, r = resilience.evaluate(verdict, limit)
+        out = resilience.escalate_precision(
+            sa, b[..., None], "auto", pol, limit,
+            evidence0={"rung": "bf16_ir", "finite": finite, "residual": r})
+        return sa, ok, r, out
+
+    # the auto session's bf16 factor (K1, K2), then the f32 rung's tier
+    # factor (K4) on the climb
+    sa, ok0, r0, out = counted("'auto' + escalate_precision (cond 1e6)", auto,
+                               {"batched_lu": 1, "gemm": B * (steps - 1), "lu_block": k2})
+    x2, v2 = sa.solve_checked(b, precision="auto")
+    ok2, _f, r2 = resilience.evaluate(v2, limit)
+    rout = _rel_resid(Abad, torch.from_numpy(out[..., 0]).cuda(), b)
+    print(f"[ladder] auto on cond 1e6: bf16_ir verdict residual {r0:.3e} > limit {limit:.3e} "
+          f"{not ok0}; climbed to rung {sa.auto_rung} ({serve.PRECISION_TIERS[sa.auto_rung]}), "
+          f"{sa.precision_escalations} escalation(s); answer ||A x - b|| / ||b|| {rout:.2e} "
+          f"(bar 1e-2); the next auto request healthy {ok2} (residual {r2:.3e})", flush=True)
+    check(not ok0 and sa.auto_rung >= 1 and sa.precision_escalations >= 1 and rout < 1e-2
+          and ok2, "ladder auto escalation")
+    del native, sa
+    torch.cuda.empty_cache()
+    return total
+
+
+def _rounds_at(s, b, precision) -> float:
+    """Host microseconds per `s.solve(b, precision=...)` over 16 calls."""
+    s.solve(b, precision=precision)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        s.solve(b, precision=precision)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 16 * 1e6
+
+
+def _qr_flops(M: int, N: int) -> float:
+    """LAPACK's count for a Householder QR of an (M, N) matrix, M >= N:
+    2 M N^2 - 2 N^3 / 3 (the rate's numerator; the blocked and tree
+    algorithms do more)."""
+    return 2.0 * M * N * N - 2.0 * N ** 3 / 3
+
+
+def phase_qr() -> None:
+    """(23) The QR miniapp's `main(argv)`: --full at N=32768 f32 -b 1024
+    --validate, and tall mode at M=1048576, 256 columns, --algo tsqr and
+    cholesky, each --validate; no kernel launches (the JAX package runs no
+    Pallas kernel for QR either)."""
+    from conflux_tpu_torch.validation import residual_bound
+
+    runs = (["--full", "-M", "32768", "--cols", "32768", "-b", "1024"],
+            ["-M", "1048576", "--cols", "256", "--algo", "tsqr"],
+            ["-M", "1048576", "--cols", "256", "--algo", "cholesky"])
+    for argv in runs:
+        lines, counts = run_miniapp([*argv, "--validate", "-r", "1"], app="qr_miniapp",
+                                    kernels=())
+        check(all(c == 0 for c in counts.values()), f"qr {argv}: kernels launched {counts}")
+        f = _field(lines, "_result_").split()[1].split(",")
+        ms = float(f[8])
+        M, N = int(argv[argv.index("-M") + 1]), int(argv[argv.index("--cols") + 1])
+        res = _field(lines, "_residual_")
+        orth = float(res.split("orth=")[1].split()[0])
+        rec = float(res.split("reconstruction=")[1])
+        bar = residual_bound(N, torch.float32)
+        print(f"[qr] {f[0]} M={M} N={N}: {ms:.1f} ms = "
+              f"{_qr_flops(M, N) / ms / 1e9:.1f} TFLOP/s at 2MN^2 - 2N^3/3 flops; orth "
+              f"{orth:.3e}, reconstruction {rec:.3e} (bar {bar:.3e})", flush=True)
+        check(orth <= bar and rec <= bar, f"qr {argv} residuals")
+        torch.cuda.empty_cache()
+    _qr_chunk_round()
+
+
+def _qr_chunk_round() -> None:
+    """The tree's chunk round at the --full run's first panel, one batched
+    `torch.linalg.qr(mode='r')` of (8, 4096, 1024) f32, timed (CUDA events,
+    median of 3) on torch's default linear-algebra backend and on cuSOLVER,
+    as PR 7 timed the library LU (torch sends a MAGMA request for QR to
+    cuSOLVER)."""
+    import statistics
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    P = torch.randn((8, 4096, 1024), generator=g, device="cuda")
+    was = torch.backends.cuda.preferred_linalg_library()
+    times = {}
+    try:
+        for lib in ("default", "cusolver"):
+            torch.backends.cuda.preferred_linalg_library(lib)
+            times[lib] = statistics.median(
+                time_ms(lambda: torch.linalg.qr(P, mode="r"), 1) for _ in range(3))
+    finally:
+        torch.backends.cuda.preferred_linalg_library(was)
+    print(f"[qr] chunk round torch.linalg.qr(mode='r') of (8, 4096, 1024) f32: "
+          + ", ".join(f"{lib} {ms:.2f} ms" for lib, ms in times.items()), flush=True)
+
+
+def phase_qr_lane() -> None:
+    """(24) kind='qr' plans at (16384, 1024) float32 and float64: factor,
+    the factor lane's checked program, 16 solve and 16 checked rounds, held
+    to `torch.linalg.lstsq`; the verdict trips on a corrupted R; `lstsq` at
+    (32768, 1024) float64 and float32 with bfloat16 factors and 2 sweeps.
+    No kernel launches."""
+    from conflux_tpu_torch import serve, solvers
+
+    M, N, rounds = 16384, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for dtype, bar in ((torch.float32, 1e-4), (torch.float64, 1e-9)):
+        name = str(dtype).removeprefix("torch.")
+        serve.clear_plans()
+        plan = serve.FactorPlan.create((M, N), dtype, kind="qr")
+        A = torch.randn((M, N), generator=gen, device="cuda", dtype=torch.float64).to(dtype)
+        rhs = [torch.randn((M,), generator=gen, device="cuda", dtype=dtype)
+               for _ in range(rounds)]
+
+        def drive():
+            s = plan.factor(A)
+            _F, _p, verdict = plan._factor_health_fn(1)(A[None])
+            return s, verdict, [s.solve(b) for b in rhs], [s.solve_checked(b) for b in rhs]
+
+        (s, lane, xs, checked), counts = _serve_counts(drive)
+        check(all(c == 0 for c in counts.values()), f"qr lane {name} launched {counts}")
+        ref = torch.linalg.lstsq(A.double(), torch.stack(rhs, 1).double()).solution
+        err = float((torch.stack(xs, 1).double() - ref).abs().max())
+        verdicts = torch.stack([v for _x, v in checked])
+        limit = 1e4 * torch.finfo(dtype).eps * math.sqrt(N)
+        Q, R = s.factors
+        R2 = R.clone()
+        R2[:N // 2, N // 2:] = 0
+        with s._lock:
+            s._factors = (Q, R2)
+        _x, bad = s.solve_checked(rhs[0])
+        s.refactor()
+        print(f"[qr lane] {name} plan {plan.key.shape}: launches {counts}; max |x - "
+              f"torch.linalg.lstsq (float64)| {err:.2e} (bar {bar:g}); lane verdict "
+              f"{lane[:, 0].tolist()}; checked verdicts finite min "
+              f"{float(verdicts[:, 0].min()):g}, residual max {float(verdicts[:, 1].max()):.3e} "
+              f"(limit {limit:.3e}); corrupted R verdict {bad.tolist()}", flush=True)
+        check(err < bar, f"qr lane {name} answers")
+        check(bool((verdicts[:, 0] == 1.0).all()) and float(verdicts[:, 1].max()) <= limit
+              and float(lane[0, 0]) == 1.0 and float(lane[1, 0]) <= limit,
+              f"qr lane {name} verdicts")
+        check(float(bad[0]) == 1.0 and float(bad[1]) > limit,
+              f"qr lane {name}: the corrupted R did not trip the verdict")
+        fac_ms = time_ms(lambda: plan.factor(A), 3)
+        lane_ms = time_ms(lambda: plan._factor_health_fn(1)(A[None]), 3)
+        lib_ms = time_ms(lambda: torch.linalg.lstsq(A, rhs[0][:, None]), 3)
+        print(f"[qr lane] {name}: {fac_ms:.3f} ms per factor, {lane_ms:.3f} ms per checked lane "
+              f"factor, torch.linalg.lstsq {lib_ms:.3f} ms (CUDA events, 3 calls); "
+              f"{_rounds(s, rhs, False):.1f} us per solve round, {_rounds(s, rhs, True):.1f} us "
+              f"per checked round (host clock)", flush=True)
+        del s, xs, checked
+    M = 32768
+    A = torch.randn((M, N), generator=gen, device="cuda", dtype=torch.float64)
+    b = torch.randn((M,), generator=gen, device="cuda", dtype=torch.float64)
+    (x,), counts = _serve_counts(lambda: (solvers.lstsq(A, b),))
+    ref = torch.linalg.lstsq(A, b[:, None]).solution[:, 0]
+    err64 = float((x - ref).abs().max())
+    ms64 = time_ms(lambda: solvers.lstsq(A, b), 3)
+    lib64 = time_ms(lambda: torch.linalg.lstsq(A, b[:, None]), 3)
+    A32 = A.float()
+    x_true = torch.randn((N,), generator=gen, device="cuda")
+    b32 = A32 @ x_true
+    errs = {}
+    for sweeps in (0, 2):
+        xr = solvers.lstsq(A32, b32, factor_dtype=torch.bfloat16, refine=sweeps)
+        errs[sweeps] = float(torch.linalg.norm(xr - x_true) / torch.linalg.norm(x_true))
+    ms32 = time_ms(lambda: solvers.lstsq(A32, b32, factor_dtype=torch.bfloat16, refine=2), 3)
+    print(f"[lstsq] float64 ({M}, {N}): max |x - torch.linalg.lstsq| {err64:.2e} (bar 1e-9), "
+          f"{ms64:.3f} ms, torch.linalg.lstsq {lib64:.3f} ms; float32 with bfloat16 factors: "
+          f"relative error {errs[0]:.2e} without sweeps (above 1e-4), {errs[2]:.2e} after 2 "
+          f"(bar 1e-5), {ms32:.3f} ms; launches {counts}", flush=True)
+    check(err64 < 1e-9 and errs[0] > 1e-4 and errs[2] < 1e-5, "lstsq answers")
+    check(all(c == 0 for c in counts.values()), f"lstsq launched {counts}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -1687,11 +2220,15 @@ def main() -> int:
     ce = phase_serve_e()
     cf = phase_serve_f(k3)
     phase_solvers()
-    k1["launches"] += cm["gemm"] + cf["gemm"]
-    k2["launches"] += cf["lu_block"]
+    cw = phase_woodbury()
+    cl = phase_ladder()
+    phase_qr()
+    phase_qr_lane()
+    k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"]
+    k2["launches"] += cf["lu_block"] + cl["lu_block"]
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]
-                      + cf["btrsm"])
-    k4["launches"] = ca["batched_lu"] + cb["batched_lu"]
+                      + cf["btrsm"] + cw["btrsm"] + cl["btrsm"])
+    k4["launches"] = ca["batched_lu"] + cb["batched_lu"] + cw["batched_lu"] + cl["batched_lu"]
     k5["launches"] = cc["batched_chol"] + cd["batched_chol"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -16,9 +16,14 @@ the JAX package's library routes (backend "xla", panel algos "partial",
 "tournament", "auto"; float64 and complex), with batched forms; the
 batched entries (`batched.py`); the single-device solver API (`solve`,
 `fgmres`, `lu_solve_transposed`, `slogdet_from_lu`, `cond_estimate_1`,
-`inv_from_lu`); and the serving core (`FactorPlan` -> `SolveSession`,
-`serve.py`) for LU and SPD plans, through the batched factor kernels or
-the batched blocked factor, and the blocked triangular-solve kernel.
+`inv_from_lu`, `solve_updated`, `lstsq`); the QR family on one device
+(`qr/`: `tall_qr`, `qr_factor_blocked`, `cholesky_qr2`, and the
+`qr_miniapp` CLI at 1x1x1); and the serving core (`FactorPlan` ->
+`SolveSession`, `serve.py`) for LU, SPD and QR plans, through the
+batched factor kernels or the batched blocked factor and the blocked
+triangular-solve kernel, with Woodbury drift updates (`update.py`), the
+precision ladder and the resilience layer's escalation rungs
+(`resilience.py`, the port's own copy).
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_grid
@@ -46,6 +51,20 @@ def __getattr__(name):
         "lu_solve_batched": ("conflux_tpu_torch.batched", "lu_solve_batched"),
         "cholesky_solve_batched": ("conflux_tpu_torch.batched", "cholesky_solve_batched"),
         "solve_batched": ("conflux_tpu_torch.batched", "solve_batched"),
+        "solve_updated_batched": ("conflux_tpu_torch.batched", "solve_updated_batched"),
+        "solve_updated": ("conflux_tpu_torch.solvers", "solve_updated"),
+        "lstsq": ("conflux_tpu_torch.solvers", "lstsq"),
+        "qr_factor_blocked": ("conflux_tpu_torch.qr.single", "qr_factor_blocked"),
+        "tall_qr": ("conflux_tpu_torch.qr.single", "tall_qr"),
+        "cholesky_qr2": ("conflux_tpu_torch.qr.single", "cholesky_qr2"),
+        "qr_residual_device": ("conflux_tpu_torch.validation", "qr_residual_device"),
+        "DriftPolicy": ("conflux_tpu_torch.update", "DriftPolicy"),
+        "HealthPolicy": ("conflux_tpu_torch.resilience", "HealthPolicy"),
+        "FaultPlan": ("conflux_tpu_torch.resilience", "FaultPlan"),
+        "FaultSpec": ("conflux_tpu_torch.resilience", "FaultSpec"),
+        "RhsNonFinite": ("conflux_tpu_torch.resilience", "RhsNonFinite"),
+        "SolveUnhealthy": ("conflux_tpu_torch.resilience", "SolveUnhealthy"),
+        "PRECISION_TIERS": ("conflux_tpu_torch.serve", "PRECISION_TIERS"),
         "make_hpd_matrix": ("conflux_tpu_torch.validation", "make_hpd_matrix"),
         "set_backend": ("conflux_tpu_torch.ops.blas", "set_backend"),
         "set_panel_algo": ("conflux_tpu_torch.ops.blas", "set_panel_algo"),
@@ -90,6 +109,20 @@ __all__ = [
     "lu_solve_batched",
     "cholesky_solve_batched",
     "solve_batched",
+    "solve_updated_batched",
+    "solve_updated",
+    "lstsq",
+    "qr_factor_blocked",
+    "tall_qr",
+    "cholesky_qr2",
+    "qr_residual_device",
+    "DriftPolicy",
+    "HealthPolicy",
+    "FaultPlan",
+    "FaultSpec",
+    "RhsNonFinite",
+    "SolveUnhealthy",
+    "PRECISION_TIERS",
     "make_hpd_matrix",
     "set_backend",
     "set_panel_algo",

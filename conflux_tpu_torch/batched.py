@@ -10,8 +10,9 @@ float32 or float64 batch runs in the K4 or K5 kernel's grid (the JAX
 `_pallas_factor_eligible` route); every other batch (bfloat16 storage, or
 backend "xla") runs the batched blocked factor (`lu.single`,
 `cholesky.single` on a (B, N, N) batch), the counterpart of the JAX
-package's `jax.vmap` of its blocked body. Mesh sharding and the Woodbury
-`solve_updated_batched` are not ported yet.
+package's `jax.vmap` of its blocked body. `solve_updated_batched` solves
+a fleet of drifted systems through the factors of their bases (the
+Woodbury correction, `update`). Mesh sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -204,7 +205,35 @@ def solve_batched(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtyp
     return x[:, :, 0] if squeeze else x
 
 
-def solve_updated_batched(*args, **kwargs):
-    """Not ported yet: the Woodbury drift path (`update.py`) comes with a
-    later slice."""
-    raise NotImplementedError("solve_updated_batched (the Woodbury path) is not ported yet")
+def solve_updated_batched(A: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
+                          b: torch.Tensor, *, v: int = 256, factor_dtype=None,
+                          refine: int = 0, spd: bool = False, mesh=None,
+                          backend: str | None = None,
+                          substitution: str = "trsm") -> torch.Tensor:
+    """Solve B drifted systems (A[i] + U[i] V[i]^H) x[i] = b[i]: the
+    batched counterpart of `solvers.solve_updated`. A is (B, N, N), U and V
+    (B, N, k) with k << N, b (B, N) or (B, N, nrhs); only the bases are
+    factored (the `solve_batched` recipe and `substitution`), and the
+    corrections ride k x k capacitance systems (`update.woodbury_solve`,
+    batched over the systems). `spd` refers to the bases."""
+    from conflux_tpu_torch.update import woodbury_solve
+
+    if substitution not in ("trsm", "blocked"):
+        raise ValueError(f"unknown substitution {substitution!r} (trsm|blocked)")
+    _check_batched_square(A)
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded batches are not ported yet")
+    B, N = A.shape[0], A.shape[1]
+    if tuple(U.shape) != tuple(V.shape) or U.dim() != 3 or tuple(U.shape[:2]) != (B, N):
+        raise ValueError(f"update factors must both be ({B}, {N}, k), got "
+                         f"{tuple(U.shape)} and {tuple(V.shape)}")
+    v = min(v, N)
+    if N % v:
+        raise ValueError(f"N={N} not a multiple of tile size v={v}; pre-pad the batch "
+                         "with an identity extension (cf. solvers.solve)")
+    b3, squeeze = _rhs_3d(b, B, N)
+    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    fdtype = A.dtype if factor_dtype is None else factor_dtype
+    base = _batched_corr(spd, substitution, backend, A.to(fdtype), v, blas.get_panel_algo())
+    x = woodbury_solve(base, A if refine else None, U, V, b3, refine=refine)
+    return x[:, :, 0] if squeeze else x

@@ -19,10 +19,12 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
         "one); cpu runs the kernels' plain PyTorch versions")
     p.add_argument(
         "--dtype", default="float32", choices=["float32", "float64", "bfloat16"],
-        help="element type: float32 and bfloat16 (bf16 storage, f32 panel "
-        "math) run the kernel route (backend and panel algo 'kernel'); "
-        "float64 runs the JAX package's default library route (backend "
-        "'xla', panel algo 'auto'), as no kernel has a float64 instance")
+        help="element type. LU and Cholesky miniapps: float32 and bfloat16 "
+        "(bf16 storage, f32 panel math) run the kernel route (backend and "
+        "panel algo 'kernel'); float64 runs the JAX package's default "
+        "library route (backend 'xla', panel algo 'auto'), as K1 and K2 "
+        "have no float64 instance. QR miniapp: the library QR in the dtype "
+        "(bfloat16 computes in float32)")
     p.add_argument("--profile", action="store_true", help="print region timings")
 
 

@@ -1,5 +1,5 @@
 """Throughput serving: plan cache + device-resident solve sessions (the port
-of the LU serving core of `conflux_tpu/serve.py`).
+of the single-device serving core of `conflux_tpu/serve.py`).
 
 A serving workload ("many users, many right-hand sides") wants to build the
 programs once per shape, factor once per matrix, and answer each request
@@ -8,7 +8,8 @@ with only the O(N^2) substitution against factors that stay on the card:
 - :class:`FactorPlan` is the program cache for one configuration, keyed by
   :class:`PlanKey` (the JAX package's fields). Its programs are Python
   callables memoized per power-of-two bucket; `trace_counts` counts their
-  builds, one per bucket, as the JAX package counts traces.
+  builds, one per bucket, under the names the JAX package counts traces
+  by (`factor`, `solve`, `health`, `update`, `update_solve`, `refine`).
 - :class:`SolveSession` holds the factors. ``plan.factor(A)`` factors once;
   ``session.solve(b)`` runs the substitution only, and
   ``session.solve_checked(b)`` adds the Freivalds health verdict.
@@ -16,18 +17,23 @@ with only the O(N^2) substitution against factors that stay on the card:
     plan = FactorPlan.create((32, 256, 256), torch.float32, v=128)
     session = plan.factor(A)          # O(N^3), once, on the K4 kernel
     x = session.solve(b)              # O(N^2), one K3 launch
+    session.update(U, V)              # rank-k drift A + U V^T: one K3 round
+    x = session.solve(b)              # base factors + k x k correction
+    xb = plan.factor(A, precision="bf16_ir").solve(b)  # bf16 factors + IR
 
     spd = FactorPlan.create((32, 256, 256), torch.float32, v=128, kind="chol")
     x = spd.factor(S).solve(b)        # K5 once, then one K3 launch a round
+    ls = FactorPlan.create((4096, 256), torch.float32, kind="qr")
+    x = ls.factor(T).solve(c)         # min ||T x - c||, library QR
 
 A plan on backend "kernel" with float32 or float64 systems and
 ``factor_dtype == dtype`` factors through a batched factor kernel
 (`ops.batched_factor`): LU plans through K4, SPD plans (``kind="chol"``,
 or the legacy ``spd=True``) through the batched Cholesky K5, the
 counterparts of a JAX plan made with ``backend="pallas"``. Every other
-plan (bfloat16 storage, ``factor_dtype != dtype`` such as the HPL-MxP
-``factor_dtype=bfloat16`` plan, ``backend="xla"``) factors through the
-batched blocked factor (`lu.single.lu_factor_blocked`,
+LU or SPD plan (bfloat16 storage, ``factor_dtype != dtype`` such as the
+HPL-MxP ``factor_dtype=bfloat16`` plan, ``backend="xla"``) factors
+through the batched blocked factor (`lu.single.lu_factor_blocked`,
 `cholesky.single.cholesky_blocked` on the stacked batch), the
 counterpart of the JAX package's vmapped `_one_factor`: on "kernel" its
 panels run on K2 and its trailing updates on K1. ``plan.factor`` rides
@@ -38,27 +44,52 @@ through the batched blocked triangular-solve kernel (K3,
 `hopper_kernels.btrsm_pair`): the batched form of the block loop the JAX
 programs vmap, a whole round (the row permutation, forward, back, and
 for checked solves the probe stats) in one launch; an SPD plan's back
-solve reads L^T in place.
+solve reads L^T in place. ``kind="qr"`` plans serve min ||A x - b|| for a
+single tall (M, N) system through the thin (Q, R) of
+`qr.single.qr_factor_blocked`; like the JAX package's they run no kernel
+(library QR, `solve_triangular` and products).
 
-Ported: LU and Cholesky plans (single and batched; float32, float64,
+Drift: ``session.update(U, V)`` applies A <- A + U V^H through a
+Sherman-Morrison-Woodbury correction (`update`): the capacitance is one
+base substitution with the kb columns of U (one K3 round on a blocked
+plan), and every later solve one more round plus O(N k) products. The
+session's :class:`~update.DriftPolicy` pays one true refactorization
+when the accumulated rank or the capacitance's condition stops paying.
+
+Precision ladder: ``precision=`` on `factor`, `solve` and `solve_checked`
+serves a tier of :data:`PRECISION_TIERS`: 'bf16_ir' factors in bfloat16
+and always refines at least once against the session's base, 'f32' and
+'f64' factor at that dtype; 'auto' starts at the session's sticky rung
+and `resilience.escalate_precision` climbs it on an unhealthy verdict.
+Routes by dtype: a tier factors through the plan's own route where that
+route takes the tier's dtype (a kernel-route f32 plan's 'f32' tier is its
+native K4 factor, 'bf16_ir' the batched blocked factor on K2 and K1); K1
+and K2 have no float64 instance, so a kernel-route plan's 'f64' tier
+factors on the JAX package's default library route (backend "xla",
+panel algo "auto") and solves through K3's float64 instance.
+
+Ported: LU, Cholesky and QR plans (single and batched; float32, float64,
 bfloat16 storage and any factor dtype; backends "kernel" and "xla";
-substitution blocked|trsm|inv, `refine` sweeps), checked solves and the
-factor lane's coalesced programs. Not ported yet, each raising
-NotImplementedError: QR plans, mesh plans, the precision ladder, Woodbury
-update/refactor, gang stacks, tier residency and bucket retirement, device
-moves, the plan codec and the engine.
+substitution blocked|trsm|inv, `refine` sweeps), checked solves, the
+factor lane's coalesced programs, Woodbury update/refactor with the drift
+policy, refine_checked (the escalation ladder's rung 2) and the precision
+tiers. Not ported yet, each raising NotImplementedError: mesh plans,
+matmul precision other than 'highest', gang stacks (the stacked Woodbury
+programs), tier residency and bucket retirement, device moves, the plan
+codec and the engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 from typing import Any
 
 import numpy as np
 import torch
 
-from conflux_tpu_torch import profiler
+from conflux_tpu_torch import profiler, resilience
 from conflux_tpu_torch.batched import cholesky_solve_batched, unstack_tree
 from conflux_tpu_torch.device import resolve_device
 from conflux_tpu_torch.lu.single import from_numpy
@@ -67,11 +98,16 @@ from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
 from conflux_tpu_torch.solvers import lu_solve
 from conflux_tpu_torch.update import (
     DriftPolicy,
+    apply_update,
+    capacitance,
     health_spot_check,
     health_verdict_from_stats,
+    probe_lstsq,
     probe_row,
     probe_vector,
     rank_bucket,
+    updated_matvec,
+    woodbury_apply,
 )
 
 
@@ -80,13 +116,15 @@ class PlanKey:
     """Identity of a serving pipeline: the plan cache's key (the JAX
     package's fields)."""
 
-    shape: tuple          # (B, N, N) batched or (N, N) single
+    shape: tuple          # (B, N, N) batched, (N, N) single, or (M, N)
+                          # tall (kind='qr' least squares, M >= N)
     dtype: str            # storage dtype of A
     factor_dtype: str     # dtype the factorization runs in
     v: int                # tile size
     refine: int           # classic-IR sweeps fused into the solve program
-    kind: str             # factorization family: 'lu' | 'chol' ('qr' to port)
-    substitution: str     # 'trsm' | 'inv' | 'blocked' ('auto' -> 'blocked')
+    kind: str             # factorization family: 'lu' | 'chol' | 'qr'
+    substitution: str     # 'trsm' | 'inv' | 'blocked' ('auto' -> 'blocked';
+                          # 'trsm' for kind='qr')
     precision: Any        # matmul precision: 'highest' (IEEE f32, no TF32)
     backend: str          # kernel backend
     panel_algo: str       # LU panel election algo
@@ -94,6 +132,31 @@ class PlanKey:
 
 
 PLAN_KINDS = ("lu", "chol", "qr")
+
+# the per-request precision ladder: each served tier names a factor dtype
+# and the IR sweeps its solve programs fuse ('bf16_ir' always refines at
+# least once). 'auto' requests start on the cheapest rung and the
+# Freivalds verdict drives escalation up this tuple.
+PRECISION_TIERS = ("bf16_ir", "f32", "f64")
+
+_TIER_DTYPES = {"bf16_ir": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
+
+
+def check_precision_request(precision):
+    """Validate a per-request ``precision=``: None (the plan's native
+    path), a served tier name, or 'auto'. Returns the value; raises
+    ValueError naming the offending value otherwise."""
+    if precision is None or precision == "auto" or precision in PRECISION_TIERS:
+        return precision
+    raise ValueError(f"unknown precision {precision!r} — expected None, 'auto', or "
+                     f"one of {PRECISION_TIERS}")
+
+
+def next_precision_tier(tier: str):
+    """The next rung up the ladder, or None at the top (escalation then
+    falls through to the native `resilience.escalate` rungs)."""
+    i = PRECISION_TIERS.index(tier)
+    return PRECISION_TIERS[i + 1] if i + 1 < len(PRECISION_TIERS) else None
 
 _PLANS: dict[PlanKey, "FactorPlan"] = {}
 _PLANS_LOCK = threading.Lock()
@@ -187,33 +250,50 @@ class FactorPlan:
         if key.kind not in PLAN_KINDS:
             raise ValueError(f"unknown plan kind {key.kind!r} — expected one "
                              f"of {PLAN_KINDS}")
-        if key.kind == "qr":
-            raise _not_ported("kind='qr' plans (QR least squares)")
         if key.mesh_key is not None:
             raise _not_ported("mesh plans")
-        if len(shape) not in (2, 3) or shape[-1] != shape[-2]:
-            raise ValueError(f"plan needs square systems, got {shape}")
+        if len(shape) not in (2, 3):
+            raise ValueError(f"plan shape {shape}: (B, N, N), (N, N) or (M, N)")
         self.batched = len(shape) == 3
         self.B = shape[0] if self.batched else None
         self.N = shape[-1]
+        # the rhs row count: N for the square kinds, M >= N for kind='qr'
         self.M = shape[-2]
-        if self.N % key.v:
-            raise ValueError(f"N={self.N} not a multiple of v={key.v}; pre-pad "
-                             "with an identity extension")
-        if not self._kernel_factor:
-            # the blocked factor's routes, refused here rather than at the
-            # first factor: K1 takes float32 and bfloat16, K2 float32
-            fd = _torch_dtype(key.factor_dtype)
-            blas.check_gemm_route(key.backend, fd)
-            if key.kind == "lu":
-                blas._resolve_panel_algo(blas.compute_dtype(fd), self.N, key.v,
-                                         key.panel_algo)
+        if key.kind == "qr":
+            if self.batched:
+                raise ValueError(
+                    "kind='qr' serves single tall-skinny systems — a batched plan "
+                    f"shape {shape} has no least-squares semantics here (open one "
+                    "session per system)")
+            if self.M < self.N:
+                raise ValueError(f"kind='qr' needs M >= N (min||Ax-b|| over a "
+                                 f"tall-skinny A), got {shape}")
+            if key.substitution != "trsm":
+                raise ValueError("kind='qr' substitutes through R only "
+                                 "(substitution='trsm'); 'blocked'/'inv' are the "
+                                 "square kinds' engines")
+        else:
+            if shape[-1] != shape[-2]:
+                raise ValueError(f"plan needs square systems, got {shape}")
+            if self.N % key.v:
+                raise ValueError(f"N={self.N} not a multiple of v={key.v}; pre-pad "
+                                 "with an identity extension")
+            if not self._kernel_factor:
+                # the blocked factor's routes, refused here rather than at
+                # the first factor: K1 takes float32 and bfloat16, K2 float32
+                fd = _torch_dtype(key.factor_dtype)
+                blas.check_gemm_route(key.backend, fd)
+                if key.kind == "lu":
+                    blas._resolve_panel_algo(blas.compute_dtype(fd), self.N, key.v,
+                                             key.panel_algo)
         self.trace_counts = {"factor": 0, "solve": 0}
         # concurrent first callers fill the memoized program caches
         # double-checked under this lock
         self._compile_lock = threading.Lock()
         self._solve_cache: dict[Any, Any] = {}
         self._factor_cache: dict[tuple, Any] = {}
+        # the Woodbury programs, per rank bucket (and RHS bucket)
+        self._update_cache: dict[tuple, Any] = {}
         # the blocked engine's checked programs, apart from _solve_cache
         # as in the JAX package
         self._trsm_cache: dict[tuple, Any] = {}
@@ -246,7 +326,8 @@ class FactorPlan:
                mesh=None, substitution: str = "auto", precision=None,
                backend: str | None = None) -> "FactorPlan":
         """Get-or-build the plan for a traffic shape: (B, N, N) batched or
-        (N, N) single, `dtype` the request dtype. `substitution` picks the
+        (N, N) single, or (M, N) with M >= N for a tall least-squares plan
+        (`kind='qr'`), `dtype` the request dtype. `substitution` picks the
         per-request engine: 'blocked' (what 'auto' resolves to)
         substitutes through diagonal-block inverses computed at factor
         time, 'trsm' runs the classic triangular solves, 'inv' inverts the
@@ -263,7 +344,9 @@ class FactorPlan:
             raise _not_ported(f"matmul precision {precision!r} (the port "
                               "runs IEEE float32, 'highest')")
         if substitution == "auto":
-            substitution = "blocked"
+            # QR substitutes through R alone; the square kinds take the
+            # blocked engine
+            substitution = "trsm" if kind == "qr" else "blocked"
         if substitution not in ("trsm", "inv", "blocked"):
             raise ValueError(f"unknown substitution {substitution!r} "
                              "(auto|trsm|inv|blocked)")
@@ -331,6 +414,8 @@ class FactorPlan:
         plan's batch, a factor bucket's stack), the port's counterpart of
         the JAX package's vmap."""
         k = self.key
+        if k.kind == "qr":
+            return self._qr_corr(factors)
         if self._spd:
             return self._spd_corr(factors)
         if k.substitution == "blocked":
@@ -350,6 +435,23 @@ class FactorPlan:
             rf = r.reshape(-1, n, w)
             return torch.stack([lu_solve(LUf[i], pf[i], rf[i])
                                 for i in range(rf.shape[0])]).reshape(r.shape)
+        return corr
+
+    @staticmethod
+    def _qr_corr(factors):
+        """:meth:`_base_corr` of a QR plan, the least-squares substitution:
+        project the (M, k) right-hand side onto range(A) through Q^H, then
+        one triangular solve through R, (M, k) -> (N, k); the refinement
+        sweeps reuse it (the correction of the least-squares residual is
+        the least-squares correction). Computes in the compute dtype
+        (bfloat16 factors in float32)."""
+        Q, R = factors
+        cdtype = blas.compute_dtype(Q.dtype)
+        Qc, Rc = Q.to(cdtype), R.to(cdtype)
+
+        def corr(r):
+            y = torch.matmul(Qc.mH, r.to(cdtype))
+            return torch.linalg.solve_triangular(Rc, y, upper=True)
         return corr
 
     def _spd_corr(self, factors):
@@ -406,18 +508,28 @@ class FactorPlan:
     # stacked (cold-start) factor programs: the factor lane
     # ------------------------------------------------------------------ #
 
+    def _native_route(self):
+        """(factor dtype, backend, panel algo) of the plan's own factor."""
+        k = self.key
+        return _torch_dtype(k.factor_dtype), k.backend, k.panel_algo
+
+    def _kernel_gate(self, fd: torch.dtype, backend: str) -> bool:
+        """True when a factor at dtype `fd` on `backend` runs a batched
+        factor kernel (K4 for LU, K5 for Cholesky), the counterpart of the
+        JAX `_pallas_factor` gate: the "kernel" backend, LU or Cholesky,
+        and float32 or float64 with `dtype == fd` (so the kernel's probe
+        row reads the operand `probe_row` would)."""
+        k = self.key
+        return (backend == "kernel" and k.kind in ("lu", "chol")
+                and k.dtype == _dtype_name(fd) and fd in (torch.float32, torch.float64))
+
     @property
     def _kernel_factor(self) -> bool:
-        """True when this plan factors through a batched factor kernel (K4
-        for LU, K5 for Cholesky), the counterpart of the JAX
-        `_pallas_factor` gate: the "kernel" backend, no mesh, LU or
-        Cholesky, and float32 or float64 with `dtype == factor_dtype` (so
-        the kernel's probe row reads the operand `probe_row` would). Other
-        plans factor through :meth:`_blocked_factor_core`."""
-        k = self.key
-        return (k.backend == "kernel" and k.mesh_key is None
-                and k.kind in ("lu", "chol") and k.dtype == k.factor_dtype
-                and k.factor_dtype in ("float32", "float64"))
+        """True when this plan's own factor runs a batched factor kernel
+        (:meth:`_kernel_gate`); other plans factor through
+        :meth:`_blocked_factor_core`."""
+        fd, backend, _algo = self._native_route()
+        return self._kernel_gate(fd, backend)
 
     def _kernel_factor_core(self, Ast, probe: bool = False):
         """First half of the stacked factor: fold the stack (batched plans
@@ -427,48 +539,75 @@ class FactorPlan:
         A2 = Ast.reshape((shp[0] * shp[1],) + shp[2:]) if self.batched else Ast
         w = self._probe_w_on(Ast.device) if probe else None
         if self._spd:
-            out = blas.batched_cholesky_factor(A2, probe_w=w, backend=self.key.backend)
+            out = blas.batched_cholesky_factor(A2, probe_w=w, backend="kernel")
             return out if probe else (out,)
-        return blas.batched_lu_factor(A2, probe_w=w, backend=self.key.backend)
+        return blas.batched_lu_factor(A2, probe_w=w, backend="kernel")
 
-    def _blocked_factor_core(self, Ast, probe: bool = False):
-        """First half of the stacked factor of a plan outside the kernel
-        gate: fold the stack (batched plans fold (bb, B) into one batch),
-        cast it to the factor dtype and run the batched blocked factor on
-        the plan's backend and panel algo, the counterpart of the JAX
-        package's vmapped `_one_factor`; with `probe`, the probe rows
-        wA = w^T A off the stack in the plan's dtype, as the JAX
-        `_stacked_factor_body` computes them beside the factor. Returns
-        (LU, perm[, wA]) or (L[, wA])."""
+    def _blocked_factor_core(self, Ast, route, probe: bool = False):
+        """First half of the stacked factor outside the kernel gate: fold
+        the stack (batched plans fold (bb, B) into one batch), cast it to
+        the route's factor dtype and run the batched blocked factor on its
+        backend and panel algo, the counterpart of the JAX package's
+        vmapped `_one_factor`; with `probe`, the probe rows wA = w^T A off
+        the stack in the plan's dtype, as the JAX `_stacked_factor_body`
+        computes them beside the factor. Returns (LU, perm[, wA]) or
+        (L[, wA])."""
         from conflux_tpu_torch.cholesky.single import cholesky_blocked
         from conflux_tpu_torch.lu.single import lu_factor_blocked
 
-        k = self.key
+        fd, backend, algo = route
+        v = self.key.v
         A2 = Ast.reshape((-1,) + tuple(Ast.shape[-2:]))
-        Af = A2.to(_torch_dtype(k.factor_dtype))
+        Af = A2.to(fd)
         if self._spd:
-            core = (cholesky_blocked(Af, k.v, backend=k.backend),)
+            core = (cholesky_blocked(Af, v, backend=backend),)
         else:
-            core = lu_factor_blocked(Af, k.v, backend=k.backend, panel_algo=k.panel_algo)
+            core = lu_factor_blocked(Af, v, backend=backend, panel_algo=algo)
         if not probe:
             return core
         return (*core, probe_row(self._probe_w_on(Ast.device), A2))
 
-    def _factor_core(self, Ast, probe: bool = False):
-        """The stacked factor's first half on this plan's route."""
-        if self._kernel_factor:
-            return self._kernel_factor_core(Ast, probe)
-        return self._blocked_factor_core(Ast, probe)
+    def _qr_factor_core(self, Ast, fd, probe: bool = False):
+        """The stacked factor of a QR plan: `qr.single.qr_factor_blocked`
+        of each slot at dtype `fd` (panel width min(v, N)), stacked, so a
+        slot's factors do not depend on the bucket. Returns (Q, R[, (u,
+        uA)]) with the least-squares probe pair of each slot
+        (`update.probe_lstsq`)."""
+        from conflux_tpu_torch.qr.single import qr_factor_blocked
 
-    def _factor_epilogue(self, core, probe: bool = False):
+        v = min(self.key.v, self.N)
+        QR = [qr_factor_blocked(a.to(fd), v=v) for a in Ast]
+        core = (torch.stack([q for q, _r in QR]), torch.stack([r for _q, r in QR]))
+        if not probe:
+            return core
+        w = self._probe_w_on(Ast.device)
+        pairs = [probe_lstsq(w, a) for a in Ast]
+        return (*core, (torch.stack([u for u, _ in pairs]),
+                        torch.stack([uA for _, uA in pairs])))
+
+    def _factor_core(self, Ast, probe: bool = False, route=None):
+        """The stacked factor's first half on `route` (factor dtype,
+        backend, panel algo; default the plan's own)."""
+        route = self._native_route() if route is None else route
+        if self.key.kind == "qr":
+            return self._qr_factor_core(Ast, route[0], probe)
+        if self._kernel_gate(route[0], route[1]):
+            return self._kernel_factor_core(Ast, probe)
+        return self._blocked_factor_core(Ast, route, probe)
+
+    def _factor_epilogue(self, core, probe: bool = False, fd=None):
         """Second half: the substitution epilogue on the factor's output
         (per-slot diagonal-block inverses for 'blocked', full triangular
-        inverses for 'inv') and the (bb, B) unflatten of batched plans.
+        inverses for 'inv', in the compute dtype of the factor dtype `fd`,
+        default the plan's) and the (bb, B) unflatten of batched plans.
         Every op is per slot, so the kernel's per-slot bits survive into
         the session factors."""
         k = self.key
-        cdtype = blas.compute_dtype(_torch_dtype(k.factor_dtype))
-        if self._spd:
+        fd = _torch_dtype(k.factor_dtype) if fd is None else fd
+        cdtype = blas.compute_dtype(fd)
+        if k.kind == "qr":
+            F = (core[0], core[1])
+        elif self._spd:
             L = core[0]
             if k.substitution == "blocked":
                 F = (L, diag_block_inverses(L.to(cdtype), lower=True))
@@ -539,6 +678,8 @@ class FactorPlan:
 
         def build():
             self._bump("factor_health")
+            if self.key.kind == "qr":
+                return self._qr_factor_health
             fused = self._fused_probe
             dtype = _torch_dtype(self.key.dtype)
 
@@ -573,6 +714,25 @@ class FactorPlan:
 
         return self._memo(self._factor_cache, ("factor_health", bb), build)
 
+    def _qr_factor_health(self, Ast):
+        """The factor lane's checked program of a QR plan: u_i lies in
+        range(A_i) (`update.probe_lstsq`), so the least-squares solution of
+        A_i x = u_i reproduces u_i and the projected residual
+        |u.u - uA.x| / ||u|| vanishes, the square lane's |w.w - wA.x|
+        scale (u is normalized to ||u|| = sqrt(M)). Returns (factors,
+        (u, uA), verdict (2, bb))."""
+        F, wA = self._factor_epilogue(self._factor_core(Ast, probe=True), probe=True)
+        u, uA = wA
+        x = self._one_solve(F, Ast, u[..., None])
+        cdtype = x.dtype
+        finite = torch.isfinite(x.sum(dim=tuple(range(1, x.dim()))))
+        uc = u.to(cdtype)
+        ax = (uA.to(cdtype) * x[..., 0]).sum(-1)
+        num = torch.abs((uc * uc).sum(-1) - ax)
+        den = torch.sqrt((uc.abs() ** 2).sum(-1)) + torch.finfo(cdtype).tiny
+        verdict = torch.stack([finite.to(torch.float32), (num / den).to(torch.float32)])
+        return F, wA, verdict
+
     def _factor_once(self, A):
         """Factor ONE system (or one (B, N, N) batch) through the bucket-1
         slot of the stacked factor program, so every session carries
@@ -599,18 +759,31 @@ class FactorPlan:
 
     def _probe_fn(self):
         """The wA = w^T A0 program: the once-per-base half of the
-        projected-residual check."""
+        projected-residual check; for a QR plan the least-squares pair
+        (u, uA) (`update.probe_lstsq`)."""
         def build():
+            if self.key.kind == "qr":
+                return lambda A0: probe_lstsq(self._probe_w_on(A0.device), A0)
             return lambda A0: probe_row(self._probe_w_on(A0.device), A0)
 
         return self._memo(self._solve_cache, ("probe",), build)
+
+    def _verdict(self, wA, x, b2, Up=None, Vp=None):
+        """The (2,) verdict of a solve through the session's probe: wA is
+        the probe row, or the (u, uA) pair of a QR plan (u in range(A0) is
+        orthogonal to the least-squares residual, so the same projected
+        check u.b - uA.x vanishes at min ||A x - b||)."""
+        if self.key.kind == "qr":
+            u, uA = wA
+            return health_spot_check(u, uA, x, b2)
+        return health_spot_check(self._probe_w_on(b2.device), wA, x, b2, Up, Vp)
 
     def _checked(self, inner):
         """Wrap a (factors, A0, b2) solve body into the checked shape
         (factors, A0, wA, b2) -> (x, (2,) verdict)."""
         def f(factors, A0, wA, b2):
             x = inner(factors, A0, b2)
-            return x, health_spot_check(self._probe_w_on(b2.device), wA, x, b2)
+            return x, self._verdict(wA, x, b2)
 
         return f
 
@@ -655,6 +828,202 @@ class FactorPlan:
 
         return self._memo(self._solve_cache, ("health", nrhs), build_checked)
 
+    def _one_refine(self, factors, A0, x, b2):
+        """One iterative-refinement sweep against the current base factors,
+        escalation rung 2's body (rung 1's forced refactor already absorbed
+        any drift, so the residual matvec runs against A0)."""
+        corr = self._base_corr(factors)
+        cdtype = blas.compute_dtype(_torch_dtype(self.key.dtype))
+        xc = x.to(cdtype)
+        r = b2.to(cdtype) - torch.matmul(A0.to(cdtype), xc)
+        return xc + corr(r).to(cdtype)
+
+    def _refine_fn(self, nrhs: int):
+        """The checked refinement program per RHS bucket, what
+        `SolveSession.refine_checked` runs: (factors, A0, wA, x, b2) ->
+        (x2, verdict)."""
+        self._check_bucket("_refine_fn", nrhs)
+
+        def build():
+            self._bump("refine")
+
+            def f(factors, A0, wA, x, b2):
+                x2 = self._one_refine(factors, A0, x, b2)
+                return x2, self._verdict(wA, x2, b2)
+            return f
+
+        return self._memo(self._solve_cache, ("refine", nrhs), build)
+
+    # ------------------------------------------------------------------ #
+    # served precision tiers: the per-request ladder
+    # ------------------------------------------------------------------ #
+
+    def _tier_spec(self, tier: str):
+        """(factor dtype, fused IR sweeps, (factor dtype, backend, panel
+        algo)) of a served tier. 'bf16_ir' factors in bfloat16 and fuses at
+        least one sweep (its residual against the session's base); 'f32'
+        and 'f64' factor at that dtype with the plan's own sweeps. The route
+        is the plan's own where it takes the tier's dtype: on "kernel" a
+        float32 or bfloat16 factor (K4/K5 where the kernel gate holds, else
+        the batched blocked factor on K2 and K1). K1 and K2 have no float64
+        instance, so a float64 tier outside the kernel gate factors on the
+        JAX package's default library route, backend "xla" and panel algo
+        "auto" (a registry algo other than "kernel" stays): a route chosen
+        by dtype, as the kernel gate is."""
+        if tier not in PRECISION_TIERS:
+            raise ValueError(f"unknown served tier {tier!r} — one of {PRECISION_TIERS}")
+        k = self.key
+        fd = _TIER_DTYPES[tier]
+        sweeps = max(int(k.refine), 1) if tier == "bf16_ir" else int(k.refine)
+        backend, algo = k.backend, k.panel_algo
+        if (fd == torch.float64 and k.kind != "qr" and backend == "kernel"
+                and not self._kernel_gate(fd, backend)):
+            backend, algo = "xla", ("auto" if algo == "kernel" else algo)
+        return fd, sweeps, (fd, backend, algo)
+
+    def _check_tier(self, what: str, tier: str) -> None:
+        if tier not in PRECISION_TIERS:
+            raise ValueError(f"{what} takes a served tier from {PRECISION_TIERS}, "
+                             f"got {tier!r}")
+
+    def _tier_stacked_factor_fn(self, tier: str, bb: int):
+        """The served tiers' coalesced factor program: `bb` systems factored
+        at the tier's dtype on its route (:meth:`_tier_spec`) in one call,
+        the `("tier_factor", tier, bb)` family beside the native one, with
+        the same per-slot bucket invariance."""
+        self._check_tier("_tier_stacked_factor_fn", tier)
+        self._check_bucket("_tier_stacked_factor_fn", bb)
+
+        def build():
+            self._bump("factor")
+            fd, _sweeps, route = self._tier_spec(tier)
+
+            def run(Ast):
+                return self._factor_epilogue(self._factor_core(Ast, route=route), fd=fd)
+            return run
+
+        return self._memo(self._factor_cache, ("tier_factor", tier, bb), build)
+
+    def _tier_factor_once(self, tier: str, A):
+        """Factor one system (or one batch) at a served tier through the
+        bucket-1 slot of the tier's stacked program: `factor(precision=)`,
+        the cross-tier cache and a tier session's refactors route here."""
+        F = self._tier_stacked_factor_fn(tier, 1)(A[None])
+        return unstack_tree(F, 1)[0]
+
+    def _tier_solve_fn(self, tier: str, nrhs: int):
+        """The tiers' substitution program per RHS bucket: the tier's
+        factors and fused sweeps against the base, (factors, A0, b2) -> x
+        (A0 is always read: bf16_ir sweeps at least once)."""
+        self._check_tier("_tier_solve_fn", tier)
+        self._check_bucket("_tier_solve_fn", nrhs)
+        _fd, sweeps, _route = self._tier_spec(tier)
+
+        def build():
+            self._bump("solve")
+            return functools.partial(self._tier_one_solve, sweeps)
+
+        return self._memo(self._solve_cache, ("tier", tier, nrhs), build)
+
+    def _tier_one_solve(self, sweeps, factors, A0, b2):
+        return self._one_solve(factors, A0, b2, sweeps=sweeps)
+
+    def _tier_solve_health_fn(self, tier: str, nrhs: int):
+        """The checked tier substitution per RHS bucket, what 'auto'
+        requests run (the verdict is the ladder's escalation signal):
+        always the unfused :meth:`_checked` shape, as in the JAX package."""
+        self._check_tier("_tier_solve_health_fn", tier)
+        self._check_bucket("_tier_solve_health_fn", nrhs)
+        _fd, sweeps, _route = self._tier_spec(tier)
+
+        def build():
+            self._bump("solve")
+            self._bump("health")
+            return self._checked(functools.partial(self._tier_one_solve, sweeps))
+
+        return self._memo(self._solve_cache, ("tier_health", tier, nrhs), build)
+
+    # ------------------------------------------------------------------ #
+    # Woodbury update programs, built once per bucket
+    # ------------------------------------------------------------------ #
+
+    def _one_update(self, factors, Up, Vp):
+        """(Y, Cinv, cond1) of the drift (Up, Vp) against the base factors:
+        one base substitution with Up's kb columns (one K3 round on a
+        blocked plan)."""
+        return capacitance(self._base_corr(factors), Up, Vp)
+
+    def _one_update_solve(self, sweeps, factors, A0, Up, Vp, Y, Cinv, b2):
+        """Woodbury-corrected substitution plus `sweeps` refinement sweeps
+        against the drifted matrix (residual A0 x + U (V^H x))."""
+        corr = self._base_corr(factors)
+        cdtype = blas.compute_dtype(_torch_dtype(self.key.dtype))
+        x = woodbury_apply(corr, Y, Cinv, Vp, b2).to(cdtype)
+        bc = b2.to(cdtype)
+        for _ in range(sweeps):
+            r = bc - updated_matvec(A0, Up, Vp, x)
+            x = x + woodbury_apply(corr, Y, Cinv, Vp, r).to(cdtype)
+        return x
+
+    def _update_fn(self, kb: int):
+        """The capacitance program per rank bucket kb:
+        (factors, Up, Vp) -> (Y, Cinv, cond1)."""
+        self._check_bucket("_update_fn", kb)
+
+        def build():
+            self._bump("update")
+            return self._one_update
+
+        return self._memo(self._update_cache, ("update", kb), build)
+
+    def _update_solve_fn(self, kb: int, nrhs: int, sweeps: int):
+        """The Woodbury solve program per (rank bucket, RHS bucket,
+        backstop sweeps): (factors, A0, Up, Vp, Y, Cinv, b2) -> x."""
+        self._check_bucket("_update_solve_fn", nrhs)
+
+        def build():
+            self._bump("update_solve")
+            return functools.partial(self._one_update_solve, sweeps)
+
+        return self._memo(self._update_cache, ("usolve", kb, nrhs, sweeps), build)
+
+    def _update_solve_health_fn(self, kb: int, nrhs: int, sweeps: int):
+        """The checked Woodbury solve program: the projected residual goes
+        through the drifted matrix (w^T A1 = wA + (w^T Up) Vp^H, padded
+        columns inert), so a correction gone wrong trips the verdict."""
+        self._check_bucket("_update_solve_health_fn", nrhs)
+
+        def build():
+            self._bump("update_solve")
+            self._bump("health")
+
+            def f(factors, A0, Up, Vp, Y, Cinv, wA, b2):
+                x = self._one_update_solve(sweeps, factors, A0, Up, Vp, Y, Cinv, b2)
+                return x, self._verdict(wA, x, b2, Up, Vp)
+            return f
+
+        return self._memo(self._update_cache, ("uhealth", kb, nrhs, sweeps), build)
+
+    def _refresh_fn(self, kb: int, donate: bool = False):
+        """The drifted base A0 + U V^H per rank bucket, the refactor's
+        input. With `donate` (the session owns its base: it came from an
+        earlier refactor, not from the caller) A0 is updated in place by
+        one `addmm_` (`baddbmm_` for a batch), so a drifting session holds
+        one resident base at the refactor peak, the role of the JAX
+        package's buffer donation; otherwise (and for bfloat16 storage,
+        whose sum runs in float32) a new tensor by the same product
+        (`update.apply_update`), with the same bits."""
+        def build():
+            def in_place(A0, Up, Vp):
+                cdtype = blas.compute_dtype(A0.dtype)
+                if A0.dtype != cdtype:
+                    return apply_update(A0, Up, Vp)
+                add = A0.addmm_ if A0.dim() == 2 else A0.baddbmm_
+                return add(Up.to(cdtype), Vp.to(cdtype).mH)
+            return in_place if donate else apply_update
+
+        return self._memo(self._update_cache, ("refresh", kb, donate), build)
+
     # ------------------------------------------------------------------ #
     # serving surface
     # ------------------------------------------------------------------ #
@@ -674,63 +1043,129 @@ class FactorPlan:
         A (numpy or tensor) is put on `device`: the card unless the caller
         passes device="cpu" (no card and no "cpu" raises). The session
         keeps A itself when the plan refines (the residual matvec) and as
-        the base of its probe row. `precision=` (the precision ladder) is
-        not ported yet."""
-        if precision is not None:
-            raise _not_ported("the precision ladder (factor(precision=...))")
+        the base of its probe row and of its drift. `policy` governs when
+        `session.update` drifts refactor (default :class:`DriftPolicy`).
+        `precision` opens the session at a served tier: its factors are
+        built at the tier's dtype directly, and its solves default to the
+        tier's programs; 'auto' opens on the cheapest rung. None is the
+        native path."""
+        tier0 = check_precision_request(precision)
+        if tier0 == "auto":
+            tier0 = PRECISION_TIERS[0]
         dev = resolve_device(device)
         A = _as_tensor(A, dev)
         self._check_A(A)
         with profiler.region("serve.factor"):
-            factors = self._factor_once(A)
-        keep_A = A if self.key.refine else None
-        return SolveSession(self, factors, keep_A, A, policy, device=dev)
+            factors = (self._factor_once(A) if tier0 is None
+                       else self._tier_factor_once(tier0, A))
+        # tier sessions keep the base: their solves sweep against it
+        keep_A = A if (self.key.refine or tier0 is not None) else None
+        return SolveSession(self, factors, keep_A, A, policy, device=dev,
+                            served_tier=tier0)
 
 
 class SolveSession:
     """Device-resident factors + the plan's substitution programs.
 
     `solves` and `factorizations` count what this session ran: solve-only
-    traffic keeps `factorizations == 1`.
+    traffic keeps `factorizations == 1`. `update(U, V)` applies a rank-k
+    drift A <- A + U V^H without refactoring (the Woodbury correction,
+    `update`); the session's :class:`DriftPolicy` pays one true
+    refactorization through the plan's factor program when the
+    accumulated rank or the capacitance's condition stops paying
+    (`refactors` counts them).
     """
 
     def __init__(self, plan: FactorPlan, factors, A, A_base=None,
-                 policy: DriftPolicy | None = None, *, device=None):
+                 policy: DriftPolicy | None = None, *, device=None,
+                 served_tier=None, auto_rung: int = 0):
         self.plan = plan
         self.device = device
-        # every read of the resident state happens under this lock
+        # every mutation of the resident state, and every read of it,
+        # happens under this re-entrant lock (the escalation ladder
+        # re-enters it)
         self._lock = threading.RLock()
         self._factors = factors    # guarded-by: _lock
         self._A = A                # guarded-by: _lock
         self._A0 = A if A_base is None else A_base  # guarded-by: _lock
         self.policy = DriftPolicy() if policy is None else policy
-        # wA = w^T A0, computed on the first checked solve
+        # the Woodbury state: dict(k, kb, Up, Vp, Y, Cinv), None undrifted
+        self._upd = None           # guarded-by: _lock
+        # the base is the caller's tensor until the first refactor
+        # replaces it with one the session made; only an owned base is
+        # updated in place (FactorPlan._refresh_fn)
+        self._owns_base = False    # guarded-by: _lock
+        # attached lazily by resilience.breaker_for
+        self._breaker = None
+        # the latest capacitance condition estimate (SolveUnhealthy evidence)
+        self.last_cond = None      # guarded-by: _lock
+        # wA = w^T A0 ((u, uA) for QR), computed on the first checked
+        # solve, dropped when a refactor replaces the base
         self._probe = None         # guarded-by: _lock
+        # the served tier the resident factors were built at (None: the
+        # plan's native factor), the sticky 'auto' rung, and the derived
+        # per-tier factors of cross-tier requests (rebuildable from _A0,
+        # so left out of nbytes, and dropped on every base swap)
+        self._served_tier = served_tier  # guarded-by: _lock
+        self._auto_rung = int(auto_rung)  # guarded-by: _lock
+        self._tier_factors: dict = {}  # guarded-by: _lock
+        self.precision_escalations = 0  # guarded-by: _lock
+        self.precision_fallbacks = 0  # guarded-by: _lock
         self.factorizations = 1    # guarded-by: _lock
         self.solves = 0            # guarded-by: _lock
+        self.updates = 0           # guarded-by: _lock
+        self.refactors = 0         # guarded-by: _lock
+        # the JAX package's checkpoint dirty clock: bumped by every
+        # mutation of what a checkpoint holds (update, refactor, a moved
+        # 'auto' rung); the port's checkpoint codec is not ported yet
+        self._ckpt_ver = 0         # guarded-by: _lock
 
     @property
     def factors(self):
         """The device-resident factors. LU plans: (LU, Dl, Du, perm) for
         'blocked', (LU, perm) for 'trsm', (Li, Ui, perm) for 'inv'. SPD
-        plans: (L, Dl) for 'blocked', (L,) for 'trsm', (Li,) for 'inv'."""
+        plans: (L, Dl) for 'blocked', (L,) for 'trsm', (Li,) for 'inv'. QR
+        plans: the thin (Q, R)."""
         with self._lock:
             return self._factors
 
     @property
-    def nbytes(self) -> int:
-        """Device-resident footprint in bytes: factors + base matrix + the
-        cached probe row, each buffer counted once (`_A` aliases `_A0`
-        whenever the plan keeps it)."""
+    def served_tier(self):
+        """The served tier the resident factors carry (None: the plan's
+        native factor dtype)."""
         with self._lock:
+            return self._served_tier
+
+    @property
+    def auto_rung(self) -> int:
+        """The sticky 'auto' ladder position (an index into
+        `PRECISION_TIERS`); escalations ratchet it up."""
+        with self._lock:
+            return self._auto_rung
+
+    @property
+    def update_rank(self) -> int:
+        """Accumulated drift rank since the last (re)factorization."""
+        with self._lock:
+            return 0 if self._upd is None else self._upd["k"]
+
+    @property
+    def nbytes(self) -> int:
+        """Device-resident footprint in bytes: factors, base matrix, the
+        Woodbury state and the cached probe, each buffer counted once (`_A`
+        aliases `_A0` whenever the plan keeps it); the derived cross-tier
+        factors are left out."""
+        with self._lock:
+            leaves = [*self._factors, self._A, self._A0]
+            leaves += list(self._probe) if isinstance(self._probe, tuple) else [self._probe]
+            if self._upd is not None:
+                leaves += [self._upd[k] for k in ("Up", "Vp", "Y", "Cinv")]
             seen: dict[int, int] = {}
-            for leaf in (*self._factors, self._A, self._A0, self._probe):
+            for leaf in leaves:
                 if leaf is not None:
                     seen[id(leaf)] = leaf.numel() * leaf.element_size()
             return sum(seen.values())
 
-    update = _unported("the Woodbury drift update (SolveSession.update)")
-    refactor = _unported("SolveSession.refactor")
     to_device = _unported("SolveSession.to_device")
 
     def _rhs(self, b):
@@ -762,26 +1197,79 @@ class SolveSession:
             b2 = torch.nn.functional.pad(b2, (0, nb - nrhs))
         return b2, nb, nrhs, squeeze
 
-    def solve(self, b, *, precision=None):  # hot-path
-        """Solve against the resident factors: the substitution plus the
-        plan's `refine` sweeps. b is (N,)/(N, k) for single plans,
-        (B, N)/(B, N, k) for batched ones; x comes back in b's shape.
-        Widths are padded up to power-of-two buckets and sliced back."""
-        if precision is not None:
-            raise _not_ported("the precision ladder (solve(precision=...))")
-        plan = self.plan
-        b2, nb, nrhs, squeeze = self._rhs_bucketed(b)
-        with self._lock:
-            with profiler.region("serve.solve"):
-                x = plan._solve_fn(nb)(self._factors, self._A, b2)
-            self.solves += 1
+    @staticmethod
+    def _unbucket(x, nb, nrhs, squeeze):
         if nb != nrhs:
             x = x[..., :nrhs]
         return x[..., 0] if squeeze else x
 
+    # requires-lock: _lock
+    def _resolve_tier(self, precision):
+        """A per-request ``precision=`` as a served tier, or None for the
+        native programs. None defers to the tier the session was opened at;
+        'auto' reads the sticky rung. A drifted session answers a
+        cross-tier request on its resident Woodbury path (a derived tier's
+        factors carry no drift), counted in `precision_fallbacks`."""
+        tier = check_precision_request(precision)
+        if tier is None:
+            return self._served_tier
+        if tier == "auto":
+            tier = PRECISION_TIERS[min(self._auto_rung, len(PRECISION_TIERS) - 1)]
+        if self._upd is not None and tier != self._served_tier:
+            self.precision_fallbacks += 1
+            return self._served_tier
+        return tier
+
+    # requires-lock: _lock
+    def _tier_factor(self, tier):
+        """The derived per-tier factors of `_A0` at a tier other than the
+        session's own, built once through the plan's tier program."""
+        F = self._tier_factors.get(tier)
+        if F is None:
+            F = self.plan._tier_factor_once(tier, self._A0)
+            self._tier_factors[tier] = F
+        return F
+
+    # requires-lock: _lock
+    def _factor_base(self, A):
+        """The session's resident factors of base `A` at its serving
+        configuration (its tier's program for a tier session), what every
+        refactor runs."""
+        if self._served_tier is None:
+            return self.plan._factor_once(A)
+        return self.plan._tier_factor_once(self._served_tier, A)
+
+    def solve(self, b, *, precision=None):  # hot-path
+        """Solve against the resident factors: the substitution plus the
+        plan's `refine` sweeps, plus the Woodbury correction while the
+        session carries a drift. b is (N,)/(N, k) for single plans,
+        (B, N)/(B, N, k) for batched ones ((M,)/(M, k) for QR plans, whose
+        x has N rows); x comes back in b's shape. Widths are padded up to
+        power-of-two buckets and sliced back. `precision` routes this
+        request through a served tier's programs (factors derived once when
+        it is not the session's own tier); nothing here waits for the
+        card."""
+        plan = self.plan
+        b2, nb, nrhs, squeeze = self._rhs_bucketed(b)
+        with self._lock:
+            tier = self._resolve_tier(precision)
+            with profiler.region("serve.solve"):
+                if self._upd is not None:
+                    u = self._upd
+                    sweeps = plan.key.refine + self.policy.refine
+                    x = plan._update_solve_fn(u["kb"], nb, sweeps)(
+                        self._factors, self._A0, u["Up"], u["Vp"], u["Y"], u["Cinv"], b2)
+                elif tier is None:
+                    x = plan._solve_fn(nb)(self._factors, self._A, b2)
+                else:
+                    F = self._factors if tier == self._served_tier else self._tier_factor(tier)
+                    x = plan._tier_solve_fn(tier, nb)(F, self._A0, b2)
+            self.solves += 1
+        return self._unbucket(x, nb, nrhs, squeeze)
+
     def _probe_row(self):
-        """The session's cached probe row wA = w^T A0 (device-resident,
-        once per base)."""
+        """The session's cached probe row wA = w^T A0 ((u, uA) for a QR
+        plan): device-resident, once per base."""
         with self._lock:
             if self._probe is None:
                 self._probe = self.plan._probe_fn()(self._A0)
@@ -791,22 +1279,161 @@ class SolveSession:
         """`solve` plus the finite/projected-residual health verdict, in
         the same program: returns (x, verdict), verdict a (2,) float32
         tensor [finite_flag, residual] on the session's device (nothing
-        here waits for the card)."""
-        if precision is not None:
-            raise _not_ported("the precision ladder (solve_checked(precision=...))")
+        here waits for the card). A drifted session's verdict projects
+        through the drifted matrix."""
         plan = self.plan
         b2, nb, nrhs, squeeze = self._rhs_bucketed(b)
         with self._lock:
+            tier = self._resolve_tier(precision)
             wA = self._probe_row()
             with profiler.region("serve.solve"):
-                x, verdict = plan._solve_health_fn(nb)(
-                    self._factors, self._A0, wA, b2)
+                if self._upd is not None:
+                    u = self._upd
+                    sweeps = plan.key.refine + self.policy.refine
+                    x, verdict = plan._update_solve_health_fn(u["kb"], nb, sweeps)(
+                        self._factors, self._A0, u["Up"], u["Vp"], u["Y"], u["Cinv"],
+                        wA, b2)
+                elif tier is None:
+                    x, verdict = plan._solve_health_fn(nb)(self._factors, self._A0, wA, b2)
+                else:
+                    F = self._factors if tier == self._served_tier else self._tier_factor(tier)
+                    x, verdict = plan._tier_solve_health_fn(tier, nb)(F, self._A0, wA, b2)
             self.solves += 1
-        if nb != nrhs:
-            x = x[..., :nrhs]
+        return self._unbucket(x, nb, nrhs, squeeze), verdict
+
+    def refine_checked(self, b, x):
+        """One iterative-refinement sweep of an earlier answer `x` against
+        the current base factors, re-checked: escalation rung 2
+        (`resilience.escalate`). `b` and `x` carry a solve's shapes; a
+        drifted session must refactor first (rung 1 precedes this one)."""
+        plan = self.plan
+        b2, nb, nrhs, squeeze = self._rhs_bucketed(b)
+        x2 = _as_tensor(x, self.device)
         if squeeze:
-            x = x[..., 0]
-        return x, verdict
+            x2 = x2[..., None]
+        if nb != nrhs:
+            x2 = torch.nn.functional.pad(x2, (0, nb - nrhs))
+        with self._lock:
+            if self._upd is not None:
+                raise AssertionError(
+                    "refine_checked rides the base factors — refactor() the drifted "
+                    "session first (escalation rung order)")
+            with profiler.region("serve.solve"):
+                x2, verdict = plan._refine_fn(nb)(self._factors, self._A0,
+                                                  self._probe_row(), x2, b2)
+        return self._unbucket(x2, nb, nrhs, squeeze), verdict
+
+    def refactor(self):
+        """One true refactorization through the plan's factor program,
+        escalation rung 1: absorbs an accumulated drift into a fresh base
+        (:meth:`_refactor`); an undrifted session refactors its resident
+        base, replacing possibly corrupt factors. Returns self."""
+        with self._lock:
+            if self._upd is not None:
+                k = self._upd["k"]
+                self._refactor(self._upd["Up"][..., :k], self._upd["Vp"][..., :k])
+                return self
+            with profiler.region("serve.refactor"):
+                resilience.maybe_fault(None, "refresh")
+                self._factors = None  # released before the factor runs
+                self._factors = self._factor_base(self._A0)
+                # derived factors die with the rung-1 rebuild too
+                self._tier_factors = {}
+            self.factorizations += 1
+            self.refactors += 1
+            self._ckpt_ver += 1
+            return self
+
+    def _check_uv(self, U, V):
+        plan = self.plan
+        if tuple(U.shape) != tuple(V.shape):
+            raise ValueError(f"U {tuple(U.shape)} and V {tuple(V.shape)} must agree")
+        lead = (plan.B, plan.N) if plan.batched else (plan.N,)
+        if U.dim() != len(lead) + 1 or tuple(U.shape[:-1]) != lead:
+            raise ValueError(f"update factors {tuple(U.shape)}, session needs {lead} "
+                             "(+ rank axis)")
+        if U.shape[-1] < 1:
+            raise ValueError("update rank must be >= 1")
+
+    def update(self, U, V, *, replace: bool = False):
+        """Apply the rank-k drift A <- A + U V^H without refactoring.
+
+        U, V are (N, k) for single plans, (B, N, k) for batched ones
+        (k << N). Updates accumulate (ranks add) unless `replace=True`,
+        which measures the drift from the base factors again, the
+        "rank-k drift per request" traffic shape. The capacitance is one
+        base substitution with the rank bucket's columns; its condition
+        estimate is read on the host (the drift policy's decision, and why
+        this is not a hot-path method). The policy refactors once the
+        accumulated rank exceeds `policy.max_rank` or the condition exceeds
+        `policy.cond_limit`. Returns self."""
+        plan = self.plan
+        if plan.key.kind == "qr":
+            raise ValueError(
+                "incremental (Woodbury) drift updates apply to square plans — a "
+                "kind='qr' least-squares session re-factors on base change (the "
+                "Woodbury identity corrects A^-1, not the pseudoinverse)")
+        dtype = _torch_dtype(plan.key.dtype)
+        U = _as_tensor(U, self.device).to(dtype)
+        V = _as_tensor(V, self.device).to(dtype)
+        self._check_uv(U, V)
+        with self._lock, profiler.region("serve.update"):
+            if self._upd is not None:
+                if not replace:
+                    k0 = self._upd["k"]
+                    U = torch.cat([self._upd["Up"][..., :k0], U], -1)
+                    V = torch.cat([self._upd["Vp"][..., :k0], V], -1)
+                # the superseded state is dead before the new one is built
+                self._upd = None
+            k = U.shape[-1]
+            if k > self.policy.resolved_max_rank(plan.N):
+                self._refactor(U, V)
+                return self
+            kb = rank_bucket(k)
+            if kb != k:
+                U = torch.nn.functional.pad(U, (0, kb - k))
+                V = torch.nn.functional.pad(V, (0, kb - k))
+            Y, Cinv, cond1 = plan._update_fn(kb)(self._factors, U, V)
+            # the deliberate host read: the policy's decision is host control
+            cond = float(cond1.max())
+            self.last_cond = cond
+            if not cond <= self.policy.cond_limit:  # NaN and inf too
+                resilience.bump("cond_refactors")
+                self._refactor(U, V)
+                return self
+            self._upd = {"k": k, "kb": kb, "Up": U, "Vp": V, "Y": Y, "Cinv": Cinv}
+            self.updates += 1
+            self._ckpt_ver += 1
+        return self
+
+    def _refactor(self, Up, Vp):
+        """The drift policy's trigger: form A0 + U V^H and pay one true
+        refactorization through the plan's factor program; the base absorbs
+        the drift and the correction resets."""
+        plan = self.plan
+        with self._lock, profiler.region("serve.refactor"):
+            resilience.maybe_fault(None, "refresh")
+            k = Up.shape[-1]
+            kb = rank_bucket(k)
+            if kb != k:  # zero columns leave A0 + U V^H unchanged
+                Up = torch.nn.functional.pad(Up, (0, kb - k))
+                Vp = torch.nn.functional.pad(Vp, (0, kb - k))
+            # the superseded state is dead once the new base exists: drop it
+            # first, and update an owned base in place, so the peak holds one
+            # base and one factor set
+            self._upd = None
+            A_new = plan._refresh_fn(kb, donate=self._owns_base)(self._A0, Up, Vp)
+            self._A0 = A_new
+            self._probe = None  # against the superseded base
+            self._tier_factors = {}
+            self._owns_base = True
+            if self._A is not None:
+                self._A = A_new
+            self._factors = None  # released before the factor runs
+            self._factors = self._factor_base(A_new)
+            self.factorizations += 1
+            self.refactors += 1
+            self._ckpt_ver += 1
 
 
 def session_from_numpy(plan: FactorPlan, factors, A, device=None) -> SolveSession:
@@ -814,18 +1441,20 @@ def session_from_numpy(plan: FactorPlan, factors, A, device=None) -> SolveSessio
     factor pytree of a JAX `SolveSession` as numpy arrays, in the layout
     of :attr:`SolveSession.factors`: (LU, Dl, Du, perm) for a blocked LU
     plan, (LU, perm) for 'trsm', (Li, Ui, perm) for 'inv'; (L, Dl), (L,)
-    and (Li,) for an SPD plan. A is the matrix they factor (the probe
+    and (Li,) for an SPD plan; (Q, R) for a QR plan. A is the matrix they factor (the probe
     row's base, and the refinement sweeps' matvec). The counterpart of
     `lu.single.state_from_numpy`."""
     spd = plan._spd
-    want = ({"blocked": 2, "trsm": 1, "inv": 1} if spd else
-            {"blocked": 4, "trsm": 2, "inv": 3})[plan.key.substitution]
+    lu = plan.key.kind == "lu"
+    want = 2 if plan.key.kind == "qr" else ({"blocked": 2, "trsm": 1, "inv": 1} if spd else
+                                           {"blocked": 4, "trsm": 2, "inv": 3})[
+        plan.key.substitution]
     if len(factors) != want:
         raise ValueError(f"a {plan.key.substitution!r} {plan.key.kind} plan's "
                          f"factors have {want} leaves, got {len(factors)}")
     dev = resolve_device(device)
     # an LU plan's last leaf is its permutation
-    F = tuple(from_numpy(np.asarray(f).astype(np.int64) if not spd and i == want - 1
+    F = tuple(from_numpy(np.asarray(f).astype(np.int64) if lu and i == want - 1
                          else np.asarray(f), dev)
               for i, f in enumerate(factors))
     A = _as_tensor(A, dev)

@@ -10,8 +10,11 @@ single-device half of `conflux_tpu/solvers.py`).
 residuals in a higher precision) and `fgmres` its GMRES-IR engine for
 systems where the classic loop stalls. `lu_solve_transposed`,
 `slogdet_from_lu`, `cond_estimate_1` and `inv_from_lu` are the LAPACK
-getrs-T / det / gecon / getri roles on the same factors. The distributed
-solvers, `lstsq` (QR) and `solve_updated` (Woodbury) are not ported yet.
+getrs-T / det / gecon / getri roles on the same factors. `solve_updated`
+solves a drifted system (A + U V^H) x = b through the factors of A alone
+(the Woodbury correction, `update`), and `lstsq` is least squares through
+the QR route (`qr.single.tall_qr`). The distributed solvers are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -86,6 +89,30 @@ def _as_2d(b: torch.Tensor) -> tuple[torch.Tensor, bool]:
     return (b[:, None], True) if b.dim() == 1 else (b, False)
 
 
+def _identity_extend(A: torch.Tensor, pad: int) -> torch.Tensor:
+    """A padded to N + pad with an identity-extended diagonal (the extra
+    rows and columns are decoupled unit pivots)."""
+    N = A.shape[0]
+    Ap = A.new_zeros((N + pad, N + pad))
+    Ap[:N, :N] = A
+    idx = torch.arange(N, N + pad, device=A.device)
+    Ap[idx, idx] = 1
+    return Ap
+
+
+def _base_solver(Af: torch.Tensor, v: int, spd: bool):
+    """Factor Af (LU, or Cholesky with `spd`) and return r -> Af^{-1} r."""
+    if spd:
+        from conflux_tpu_torch.cholesky.single import cholesky_blocked
+
+        L = cholesky_blocked(Af, v)
+        return lambda r: cholesky_solve(L, r)
+    from conflux_tpu_torch.lu.single import lu_factor_blocked
+
+    LU, perm = lu_factor_blocked(Af, v)
+    return lambda r: lu_solve(LU, perm, r)
+
+
 def solve(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtype=None,
           refine: int = 0, spd: bool = False) -> torch.Tensor:
     """Solve A x = b by blocked factorization plus optional refinement, on
@@ -102,39 +129,84 @@ def solve(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtype=None,
     v = min(v, N)
     pad = (-N) % v
     if pad:
-        Np = N + pad
-        Ap = A.new_zeros((Np, Np))
-        Ap[:N, :N] = A
-        idx = torch.arange(N, Np, device=A.device)
-        Ap[idx, idx] = 1
-        A = Ap
+        A = _identity_extend(A, pad)
         b2, squeezed = _as_2d(b)
         b = torch.nn.functional.pad(b2, (0, 0, 0, pad))
         if squeezed:
             b = b[:, 0]
     fdtype = A.dtype if factor_dtype is None else factor_dtype
-    Af = A.to(fdtype)
-    if spd:
-        from conflux_tpu_torch.cholesky.single import cholesky_blocked
-
-        L = cholesky_blocked(Af, v)
-
-        def solve_corr(r):
-            return cholesky_solve(L, r)
-    else:
-        from conflux_tpu_torch.lu.single import lu_factor_blocked
-
-        LU, perm = lu_factor_blocked(Af, v)
-
-        def solve_corr(r):
-            return lu_solve(LU, perm, r)
-
+    solve_corr = _base_solver(A.to(fdtype), v, spd)
     cdtype = blas.compute_dtype(A.dtype)
     Ac, bc = A.to(cdtype), b.to(cdtype)
     x = solve_corr(b).to(cdtype)
     for _ in range(refine):
         x = x + solve_corr(bc - torch.matmul(Ac, x)).to(cdtype)
     return x[:N] if pad else x
+
+
+def solve_updated(A: torch.Tensor, U: torch.Tensor, V: torch.Tensor, b: torch.Tensor, *,
+                  v: int = 256, factor_dtype=None, refine: int = 0,
+                  spd: bool = False) -> torch.Tensor:
+    """Solve (A + U V^H) x = b through the factors of A alone: A is
+    factored once (the `solve` recipe: `v`, `factor_dtype`, `spd` for A
+    itself) and the rank-k drift rides a k x k capacitance system
+    (`update.woodbury_solve`). U, V are (N, k); `refine` sweeps take their
+    residuals against the drifted matrix. N need not be a multiple of v:
+    A is identity-extended and U, V gain zero rows, which leave the
+    extension's unit pivots alone."""
+    from conflux_tpu_torch.update import woodbury_solve
+
+    N = A.shape[0]
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError("solve_updated needs a square A")
+    if tuple(U.shape) != tuple(V.shape) or U.dim() != 2 or U.shape[0] != N:
+        raise ValueError(f"update factors must both be ({N}, k), got {tuple(U.shape)} "
+                         f"and {tuple(V.shape)}")
+    v = min(v, N)
+    pad = (-N) % v
+    b2, squeeze = _as_2d(b)
+    if pad:
+        A = _identity_extend(A, pad)
+        U = torch.nn.functional.pad(U, (0, 0, 0, pad))
+        V = torch.nn.functional.pad(V, (0, 0, 0, pad))
+        b2 = torch.nn.functional.pad(b2, (0, 0, 0, pad))
+    fdtype = A.dtype if factor_dtype is None else factor_dtype
+    base = _base_solver(A.to(fdtype), v, spd)
+    x = woodbury_solve(base, A if refine else None, U, V, b2, refine=refine)
+    if pad:
+        x = x[:N]
+    return x[:, 0] if squeeze else x
+
+
+def lstsq(A: torch.Tensor, b: torch.Tensor, chunk: int | None = None, passes: int = 2,
+          factor_dtype=None, refine: int = 0) -> torch.Tensor:
+    """Least squares min_x ||A x - b|| for a tall full-rank A (M >= n)
+    through the QR route (`qr.single.tall_qr`): x = R^{-1} (Q^H b).
+    `factor_dtype` and `refine` are the HPL-MxP recipe for least squares:
+    factor in a cheap dtype (bfloat16 computes its QR in float32 and
+    stores Q, R in bfloat16, as the JAX package does), then `refine`
+    sweeps of r = b - A x in A's compute dtype, each correction solved
+    through the same factors."""
+    from conflux_tpu_torch.qr.single import tall_qr
+
+    M = A.shape[0]
+    if b.shape[0] != M:
+        raise ValueError(f"b has {b.shape[0]} rows, A has {M}")
+    Af = A.to(factor_dtype) if factor_dtype is not None else A
+    Q, R = tall_qr(Af, chunk=chunk, passes=passes)
+    cdtype = blas.compute_dtype(A.dtype)
+    Qc, Rc = Q.to(cdtype), R.to(cdtype)
+    b2, squeeze = _as_2d(b.to(cdtype))
+
+    def solve_ls(rhs):
+        return blas.trsm_left_upper(Rc, torch.matmul(Qc.mH, rhs))
+
+    x = solve_ls(b2)
+    if refine:
+        Ac = A.to(cdtype)
+        for _ in range(refine):
+            x = x + solve_ls(b2 - torch.matmul(Ac, x))
+    return x[:, 0] if squeeze else x
 
 
 def fgmres(matvec, precond, b: torch.Tensor, *, args=(), x0=None, tol: float = 1e-6,

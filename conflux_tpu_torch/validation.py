@@ -6,7 +6,8 @@ CONFLUX_WITH_VALIDATION role).
 `lu_residual_device` and `cholesky_residual_device` compute the same
 normalized residuals where the factors lie, in float64 row and column
 strips, so a full-size check needs neither a host product nor an (N, N)
-float64 copy of anything.
+float64 copy of anything; `qr_residual_device` gives a QR's reconstruction
+and orthogonality residuals the same way.
 """
 
 from __future__ import annotations
@@ -98,6 +99,44 @@ def cholesky_residual_device(A: torch.Tensor, L: torch.Tensor,
     return float(torch.sqrt(rss) / torch.clamp(torch.sqrt(ass), min=1e-30))
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.complex128 if x.is_complex() else torch.float64)
+
+
+def qr_residual_device(A: torch.Tensor, Q: torch.Tensor, R: torch.Tensor,
+                       strip: int = 4096) -> tuple[float, float]:
+    """(||A - Q R||_F / ||A||_F, ||Q^H Q - I||_F / sqrt(N)) of a thin QR
+    (A, Q (M, N), R (N, N) upper) on the factors' device, in float64
+    (complex128 for complex input): the one-device counterpart of the JAX
+    package's `qr_residual_distributed`. One pass per column strip J of
+    width `strip`: over the row strips i, the block A_iJ - Q_i R_J (R_J
+    cut to its rows that can be nonzero) and the Gram strip Q^H Q_J
+    accumulate; nothing (M, N) or (N, N) is formed."""
+    M, N = Q.shape
+    dev = Q.device
+    rss = torch.zeros((), dtype=torch.float64, device=dev)
+    ass = torch.zeros((), dtype=torch.float64, device=dev)
+    oss = torch.zeros((), dtype=torch.float64, device=dev)
+    for j in range(0, N, strip):
+        je = min(j + strip, N)
+        RJ = torch.triu(_wide(R[:je, j:je]), diagonal=-j)  # R[r, c] is zero for r > c
+        G = None
+        for i in range(0, M, strip):
+            ie = min(i + strip, M)
+            Qi = _wide(Q[i:ie])
+            Ai = _wide(A[i:ie, j:je])
+            E = Ai - Qi[:, :je] @ RJ
+            rss += (E.abs() ** 2).sum()
+            ass += (Ai.abs() ** 2).sum()
+            g = Qi.mH @ Qi[:, j:je]
+            G = g if G is None else G + g
+        idx = torch.arange(j, je, device=dev)
+        G[idx, idx - j] -= 1
+        oss += (G.abs() ** 2).sum()
+    rec = torch.sqrt(rss) / torch.clamp(torch.sqrt(ass), min=1e-30)
+    return float(rec), float(torch.sqrt(oss) / np.sqrt(N))
+
+
 def residual_bound(n: int, dtype) -> float:
     """Acceptance threshold: c * sqrt(n) * eps, with headroom for pivot growth."""
     if isinstance(dtype, torch.dtype):
@@ -126,13 +165,6 @@ def make_spd_matrix(N: int, seed: int = 7, dtype=np.float64, device="cpu") -> to
     temporaries of a host-side symmetrization."""
     rng = np.random.default_rng(seed)
     Bt = torch.from_numpy(rng.uniform(-1.0, 1.0, size=(N, N)).astype(dtype)).to(device)
-    A = Bt + Bt.T
-    del Bt
-    A /= 2
-    A.diagonal().add_(N)
-    return A
-    Bt = torch.from_numpy(B).to(device)
-    del B
     A = Bt + Bt.T
     del Bt
     A /= 2

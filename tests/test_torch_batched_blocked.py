@@ -166,5 +166,8 @@ def test_solve_batched_with_refine_matches_jax(library_route, substitution, spd)
         assert np.abs(np.einsum("bij,bj->bi", A, x_t.numpy()) - b).max() < 1e-4
     with pytest.raises(ValueError, match="substitution"):
         tbatched.solve_batched(torch.from_numpy(A), torch.from_numpy(b), substitution="inv")
-    with pytest.raises(NotImplementedError, match="Woodbury"):
-        tbatched.solve_updated_batched(A, A, A, b)
+    # the Woodbury entry is ported (tests/test_torch_update.py): it checks
+    # its update factors' shape
+    At = torch.from_numpy(A)
+    with pytest.raises(ValueError, match="update factors"):
+        tbatched.solve_updated_batched(At, At[0], At[0], torch.from_numpy(b))

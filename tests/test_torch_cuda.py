@@ -733,3 +733,115 @@ def test_library_lu_keeps_the_linalg_preference_across_threads(cuda):
                                    perm[i].cpu().numpy()) <= residual_bound(P.shape[1],
                                                                             torch.float64)
     torch.backends.cuda.preferred_linalg_library("default")
+
+
+def _rel(x, ref):
+    return float(torch.linalg.norm((x - ref).double()) / torch.linalg.norm(ref.double()))
+
+
+@pytest.mark.parametrize("k", [16, 128])
+def test_woodbury_capacitance_and_round_through_k3_match_plain(cuda, k):
+    """The Woodbury path's K3 rounds at the drift's width on a (1024, 1024)
+    plan's factors: the capacitance (k right-hand sides; k=128, the
+    max_rank bucket at N=1024, takes K3's global-memory instance) and a
+    Woodbury solve round, one launch each, against the same programs on
+    the plain version (rel_fro 1e-5: only the summation order differs);
+    each column's bits do not depend on the launch's width."""
+    from conflux_tpu_torch import serve
+
+    n = 1024
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=256)
+    A = _rand((n, n), 40, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    F = plan._factor_once(A)
+    U, V = _rand((n, k), 41, cuda) / np.sqrt(n), _rand((n, k), 42, cuda) / np.sqrt(n)
+    b = _rand((n, 1), 43, cuda)
+    before = hk.LAUNCHES["btrsm"]
+    Y, Cinv, cond = plan._update_fn(k)(F, U, V)
+    x = plan._update_solve_fn(k, 1, 0)(F, None, U, V, Y, Cinv, b)
+    assert hk.LAUNCHES["btrsm"] == before + 2
+    kernel = hk.btrsm_pair
+    hk.btrsm_pair = lambda T, Dl, Du, r, perm=None, trans_back=False, wA=None: \
+        hk.btrsm_pair_plain(T, Dl, Du, r, perm, trans_back, wA)
+    try:
+        Yp, Cp, condp = plan._update_fn(k)(F, U, V)
+        xp = plan._update_solve_fn(k, 1, 0)(F, None, U, V, Yp, Cp, b)
+    finally:
+        hk.btrsm_pair = kernel
+    assert _rel(Y, Yp) <= 1e-5 and _rel(Cinv, Cp) <= 1e-4 and _rel(x, xp) <= 1e-5
+    assert abs(float(cond) - float(condp)) <= 1e-3 * float(condp)
+    A1 = A.double() + U.double() @ V.double().T
+    assert float((A1 @ x.double() - b.double()).abs().max()) < 1e-4
+    narrow = plan._update_fn(16)(F, U[:, :16].contiguous(), V[:, :16].contiguous())[0]
+    assert torch.equal(Y[:, :16], narrow)
+
+
+def test_bf16_ir_tier_factor_kernels_match_plain(cuda):
+    """A bf16_ir tier factor of a kernel-route (4, 512, 512) f32 plan runs
+    the batched blocked factor on K2 and K1 in bf16 storage: each K1 and K2
+    call against its plain version on the same operands (K1 rel_fro 2^-8,
+    one bf16 rounding; K2 pivots equal, allclose 1e-5)."""
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((4, 512, 512), torch.float32, v=128, refine=1)
+    A = _rand((4, 512, 512), 44, cuda) / np.sqrt(512) + 2 * torch.eye(512, device=cuda)
+    gemm, lu_block = hk.gemm, hk.lu_block
+    seen = {"gemm": 0, "lu_block": 0}
+
+    def held_gemm(a, b, c=None, alpha=1.0, beta=1.0, out=None):
+        want = hk.gemm_plain(a, b, c, alpha, beta)
+        got = gemm(a, b, c, alpha, beta, out=out)
+        assert a.dtype == torch.bfloat16
+        assert _rel(got.float(), want.float()) <= 2 ** -8
+        seen["gemm"] += 1
+        return got
+
+    def held_lu_block(a, alive):
+        got, want = lu_block(a, alive), hk.lu_block_plain(a, alive)
+        assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        assert torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+        seen["lu_block"] += 1
+        return got
+
+    hk.gemm, hk.lu_block = held_gemm, held_lu_block
+    try:
+        F = plan._tier_factor_once("bf16_ir", A)
+    finally:
+        hk.gemm, hk.lu_block = gemm, lu_block
+    assert seen["gemm"] == 4 * 3 and seen["lu_block"] > 0
+    assert F[0].dtype == torch.bfloat16
+    s = plan.factor(A, precision="bf16_ir")
+    b = _rand((4, 512), 45, cuda)
+    x = s.solve(b)
+    assert float((torch.einsum("bij,bj->bi", A, x) - b).abs().max()) < 1e-3
+
+
+def test_woodbury_and_tier_solves_do_not_wait_for_the_card(cuda):
+    """`solve` and `solve_checked` on the Woodbury and tier paths queue
+    their work without a host synchronization (torch's sync debug mode
+    raises on one); `update` reads the capacitance's condition on the host
+    by design, outside the checked region."""
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    n = 512
+    plan = serve.FactorPlan.create((8, n, n), torch.float32, v=256, refine=1)
+    A = _rand((8, n, n), 46, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    b = _rand((8, n), 47, cuda)
+    U, V = _rand((8, n, 4), 48, cuda) / n, _rand((8, n, 4), 49, cuda) / n
+    drifted = plan.factor(A).update(U, V)
+    tiered = plan.factor(A, precision="bf16_ir")
+    calls = [lambda: drifted.solve(b), lambda: drifted.solve_checked(b),
+             lambda: tiered.solve(b), lambda: tiered.solve_checked(b, precision="auto")] + [
+        (lambda t=t: tiered.solve(b, precision=t)) for t in ("f32", "f64")]
+    for call in calls:  # warm: derived tier factors, probe rows
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
