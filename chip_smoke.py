@@ -133,7 +133,36 @@ Phases, each of which must pass or the script exits non-zero:
      lane's checked program, 16 solve and 16 checked rounds against
      `torch.linalg.lstsq`, the verdict tripping on a corrupted R) and
      `lstsq` at (32768, 1024) f64 and f32 with bfloat16 factors and 2
-     sweeps; no kernel launches.
+     sweeps; no kernel launches;
+ 25. the serving engine's solve lane (`engine.ServeEngine`) at
+     bench_engine.py's shape: two sessions of a (32, 256, 256) f32 LU plan
+     and one of a (256, 256) plan, v=128, 128 requests of widths 1,1,2,4,
+     max_coalesce_width 32, max_batch_delay 2 ms, after prewarm of widths
+     1..32: every answer bitwise the direct `session.solve`, max |A x - b|
+     below 1e-4, no kernel build (`profiler.compile_count`) and no program
+     made (`trace_counts`) after prewarm, one K3 launch per batch, the
+     first call of K3 at each shape the engine gives it held against its
+     plain version; solves/s beside the sequential loop, the coalesced
+     mean and p50/p95/p99; then a guarded engine (`HealthPolicy()`) that
+     refuses a NaN rhs at submit and fails a request poisoned after
+     admission alone, the rest bitwise, its K3 rounds with the fused probe
+     held the same way;
+ 26. the factor lane: 32 cold starts of a (256, 256) f32 LU plan through
+     `submit_factor` after prewarm of factor batches 1..32, then of an SPD
+     plan: one K4 (K5) launch per coalesced batch, every session bitwise
+     `plan.factor`'s, no build after prewarm; sessions/s beside the
+     sequential `plan.factor` loop (K4 and K5 are held against their plain
+     versions at the full bucket (32, 256, 256) in phases 8 and 13, and a
+     slot's factors do not depend on the bucket);
+ 27. gang-resident stacks: 16 (256, 256) f32 sessions, stack_sessions
+     with max_stack 16, widths 1,1,1,2, 8 rounds of one request per
+     session, then under a guarded engine, then with 4 members drifted by
+     rank 4 under a guarded engine: one
+     K3 launch per stacked dispatch, every stack exclusion 0, max |A x - b|
+     below 1e-4, the first K3 round at each shape (plain, fused probe,
+     Woodbury base) held against its plain version, a slot's answer
+     bitwise invariant to the stack bucket and the pad slots and bitwise
+     the session's own solve; solves/s beside the per-session dispatch.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round.
@@ -1474,8 +1503,11 @@ def _held_to_plain(tag: str, kernels: tuple = ("gemm", "lu_block")):
     by relative Frobenius error (K1_TOL_F32 or K1_TOL_BF16), K2
     (`lu_block`) by equal pivots and alive rows in every slot and its output
     allclose K2_TOL, K3 (`btrsm_pair`, a solve round) by relative Frobenius
-    error K3_TOL (its probe stats K3_STATS_TOL). One line a kernel after the
-    block; fails the phase on any disagreement, or if a kernel of
+    error K3_TOL (its probe stats K3_STATS_TOL; a round with the fused
+    probe is keyed apart, its dtype marked "probe"; a round whose rhs is
+    not finite or all zero, an injected fault or a warm-up, is not
+    compared). One line a kernel
+    after the block; fails the phase on any disagreement, or if a kernel of
     `kernels` never ran. Yields the K3 records, {(T dtype, b shape): (x
     rel_fro, stats error, max_abs)}."""
     from conflux_tpu_torch.ops import hopper_kernels as hk
@@ -1506,8 +1538,9 @@ def _held_to_plain(tag: str, kernels: tuple = ("gemm", "lu_block")):
 
     def held_btrsm_pair(T, Dl, Du, b, *, perm=None, trans_back=False, wA=None):
         got = btrsm_pair(T, Dl, Du, b, perm=perm, trans_back=trans_back, wA=wA)
-        key = (str(T.dtype).removeprefix("torch."), tuple(b.shape))
-        if key not in k3:
+        key = (str(T.dtype).removeprefix("torch.") + ("" if wA is None else " probe"),
+               tuple(b.shape))
+        if key not in k3 and bool(torch.isfinite(b).all()) and bool(b.any()):
             want = hk.btrsm_pair_plain(T, Dl, Du, b, perm, trans_back, wA)
             x, xw = (got, want) if wA is None else (got[0], want[0])
             st = 0.0
@@ -2172,6 +2205,384 @@ def phase_qr_lane() -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# 25-27: the serving engine (`engine.ServeEngine`) on the card
+# --------------------------------------------------------------------------- #
+
+ENGINE_WIDTHS = (1, 1, 2, 4)   # bench_engine.py's request-width profile
+GANG_WIDTHS = (1, 1, 1, 2)     # bench_engine.py --gang's profile
+
+
+def _engine_trace(sessions, R: int, widths, seed: int) -> list:
+    """(session, host rhs) pairs: request i goes to session i mod len, at
+    width widths[i mod len(widths)] (width 1 as a vector)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(R):
+        s = sessions[i % len(sessions)]
+        w = widths[i % len(widths)]
+        lead = (s.plan.B, s.plan.N) if s.plan.batched else (s.plan.N,)
+        out.append((s, rng.standard_normal(lead if w == 1 else lead + (w,))
+                    .astype(np.float32)))
+    return out
+
+
+def _direct(trace) -> list:
+    """Each request's direct `session.solve` answer, on the host."""
+    return [s.solve(torch.from_numpy(b).cuda()).cpu().numpy() for s, b in trace]
+
+
+def _engine_leg(eng, trace, timeout: float = 600.0):
+    """Submit the whole trace, wait for every answer; (answers, seconds)."""
+    t0 = time.perf_counter()
+    futs = [eng.submit(s, b) for s, b in trace]
+    xs = [f.result(timeout) for f in futs]
+    return xs, time.perf_counter() - t0
+
+
+def _sequential_leg(trace) -> float:
+    """The same trace without the engine: one `session.solve` per request,
+    its answer copied to the host; seconds."""
+    t0 = time.perf_counter()
+    for s, b in trace:
+        s.solve(torch.from_numpy(b).cuda()).cpu()
+    return time.perf_counter() - t0
+
+
+def _max_resid(trace, xs) -> float:
+    """max |A x - b| over the trace, on the card in float32."""
+    worst = 0.0
+    for (s, b), x in zip(trace, xs):
+        A = s._A0
+        bx = torch.from_numpy(b).cuda()
+        xx = torch.from_numpy(x).cuda()
+        if bx.dim() == A.dim() - 1:
+            bx, xx = bx[..., None], xx[..., None]
+        worst = max(worst, float((A @ xx - bx).abs().max()))
+    return worst
+
+
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def _programs(*plans) -> int:
+    """Serve programs the plans have made (`FactorPlan.trace_counts`)."""
+    return sum(sum(p.trace_counts.values()) for p in plans)
+
+
+def phase_engine_solve() -> dict:
+    """(25) The engine's solve lane at bench_engine.py's shape: two
+    sessions of a (32, 256, 256) f32 LU plan and one of a (256, 256) plan,
+    v=128, 128 requests of widths 1,1,2,4, max_coalesce_width 32,
+    max_batch_delay 2 ms, after prewarm of widths 1..32. Every answer
+    bitwise the direct solve, max |A x - b| < SOLVE_TOL, no build after
+    prewarm (no kernel build, no program made), K3 once per batch and the
+    first K3 round at each (T dtype, b shape) the engine gives it held
+    against its plain version (12 requests go alone first, so each
+    session's widths 1, 2 and 4 reach K3 uncoalesced); timed on a second
+    engine; then a guarded engine in which a request
+    poisoned after admission fails alone, its probe rounds held the same
+    way."""
+    from conflux_tpu_torch import profiler, serve
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.ops import hopper_kernels
+    from conflux_tpu_torch.resilience import (FaultPlan, FaultSpec, HealthPolicy,
+                                              RhsNonFinite)
+
+    B, n, R = 32, 256, 128
+    serve.clear_plans()
+    bplan = serve.FactorPlan.create((B, n, n), torch.float32, v=128)
+    splan = serve.FactorPlan.create((n, n), torch.float32, v=128)
+    sessions = [bplan.factor(_systems(B, n, 250)), bplan.factor(_systems(B, n, 251)),
+                splan.factor(_systems(1, n, 252)[0])]
+    trace = _engine_trace(sessions, R, ENGINE_WIDTHS, 25)
+    direct = _direct(trace)
+    with ServeEngine(max_batch_delay=0.002, max_coalesce_width=32) as eng:
+        for s in sessions:
+            eng.prewarm(s, widths=(1, 2, 4, 8, 16, 32))
+        builds0, made0 = profiler.compile_count(), _programs(bplan, splan)
+        torch.cuda.synchronize()
+        hopper_kernels.reset_launches()
+        with _held_to_plain("engine 25", ("btrsm",)):
+            # one at a time first: each session's narrow widths (1, 2, 4)
+            # reach K3 alone, then the trace coalesces
+            solo = [eng.submit(s, b).result(600) for s, b in trace[:12]]
+            xs, _s = _engine_leg(eng, trace)
+            torch.cuda.synchronize()
+        counts = dict(hopper_kernels.LAUNCHES)
+        st = eng.stats()
+        builds = profiler.compile_count() - builds0
+        made = _programs(bplan, splan) - made0
+        bitwise = sum(int(x.shape == d.shape and bool((x == d).all()))
+                      for x, d in zip(xs, direct))
+        solo_ok = all(x.shape == d.shape and bool((x == d).all())
+                      for x, d in zip(solo, direct))
+        worst = _max_resid(trace, xs)
+        print(f"[engine 25] 12 requests alone, then {R}: {st['batches']} batches (coalesced mean "
+              f"{st['coalesced_mean']:.2f}), launches {counts}; bitwise the direct solve "
+              f"{bitwise}/{R}; max |A x - b| {worst:.3e} (bar {SOLVE_TOL:g}); after "
+              f"prewarm {builds} kernel builds, {made} programs made", flush=True)
+        check(bitwise == R and solo_ok,
+              f"engine answers bitwise the direct solve: {bitwise}/{R}, alone {solo_ok}")
+        check(worst < SOLVE_TOL, f"engine max |A x - b| {worst:.3e}")
+        check(builds == 0 and made == 0,
+              f"{builds} kernel builds, {made} programs made after prewarm")
+        check(counts["btrsm"] == st["batches"] and counts["batched_lu"] == 0,
+              f"K3 launches {counts['btrsm']} != batches {st['batches']}: {counts}")
+    # timed on an engine of its own: the held leg above waits for the card
+    with ServeEngine(max_batch_delay=0.002, max_coalesce_width=32) as eng:
+        for s in sessions:
+            eng.prewarm(s, widths=(1, 2, 4, 8, 16, 32))
+        eng_s = [_engine_leg(eng, trace)[1] for _ in range(5)]
+        seq_s = [_sequential_leg(trace) for _ in range(5)]
+        torch.cuda.synchronize()
+        st = eng.stats()
+    print(f"[engine 25] {R / _median(eng_s):.1f} solves/s through the engine vs "
+          f"{R / _median(seq_s):.1f} sequential session.solve (+ copy to the host), "
+          f"median of 5 legs each; coalesced mean {st['coalesced_mean']:.2f}; latency "
+          f"p50 {st['latency_p50_ms']:.3f} ms, p95 {st['latency_p95_ms']:.3f} ms, p99 "
+          f"{st['latency_p99_ms']:.3f} ms (host clock, {st['completed']} requests)",
+          flush=True)
+    # the guarded engine: a NaN rhs is refused at submit; a request poisoned
+    # after admission (the 'staging' fault site) fails alone
+    faults = FaultPlan([FaultSpec("staging", "nan", count=1)])
+    with _held_to_plain("engine 25 guarded", ("btrsm",)), \
+            ServeEngine(max_batch_delay=0.002, health=HealthPolicy(),
+                        fault_plan=faults) as eng:
+        for s in sessions:
+            eng.prewarm(s, widths=(1, 2, 4, 8, 16, 32))
+        bad = trace[2][1].copy()
+        bad[7] = float("nan")
+        try:
+            eng.submit(sessions[2], bad)
+            refused = False
+        except RhsNonFinite:
+            refused = True
+        gtrace = trace[:32]
+        futs = [eng.submit(s, b) for s, b in gtrace]
+        failed, good = [], 0
+        for i, f in enumerate(futs):
+            try:
+                x = f.result(600)
+            except RhsNonFinite:
+                failed.append(i)
+                continue
+            good += int(bool((x == direct[i]).all()))
+    print(f"[engine 25] guarded: NaN rhs refused at submit {refused}; after-admission "
+          f"poison failed alone {failed} (injected {dict(faults.injected)}), the other "
+          f"{good}/{len(gtrace) - len(failed)} bitwise the direct solve", flush=True)
+    check(refused, "a NaN rhs was admitted by the guarded engine")
+    check(len(failed) == 1 and good == len(gtrace) - 1,
+          f"guarded engine: failed {failed}, {good} good")
+    del sessions
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_engine_factor() -> dict:
+    """(26) The factor lane at bench_engine.py --factor's scale: 32 cold
+    starts of a (256, 256) f32 LU plan through `submit_factor` after
+    prewarm of factor batches 1..32, then the same for an SPD plan; one K4
+    (K5) launch per coalesced batch, every session bitwise `plan.factor`'s,
+    no kernel build and no program made after prewarm, sessions/s beside
+    the sequential `plan.factor` loop. K4 and K5 are held against their
+    plain versions at the lane's full bucket, (32, 256, 256), in phases 8
+    and 13; a slot's factors do not depend on the bucket (so every
+    session here is bitwise its `plan.factor` twin, a bucket-1 launch)."""
+    from conflux_tpu_torch import profiler, serve
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.ops import hopper_kernels
+
+    n, F = 256, 32
+    total: dict = {}
+    for kind, gen, kernel in (("lu", _systems, "batched_lu"),
+                              ("chol", _spd_systems, "batched_chol")):
+        serve.clear_plans()
+        plan = serve.FactorPlan.create((n, n), torch.float32, v=128, kind=kind)
+        Ah = gen(F, n, 26).cpu().numpy()
+        with ServeEngine(max_batch_delay=0.002, max_factor_batch=32) as eng:
+            eng.prewarm(plan, factor_batches=(1, 2, 4, 8, 16, 32))
+            builds0, made0 = profiler.compile_count(), _programs(plan)
+            torch.cuda.synchronize()
+            hopper_kernels.reset_launches()
+            t0 = time.perf_counter()
+            futs = [eng.submit_factor(plan, Ah[i]) for i in range(F)]
+            sessions = [f.result(600) for f in futs]
+            first_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = dict(hopper_kernels.LAUNCHES)
+            st = eng.stats()
+            builds = profiler.compile_count() - builds0
+            made = _programs(plan) - made0
+            refs = [plan.factor(Ah[i]) for i in range(F)]
+            bitwise = sum(int(all(torch.equal(a, b) for a, b in zip(s.factors, r.factors)))
+                          for s, r in zip(sessions, refs))
+            print(f"[engine 26] {kind}: {F} cold starts in {st['factor_batches']} batches "
+                  f"(coalesced mean {st['factor_coalesced_mean']:.1f}), launches {counts}; "
+                  f"sessions bitwise plan.factor's {bitwise}/{F}; after prewarm {builds} "
+                  f"kernel builds, {made} programs made", flush=True)
+            check(counts[kernel] == st["factor_batches"] and counts["btrsm"] == 0,
+                  f"{kind} factor lane launched {kernel} {counts[kernel]} times for "
+                  f"{st['factor_batches']} batches: {counts}")
+            check(bitwise == F, f"{kind} engine sessions bitwise plan.factor: {bitwise}/{F}")
+            check(builds == 0 and made == 0,
+                  f"{kind}: {builds} kernel builds, {made} programs made after prewarm")
+            eng_s = [first_s]
+            for _ in range(4):
+                t0 = time.perf_counter()
+                for f in [eng.submit_factor(plan, Ah[i]) for i in range(F)]:
+                    f.result(600)
+                eng_s.append(time.perf_counter() - t0)
+        seq_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for i in range(F):
+                plan.factor(Ah[i])
+            torch.cuda.synchronize()
+            seq_s.append(time.perf_counter() - t0)
+        print(f"[engine 26] {kind}: {F / _median(eng_s):.1f} sessions/s through "
+              f"submit_factor vs {F / _median(seq_s):.1f} sequential plan.factor (from "
+              "host arrays; median of 5 legs each)", flush=True)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del sessions, refs
+    torch.cuda.empty_cache()
+    return total
+
+
+def _gang_rounds(eng, fleet, bs, rounds: int):
+    """Closed-loop rounds: each round one request per session (one
+    `submit_many` frame), then wait; (answers of the last round,
+    seconds)."""
+    t0 = time.perf_counter()
+    xs = None
+    for _ in range(rounds):
+        futs = eng.submit_many([(s, b, None) for s, b in zip(fleet, bs)])
+        xs = [f.result(600) for f in futs]
+    return xs, time.perf_counter() - t0
+
+
+def phase_engine_gang() -> dict:
+    """(27) Gang-resident stacks at bench_engine.py --gang's shape: 16
+    (256, 256) f32 sessions, v=128, stack_sessions with max_stack 16,
+    widths 1,1,1,2, 8 rounds of one request per session; then 4 members
+    drifted by rank 4 under a guarded engine. One K3 launch per stacked
+    dispatch, every stack exclusion 0, answers within the bars, no kernel
+    build and no program made after prewarm, the first K3 round at each
+    shape of every engine (the plain stacked round; the fused-probe round
+    of a guarded engine on the clean fleet; the Woodbury base round of the
+    drifted one) held against its plain version, a slot's answer bitwise invariant to the stack bucket
+    and the pad slots and bitwise the session's own solve; solves/s beside
+    the per-session dispatch."""
+    import numpy as np
+
+    from conflux_tpu_torch import profiler, serve
+    from conflux_tpu_torch.batched import stack_trees
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.ops import hopper_kernels
+    from conflux_tpu_torch.resilience import HealthPolicy
+
+    n, S, rounds = 256, 16, 8
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=128)
+    A = _systems(S, n, 27)
+    fleet = [plan.factor(A[i]) for i in range(S)]
+    rng = np.random.default_rng(27)
+    bs = [rng.standard_normal((n,) if GANG_WIDTHS[i % 4] == 1 else (n, 2))
+          .astype(np.float32) for i in range(S)]
+    total: dict = {}
+
+    def run(tag, eng, Amat):
+        with _held_to_plain(f"engine 27 {tag}", ("btrsm",)):
+            eng.prewarm(fleet[0], widths=(1, 2), stacks=(S,), update_ranks=(4,))
+            builds0, made0 = profiler.compile_count(), _programs(plan)
+            torch.cuda.synchronize()
+            hopper_kernels.reset_launches()
+            xs, _s = _gang_rounds(eng, fleet, bs, rounds)
+            torch.cuda.synchronize()
+        counts = dict(hopper_kernels.LAUNCHES)
+        st = eng.stats()
+        builds = profiler.compile_count() - builds0
+        made = _programs(plan) - made0
+        worst = 0.0
+        for i, x in enumerate(xs):
+            xx = torch.from_numpy(x).cuda().reshape(n, -1)
+            bb = torch.from_numpy(bs[i]).cuda().reshape(n, -1)
+            worst = max(worst, float((Amat[i] @ xx - bb).abs().max()))
+        excl = st["stack_exclusions"]
+        secs = _gang_rounds(eng, fleet, bs, rounds)[1]  # timed: the held leg waits
+        print(f"[engine 27] {tag}: {st['gang_batches']} stacked dispatches of "
+              f"{st['batches']} (gang mean {st['gang_coalesced_mean']:.1f} requests), "
+              f"launches {counts}; exclusions {excl}; max |A x - b| {worst:.3e}; after "
+              f"prewarm {builds} kernel builds, {made} programs made; "
+              f"{S * rounds / secs:.1f} solves/s (the next leg)", flush=True)
+        check(st["gang_batches"] == rounds == st["batches"],
+              f"{tag}: {st['gang_batches']} stacked of {st['batches']} batches")
+        check(counts["btrsm"] == st["gang_batches"], f"{tag}: K3 {counts['btrsm']} "
+              f"launches for {st['gang_batches']} stacked dispatches")
+        check(all(v == 0 for v in excl.values()), f"{tag}: exclusions {excl}")
+        check(worst < SOLVE_TOL, f"{tag}: max |A x - b| {worst:.3e}")
+        check(builds == 0 and made == 0,
+              f"{tag}: {builds} kernel builds, {made} programs made after prewarm")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return secs
+
+    with ServeEngine(max_batch_delay=0.002, stack_sessions=True, max_stack=S) as eng:
+        gang_s = [run("plain", eng, A)]
+        gang_s += [_gang_rounds(eng, fleet, bs, rounds)[1] for _ in range(4)]
+        g = eng.lanes[0]._gangs[id(plan)]
+        with g._lock:
+            F16 = g._F
+            si = g.slot_of(fleet[0])
+        # bucket and pad invariance: slot si of the resident 16-stack
+        # against a 2-stack with another session in the pad slot; and the
+        # session's own solve
+        b1 = torch.from_numpy(bs[0].reshape(n, -1)).cuda()
+        big = torch.zeros((S, n, b1.shape[-1]), device="cuda")
+        big[si] = b1
+        x16 = plan._stacked_solve_fn(S, b1.shape[-1])(F16, None, big)[si]
+        F2 = stack_trees([fleet[0].factors, fleet[5].factors])
+        two = torch.randn((2, n, b1.shape[-1]), device="cuda")
+        two[0] = b1
+        x2 = plan._stacked_solve_fn(2, b1.shape[-1])(F2, None, two)[0]
+        solo = fleet[0].solve(b1)
+        inv, own = torch.equal(x16, x2), torch.equal(x16, solo)
+        print(f"[engine 27] slot bitwise across buckets 16 and 2 with other pad contents "
+              f"{inv}; stacked answer bitwise the session's own solve {own}", flush=True)
+        check(inv, "gang slot answer depends on the stack bucket or the pad slots")
+        check(own, "gang slot answer is not bitwise the session's own solve")
+    with ServeEngine(max_batch_delay=0.002) as eng:
+        eng.prewarm(fleet[0], widths=(1, 2))
+        solo_s = [_gang_rounds(eng, fleet, bs, rounds)[1] for _ in range(5)]
+    print(f"[engine 27] {S * rounds / _median(gang_s):.1f} solves/s stacked vs "
+          f"{S * rounds / _median(solo_s):.1f} per-session dispatch (median of 5 legs of "
+          f"{rounds} rounds)", flush=True)
+    # the checked gang on the clean fleet: each slot's verdict from the
+    # same K3 launch (the fused probe)
+    with ServeEngine(max_batch_delay=0.002, stack_sessions=True, max_stack=S,
+                     health=HealthPolicy()) as eng:
+        run("checked", eng, A)
+    # drift: rank 4 on four members, under a guarded (checked) gang
+    A1 = A.clone()
+    for i in (1, 4, 9, 14):
+        U = torch.from_numpy(0.01 * rng.standard_normal((n, 4))).cuda().float()
+        V = torch.from_numpy(0.01 * rng.standard_normal((n, 4))).cuda().float()
+        fleet[i].update(U, V)
+        A1[i] = A[i] + U @ V.mT
+    with ServeEngine(max_batch_delay=0.002, stack_sessions=True, max_stack=S,
+                     health=HealthPolicy()) as eng:
+        run("drift rank 4, checked", eng, A1)
+        check(eng.lanes[0]._gangs[id(plan)].stats()["rank_bucket"] == 4,
+              "the gang's rank bucket is not 4")
+    del fleet
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -2224,12 +2635,17 @@ def main() -> int:
     cl = phase_ladder()
     phase_qr()
     phase_qr_lane()
+    c25 = phase_engine_solve()
+    c26 = phase_engine_factor()
+    c27 = phase_engine_gang()
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"]
     k2["launches"] += cf["lu_block"] + cl["lu_block"]
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]
-                      + cf["btrsm"] + cw["btrsm"] + cl["btrsm"])
-    k4["launches"] = ca["batched_lu"] + cb["batched_lu"] + cw["batched_lu"] + cl["batched_lu"]
-    k5["launches"] = cc["batched_chol"] + cd["batched_chol"]
+                      + cf["btrsm"] + cw["btrsm"] + cl["btrsm"] + c25["btrsm"]
+                      + c26["btrsm"] + c27["btrsm"])
+    k4["launches"] = (ca["batched_lu"] + cb["batched_lu"] + cw["batched_lu"]
+                      + cl["batched_lu"] + c26["batched_lu"])
+    k5["launches"] = cc["batched_chol"] + cd["batched_chol"] + c26["batched_chol"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3, k4, k5)]}))

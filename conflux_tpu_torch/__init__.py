@@ -23,7 +23,11 @@ batched entries (`batched.py`); the single-device solver API (`solve`,
 batched factor kernels or the batched blocked factor and the blocked
 triangular-solve kernel, with Woodbury drift updates (`update.py`), the
 precision ladder and the resilience layer's escalation rungs
-(`resilience.py`, the port's own copy).
+(`resilience.py`, the port's own copy); the plan codec (`plan_spec`,
+`plan_from_spec`); and the serving engine on one card (`engine.py`:
+`ServeEngine` with its solve and factor lanes, gang-resident stacks
+`gang.SessionGang`, QoS admission `qos.py`, prewarm, and the profiler's
+serving counters).
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_grid
@@ -77,6 +81,17 @@ def __getattr__(name):
         "resolve_device": ("conflux_tpu_torch.device", "resolve_device"),
         "FactorPlan": ("conflux_tpu_torch.serve", "FactorPlan"),
         "SolveSession": ("conflux_tpu_torch.serve", "SolveSession"),
+        "plan_spec": ("conflux_tpu_torch.serve", "plan_spec"),
+        "plan_from_spec": ("conflux_tpu_torch.serve", "plan_from_spec"),
+        "ServeEngine": ("conflux_tpu_torch.engine", "ServeEngine"),
+        "EngineSaturated": ("conflux_tpu_torch.engine", "EngineSaturated"),
+        "EngineClosed": ("conflux_tpu_torch.engine", "EngineClosed"),
+        "place_session": ("conflux_tpu_torch.engine", "place_session"),
+        "rendezvous_ranked": ("conflux_tpu_torch.engine", "rendezvous_ranked"),
+        "SessionGang": ("conflux_tpu_torch.gang", "SessionGang"),
+        "StatsWindow": ("conflux_tpu_torch.profiler", "StatsWindow"),
+        "QosClass": ("conflux_tpu_torch.qos", "QosClass"),
+        "TenantThrottled": ("conflux_tpu_torch.resilience", "TenantThrottled"),
     }
     if name in _lazy:
         import importlib
@@ -133,4 +148,15 @@ __all__ = [
     "resolve_device",
     "FactorPlan",
     "SolveSession",
+    "plan_spec",
+    "plan_from_spec",
+    "ServeEngine",
+    "EngineSaturated",
+    "EngineClosed",
+    "place_session",
+    "rendezvous_ranked",
+    "SessionGang",
+    "StatsWindow",
+    "QosClass",
+    "TenantThrottled",
 ]

@@ -2,7 +2,12 @@
 `conflux_tpu/batched.py`).
 
 The pytree helpers of the serve layer over tuples of tensors (a factor
-pytree in the port is a tuple, with None for absent leaves), the batched
+pytree in the port is a tuple, with None for absent leaves; dicts and
+lists nest): stacking and slicing (`stack_trees`, `unstack_tree`), the
+gang's resident stacks (`write_slot_tree`, an in-place row write into a
+stack the gang owns, and `grow_stack_tree`), device moves that keep
+aliased leaves aliased (`put_tree`) and the host-stacked transfer
+(`stack_host_trees`); the batched
 factors `lu_factor_batched` and `cholesky_factor_batched`, the batched
 substitutions `lu_solve_batched` and `cholesky_solve_batched`, and the
 one-shot pipeline `solve_batched`. A factor on backend "kernel" with a
@@ -17,6 +22,7 @@ Woodbury correction, `update`). Mesh sharding is not ported yet.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from conflux_tpu_torch.ops import blas
@@ -26,6 +32,8 @@ def _tree_map(fn, *trees):
     t0 = trees[0]
     if t0 is None:
         return None
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (tuple, list)):
         return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
     return fn(*trees)
@@ -42,6 +50,82 @@ def unstack_tree(tree, B: int):
     the inverse of :func:`stack_trees`, views with no arithmetic, so slot i
     carries exactly the bits of the stack."""
     return [_tree_map(lambda l, i=i: l[i], tree) for i in range(B)]
+
+
+def put_tree(tree, device):
+    """Move a tree's tensors to `device`, keeping aliasing: leaves that are
+    one tensor on the way in are one tensor on the way out, so a session
+    whose `_A` is its `_A0` still holds one base (and its deduplicated
+    `nbytes` counts it once). `device=None` is the identity. A copy moves
+    bytes only: every leaf arrives with its bits."""
+    if device is None:
+        return tree
+    device = torch.device(device)
+    seen: dict[int, torch.Tensor] = {}
+
+    def put(leaf):
+        got = seen.get(id(leaf))
+        if got is None:
+            got = seen[id(leaf)] = leaf.to(device)
+        return got
+
+    return _tree_map(put, tree)
+
+
+def stack_host_trees(trees, device):
+    """Stack identical-structure trees of host (numpy) leaves along a new
+    leading axis in numpy, then move each stacked leaf to `device` once:
+    one host-to-device copy per leaf position instead of one per tree and
+    leaf. Bitwise the per-leaf transfer (a memcpy and a copy never touch
+    the bits). None leaves must agree (they stay None)."""
+    device = torch.device(device)
+
+    def one(*xs):
+        return torch.from_numpy(np.stack([np.asarray(x) for x in xs])).to(device)
+
+    return _tree_map(one, *trees)
+
+
+def write_slot_tree(stack, sub, i: int, donate: bool = True):
+    """Write the per-slot tree `sub` into slot `i` of the stacked tree
+    `stack`, leaf by leaf, and return the stack. With `donate` (the
+    default) the write lands in place, one row copy per leaf: the gang's
+    write-back, licensed because the gang owns its stacks (they come out
+    of its own builds and writes, never out of a caller's hands), the role
+    of XLA's buffer donation in the JAX package. `donate=False` writes into
+    a copy and leaves `stack` as it was. Bitwise: the slot reads back
+    exactly the bits of `sub` (:func:`unstack_tree`). On the card the write
+    is ordered on the caller's current stream, after the work already
+    queued there that reads the stack."""
+    def one(S, x):
+        if not donate:
+            S = S.clone()
+        S[i].copy_(x)
+        return S
+
+    return _tree_map(one, stack, sub)
+
+
+def grow_stack_tree(stack, cap: int, fill: str = "first"):
+    """Grow a stacked tree's leading axis to `cap` slots (the tree as it is
+    when already that large). `fill='first'` pads with copies of slot 0,
+    the gang's pad rule; `fill='zero'` with zeros, the drift state's pad
+    (zero U and V columns leave the Woodbury correction unchanged). Slots
+    0..n-1 keep their bits (a concatenation moves, never computes)."""
+    if fill not in ("first", "zero"):
+        raise ValueError(f"unknown fill {fill!r} (first|zero)")
+
+    def one(S):
+        n = S.shape[0]
+        if n >= cap:
+            return S
+        if fill == "zero":
+            pad = S.new_zeros((cap - n,) + tuple(S.shape[1:]))
+        else:
+            pad = S[:1].expand((cap - n,) + tuple(S.shape[1:]))
+        return torch.cat([S, pad], 0)
+
+    return _tree_map(one, stack)
 
 
 def _check_batch(A: torch.Tensor, v: int, mesh) -> None:

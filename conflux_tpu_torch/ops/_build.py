@@ -81,6 +81,9 @@ def _compile(out_dir: str, sources: list[str]) -> str:
     except OSError:
         shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
+    from conflux_tpu_torch import profiler
+
+    profiler.note_build()
     return os.path.join(out_dir, _LIB_NAME)
 
 

@@ -34,12 +34,15 @@ Beside each kernel sits its plain PyTorch version (`gemm_plain`,
 the same function written with tensor ops. The dispatch
 rule: a CUDA tensor goes to the kernel (or the call raises), a CPU tensor
 goes to the plain version; nothing falls back. `LAUNCHES` counts each
-kernel's launches, and only launches.
+kernel's launches, and only launches, exactly under concurrent launchers
+(the serving engine's dispatcher and drain threads both launch): every
+bump holds `_LAUNCH_LOCK`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -50,14 +53,25 @@ _PANEL_W = 128  # column-block width of lu_block (one TPU lane tile)
 # "gemm_tma" the TMA instance's share
 LAUNCHES = {"gemm": 0, "gemm_tma": 0, "lu_block": 0, "btrsm": 0, "batched_lu": 0,
             "batched_chol": 0}
+# a dict item's += is a read, an add and a write: two threads launching at
+# once would lose a count without the lock
+_LAUNCH_LOCK = threading.Lock()
 
 _GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32_F64 = {torch.float32: 0, torch.float64: 1}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    """Add one to kernel `name`'s launch count; called right after the
+    launch returned, and nowhere else."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _row_major_ld(x: torch.Tensor, name: str) -> int:
@@ -135,9 +149,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
         float(alpha), float(beta), _stream(a))
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed: cudaError {rc}")
-    LAUNCHES["gemm"] += 1
+    _count_launch("gemm")
     if tma:
-        LAUNCHES["gemm_tma"] += 1
+        _count_launch("gemm_tma")
     return out
 
 
@@ -271,7 +285,7 @@ def lu_block(a: torch.Tensor, alive: torch.Tensor):
                 _stream(a))
             if rc != 0:
                 raise RuntimeError(f"lu_block kernel launch failed: cudaError {rc}")
-            LAUNCHES["lu_block"] += 1
+            _count_launch("lu_block")
     if not batched:
         return out[0], alive_out[0], piv[0]
     return out, alive_out, piv
@@ -395,7 +409,7 @@ def _btrsm_launch(mode: str, T, d1, d2, b, perm=None, trans=False, wA=None):
         x.data_ptr(), sp, None if sp is None else sp + B * stats.element_size(), _stream(T))
     if rc != 0:
         raise RuntimeError(f"btrsm kernel launch failed: cudaError {rc} (n={n} {acc}, k={k})")
-    LAUNCHES["btrsm"] += 1
+    _count_launch("btrsm")
     return x, stats
 
 
@@ -600,7 +614,7 @@ def batched_lu(A: torch.Tensor, w: torch.Tensor | None = None):
         None if wa is None else wa.data_ptr(), _stream(A))
     if rc != 0:
         raise RuntimeError(f"batched_lu kernel launch failed: cudaError {rc}")
-    LAUNCHES["batched_lu"] += 1
+    _count_launch("batched_lu")
     LU, perm = _lapack_order(out, piv)
     return LU, perm, wa
 
@@ -662,5 +676,5 @@ def batched_chol(A: torch.Tensor, w: torch.Tensor | None = None):
         _stream(A))
     if rc != 0:
         raise RuntimeError(f"batched_chol kernel launch failed: cudaError {rc}")
-    LAUNCHES["batched_chol"] += 1
+    _count_launch("batched_chol")
     return out, wa

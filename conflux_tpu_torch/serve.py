@@ -68,15 +68,25 @@ and K2 have no float64 instance, so a kernel-route plan's 'f64' tier
 factors on the JAX package's default library route (backend "xla",
 panel algo "auto") and solves through K3's float64 instance.
 
+Gang stacks: the serving engine (`engine.ServeEngine(stack_sessions=True)`)
+answers requests against different sessions of one single-system plan in
+one dispatch off a gang-resident stack of their factors (`gang`). The
+stacked programs (`_stacked_solve_fn`, its checked form and the stacked
+Woodbury forms) run a whole stack's round in one K3 launch on a blocked
+plan; a slot's answer is bitwise invariant to the stack bucket and to
+what the pad slots hold.
+
 Ported: LU, Cholesky and QR plans (single and batched; float32, float64,
 bfloat16 storage and any factor dtype; backends "kernel" and "xla";
 substitution blocked|trsm|inv, `refine` sweeps), checked solves, the
 factor lane's coalesced programs, Woodbury update/refactor with the drift
-policy, refine_checked (the escalation ladder's rung 2) and the precision
-tiers. Not ported yet, each raising NotImplementedError: mesh plans,
-matmul precision other than 'highest', gang stacks (the stacked Woodbury
-programs), tier residency and bucket retirement, device moves, the plan
-codec and the engine.
+policy, refine_checked (the escalation ladder's rung 2), the precision
+tiers, the stacked (gang) programs, the bucket lifecycle
+(`bucket_ready`, `release_buckets` and the per-device warmth registry,
+one set of warm buckets),
+`SolveSession.to_device` and the plan codec (`plan_spec`,
+`plan_from_spec`). Not ported yet, each raising NotImplementedError: mesh
+plans and matmul precision other than 'highest'.
 """
 
 from __future__ import annotations
@@ -90,8 +100,8 @@ import numpy as np
 import torch
 
 from conflux_tpu_torch import profiler, resilience
-from conflux_tpu_torch.batched import cholesky_solve_batched, unstack_tree
-from conflux_tpu_torch.device import resolve_device
+from conflux_tpu_torch.batched import cholesky_solve_batched, put_tree, unstack_tree
+from conflux_tpu_torch.device import hand_to_default, resolve_device, same_device
 from conflux_tpu_torch.lu.single import from_numpy
 from conflux_tpu_torch.ops import blas, hopper_kernels
 from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
@@ -101,7 +111,9 @@ from conflux_tpu_torch.update import (
     apply_update,
     capacitance,
     health_spot_check,
+    health_spot_check_slots,
     health_verdict_from_stats,
+    health_verdict_from_stats_slots,
     probe_lstsq,
     probe_row,
     probe_vector,
@@ -129,6 +141,12 @@ class PlanKey:
     backend: str          # kernel backend
     panel_algo: str       # LU panel election algo
     mesh_key: Any         # batch-mesh identity (None: one device)
+
+    @property
+    def spd(self) -> bool:
+        """The legacy boolean: True when the plan factors by Cholesky (the
+        codec and the cache key speak `kind` only)."""
+        return self.kind == "chol"
 
 
 PLAN_KINDS = ("lu", "chol", "qr")
@@ -161,45 +179,136 @@ def next_precision_tier(tier: str):
 _PLANS: dict[PlanKey, "FactorPlan"] = {}
 _PLANS_LOCK = threading.Lock()
 
+_MESH_SLICE = ("mesh plans (the serving mesh lane, ROADMAP Slice 7 item 14, "
+               "waits for torch.distributed)")
+
+
+def _encode_precision(p):
+    """JSON form of a plan key's matmul precision. The port runs IEEE
+    float32 only, 'highest', which encodes as the string the JAX package
+    writes for a string precision; anything else is refused here, while
+    the record is still writable."""
+    if p is None or isinstance(p, str):
+        return p
+    raise ValueError(f"plan precision {p!r} (type {type(p).__name__}) is not "
+                     "codec-representable: use None or a string")
+
+
+def _decode_precision(p):
+    """Inverse of :func:`_encode_precision`, reading the JAX package's
+    records too: its tagged enum pair ['precision', 'HIGHEST'] and the
+    strings None and 'highest' all name the port's 'highest'. Another
+    precision raises NotImplementedError (the port has no matmul precision
+    but IEEE float32); a malformed payload raises ValueError naming it."""
+    if isinstance(p, list):
+        if len(p) == 2 and p[0] == "precision" and isinstance(p[1], str):
+            p = p[1].lower()
+        else:
+            raise ValueError(f"malformed precision payload {p!r}: expected "
+                             "['precision', <enum name>]")
+    elif p is not None and not isinstance(p, str):
+        raise ValueError(f"malformed precision payload {p!r} (type "
+                         f"{type(p).__name__}): expected None, a string, or a "
+                         "tagged enum pair")
+    if p is None or p == "highest":
+        return "highest"
+    raise _not_ported(f"matmul precision {p!r} (the port runs IEEE float32, "
+                      "'highest')")
+
+
+def plan_spec(plan: "FactorPlan") -> dict:
+    """JSON-serializable identity of a plan: the codec that a checkpoint
+    or another process rebuilds the exact plan from
+    (:func:`plan_from_spec`). The dict has the JAX package's keys, with the
+    port's dtype names, backend names and panel algos."""
+    k = plan.key
+    if k.mesh_key is not None:
+        raise _not_ported(_MESH_SLICE)
+    return {"shape": list(k.shape), "dtype": k.dtype,
+            "factor_dtype": k.factor_dtype, "v": k.v, "refine": k.refine,
+            "kind": k.kind, "substitution": k.substitution,
+            "precision": _encode_precision(k.precision),
+            "backend": k.backend, "panel_algo": k.panel_algo}
+
+
+def plan_from_spec(d: dict) -> "FactorPlan":
+    """Rebuild the exact :class:`PlanKey` a :func:`plan_spec` dict names
+    (the knobs it was built under included, not re-read from the process's
+    registry) and get-or-build its plan: same key, same programs, same
+    bits. Records written before plans had a `kind` spell it as the
+    boolean 'spd' and decode here. A "mesh" sub-dict raises
+    NotImplementedError naming the mesh slice."""
+    if d.get("mesh") is not None:
+        raise _not_ported(_MESH_SLICE)
+    if "kind" in d:
+        kind = str(d["kind"])
+        if kind not in PLAN_KINDS:
+            raise ValueError(f"plan spec names unknown kind {kind!r}: expected one "
+                             f"of {PLAN_KINDS}")
+    else:
+        kind = "chol" if bool(d["spd"]) else "lu"
+    backend = blas.check_backend(d["backend"])
+    key = PlanKey(
+        shape=tuple(int(s) for s in d["shape"]), dtype=str(d["dtype"]),
+        factor_dtype=str(d["factor_dtype"]), v=int(d["v"]),
+        refine=int(d["refine"]), kind=kind, substitution=str(d["substitution"]),
+        precision=_decode_precision(d["precision"]), backend=backend,
+        panel_algo=str(d["panel_algo"]), mesh_key=None)
+    for name in (key.dtype, key.factor_dtype):
+        if not isinstance(getattr(torch, name, None), torch.dtype):
+            raise ValueError(f"plan spec names unknown dtype {name!r}")
+    return FactorPlan.from_key(key)
+
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet")
 
 
-def _unported(what: str):
-    """A method of the JAX surface that this slice does not port: it
-    raises NotImplementedError naming `what`."""
-    def method(self, *args, **kwargs):
-        raise _not_ported(what)
-
-    method.__doc__ = f"Not ported yet: {what}."
-    return method
-
-
 class _CompileOnce:
     """Serialize the FIRST call of a built program; later calls bypass the
     lock. Two concurrent first callers of a cold bucket run its set-up
-    once."""
+    once; `on_first` runs once, after the first call completed."""
 
-    __slots__ = ("fn", "_lock", "_warm")
+    __slots__ = ("fn", "_lock", "_warm", "_on_first")
 
-    def __init__(self, fn):
+    def __init__(self, fn, on_first=None):
         self.fn = fn
         self._lock = threading.Lock()
         self._warm = False
+        self._on_first = on_first
 
     def __call__(self, *args):
         if self._warm:
             return self.fn(*args)
         with self._lock:
             out = self.fn(*args)
-            self._warm = True
+            if not self._warm:
+                self._warm = True
+                if self._on_first is not None:
+                    self._on_first()
         return out
 
     @property
     def warm(self) -> bool:
         """True once the first call completed."""
         return self._warm
+
+
+# program cache keys of the bucket lifecycle -> their family: a key's
+# tail is the bucket, whose last entry is an RHS width (a batch size for
+# the factor families); a bare int key is the plain solve program's width
+_FAMILIES = {"health": "solve_health", "refine": "refine", "factor": "factor",
+             "factor_health": "factor_health", "tier": "tier",
+             "tier_health": "tier_health", "tier_factor": "tier_factor"}
+
+
+def _bucket_family(key) -> tuple | None:
+    """(family, bucket) of a program cache key; None for the probe and the
+    Woodbury programs, which no bucket retires."""
+    if isinstance(key, int):
+        return "solve", (key,)
+    fam = _FAMILIES.get(key[0])
+    return None if fam is None else (fam, tuple(key[1:]))
 
 
 def clear_plans() -> None:
@@ -298,16 +407,25 @@ class FactorPlan:
         # as in the JAX package
         self._trsm_cache: dict[tuple, Any] = {}
         self._probe_w_dev: dict[torch.device, torch.Tensor] = {}
+        # the bucket lifecycle's one registry: (family, bucket, device key)
+        # of every completed warm-up. An engine's warm-up dispatch records
+        # its lane's device (`mark_device_warm`); a program's first
+        # completed call, whoever made it, records device key None
+        self._warm: set = set()  # guarded-by: _compile_lock
 
     def _memo(self, cache: dict, key, build):
         """Double-checked get-or-build of a program cache entry, wrapped in
-        :class:`_CompileOnce`."""
+        :class:`_CompileOnce`. Nothing is compiled here: a program is a
+        Python callable over the kernels, which build once per process
+        (`ops/_build.py`, `profiler.compile_count`)."""
         fn = cache.get(key)
         if fn is None:
             with self._compile_lock:
                 fn = cache.get(key)
                 if fn is None:
-                    fn = _CompileOnce(build())
+                    fam = _bucket_family(key)
+                    fn = _CompileOnce(build(), None if fam is None else functools.partial(
+                        self.mark_device_warm, fam[0], fam[1], None))
                     cache[key] = fn
         return fn
 
@@ -366,9 +484,124 @@ class FactorPlan:
                 _PLANS[key] = plan
         return plan
 
-    bucket_ready = _unported("bucket_ready (bucket lifecycle)")
-    release_buckets = _unported("release_buckets (bucket lifecycle)")
-    spec = _unported("the plan codec (plan_spec / plan_from_spec)")
+    @classmethod
+    def from_key(cls, key: PlanKey) -> "FactorPlan":
+        """Get-or-build the plan of an exact :class:`PlanKey`: the restore
+        path rebuilds the key as it was written rather than re-deriving it
+        from the process's registry, so it lands on the same programs."""
+        if not isinstance(key, PlanKey):
+            raise TypeError(f"from_key takes a PlanKey, got {type(key).__name__}")
+        with _PLANS_LOCK:
+            plan = _PLANS.get(key)
+            if plan is None:
+                plan = cls(key)
+                _PLANS[key] = plan
+        return plan
+
+    def spec(self) -> dict:
+        """This plan's :func:`plan_spec` dict."""
+        return plan_spec(self)
+
+    @classmethod
+    def from_spec(cls, d: dict) -> "FactorPlan":
+        """Get-or-build the plan a :func:`plan_spec` dict names."""
+        return plan_from_spec(d)
+
+    # ------------------------------------------------------------------ #
+    # bucket lifecycle
+    # ------------------------------------------------------------------ #
+
+    def bucket_ready(self, *, width: int | None = None,
+                     factor_batch: int | None = None, stack=None,
+                     checked: bool = False, precision: str | None = None) -> bool:
+        """True when the named bucket is warm: its program completed a
+        call (the JAX package's "traced") or an engine warmed it on a
+        device. The gate a knob move waits for, so that no first use lands
+        on the serving path. `width` names an RHS bucket, `factor_batch` a
+        coalesced factor bucket, `stack` a (sessions, width) gang bucket,
+        warm once an engine's `prewarm(stacks=)` warmed it (the stacked
+        programs are shared callables, nothing is made per bucket);
+        `checked` asks about the health-guarded program; `precision` about
+        a served tier's program family (with `width` its solve program,
+        with `factor_batch` its stacked factor program)."""
+        sfx = "_health" if checked else ""
+        asks = []
+        if precision is not None:
+            tier = check_precision_request(precision)
+            if tier is None or tier == "auto":
+                raise ValueError("bucket_ready(precision=) names a concrete tier "
+                                 f"from {PRECISION_TIERS}, not {precision!r}")
+            if stack is not None:
+                raise ValueError("gang-stacked buckets have no per-tier program "
+                                 "family (tier requests are a counted gang exclusion)")
+            if width is not None:
+                asks.append(("tier" + sfx, (tier, width)))
+            if factor_batch is not None:
+                asks.append(("tier_factor", (tier, factor_batch)))
+        else:
+            if width is not None:
+                asks.append(("solve" + sfx, width))
+            if factor_batch is not None:
+                asks.append(("factor" + sfx, factor_batch))
+            if stack is not None:
+                asks.append(("stacked" + sfx, tuple(stack)))
+        want = {self._warm_key(kind, bucket, None)[:2] for kind, bucket in asks}
+        with self._compile_lock:
+            have = {k[:2] for k in self._warm}
+        return bool(want) and want <= have
+
+    def release_buckets(self, widths=(), factor_batches=()) -> int:
+        """Retire buckets, the reverse of prewarming: `widths` drops each
+        RHS bucket's plain, checked, refine and tier solve programs;
+        `factor_batches` the coalesced factor programs (plain, checked and
+        per tier). The probe and Woodbury programs stay, and factor bucket
+        1 is refused (`plan.factor` itself rides it). The buckets' warm
+        records go too (stacked ones included), so a bucket that grows
+        back is warmed again. Returns the number of program cache entries
+        dropped. A released bucket is cold, not forbidden: traffic that
+        touches it makes its program again (and `trace_counts` grow); a
+        caller holding a program it fetched before keeps using it."""
+        wbs = {int(w) for w in widths}
+        fbs = {int(b) for b in factor_batches}
+        if 1 in fbs:
+            raise ValueError("factor bucket 1 is the plan.factor/refactor path "
+                             "itself (FactorPlan._factor_once): it is not a "
+                             "retirable coalescing bucket")
+
+        def retired(family: str, bucket: tuple) -> bool:
+            return bucket[-1] in (fbs if "factor" in family else wbs)
+
+        dropped = 0
+        with self._compile_lock:
+            for cache in (self._solve_cache, self._trsm_cache, self._factor_cache):
+                for key in [k for k in cache
+                            if (fam := _bucket_family(k)) is not None and retired(*fam)]:
+                    del cache[key]
+                    dropped += 1
+            self._warm = {k for k in self._warm if not retired(k[0], k[1])}
+        return dropped
+
+    @staticmethod
+    def _warm_key(kind: str, bucket, devkey) -> tuple:
+        # every bucket is stored as a tuple ((width,), (stack, width),
+        # (stack, rank, width), (tier, width), ...); tier names stay strings
+        b = bucket if isinstance(bucket, tuple) else (bucket,)
+        return (kind, tuple(x if isinstance(x, str) else int(x) for x in b), devkey)
+
+    def device_warm(self, kind: str, bucket, devkey) -> bool:
+        """True when (kind, bucket) has completed a warm-up dispatch on the
+        device `devkey` names (`engine._devkey`): the engine's per-lane
+        prewarm dedupe. `bucket` is an int for the width and factor
+        families and a tuple for the stacked and tier ones."""
+        with self._compile_lock:
+            return self._warm_key(kind, bucket, devkey) in self._warm
+
+    def mark_device_warm(self, kind: str, bucket, devkey) -> None:
+        """Record a completed (kind, bucket, device) warm-up; the engine
+        calls it after the warming dispatch finished, so a prewarm that
+        failed leaves no record."""
+        with self._compile_lock:
+            self._warm.add(self._warm_key(kind, bucket, devkey))
 
     # ------------------------------------------------------------------ #
     # solve programs
@@ -503,6 +736,77 @@ class FactorPlan:
             return self._one_solve
 
         return self._memo(self._solve_cache, nrhs, build)
+
+    # ------------------------------------------------------------------ #
+    # stacked (gang) solve programs: many sessions of one plan at once
+    # ------------------------------------------------------------------ #
+
+    def _check_stack_bucket(self, what: str, ns: int, nrhs: int) -> None:
+        if self.batched:
+            raise AssertionError(
+                "stacked dispatch is for single-system plans: batched plans already "
+                "amortize over their own batch axis")
+        if ns & (ns - 1) or ns < 1 or nrhs & (nrhs - 1) or nrhs < 1:
+            raise AssertionError(
+                f"{what} takes power-of-two buckets, got ({ns}, {nrhs}): route "
+                "requests through ServeEngine")
+
+    def _stacked_solve_fn(self, ns: int, nrhs: int):
+        """The engine's cross-session program: `ns` sessions of this
+        single-system plan, their factors stacked on a new leading axis (a
+        gang's resident stack, `gang.SessionGang`), answered in one
+        dispatch: (F, A0, b) -> x with b (ns, N, nrhs), A0 None for a
+        refine-free plan. On a blocked plan the round is one K3 launch
+        over the stack (`_pair` folds the stack into the kernel's batch).
+        Slots never interact, so a slot's answer is bitwise invariant to
+        the stack bucket and to what the pad slots hold; on the card it is
+        also bitwise the session's own solve (`chip_smoke.py` phase 27
+        holds both). One callable serves every bucket: the buckets are
+        checked, nothing is made per bucket."""
+        self._check_stack_bucket("_stacked_solve_fn", ns, nrhs)
+        return self._one_solve
+
+    def _stacked_solve_health_fn(self, ns: int, nrhs: int):
+        """The checked stacked program: (F, A0, wA, b) -> (x, (2, ns)
+        verdict), the Freivalds verdict per slot, so a sick slot is named
+        without re-dispatching its gang-mates (`resilience.evaluate_slots`).
+        wA is the gang's stacked probe rows. A blocked plan without sweeps
+        takes each slot's stats from the same K3 launch's back solve."""
+        self._check_stack_bucket("_stacked_solve_health_fn", ns, nrhs)
+        return self._stacked_solve_health
+
+    def _stacked_solve_health(self, factors, A0, wA, b2):
+        w = self._probe_w_on(b2.device)
+        if self._fused_probe:
+            x, xsum, wAx = self._blocked_probe_body(factors, wA, b2)
+            return x, health_verdict_from_stats_slots(w, xsum, wAx, b2)
+        x = self._one_solve(factors, A0, b2)
+        return x, health_spot_check_slots(w, wA, x, b2)
+
+    def _stacked_update_solve_fn(self, ns: int, kb: int, nrhs: int, sweeps: int):
+        """The stacked Woodbury program: every slot rides the base
+        substitution plus its kb-bucketed capacitance correction, clean
+        slots with zero U, V (an exactly-zero correction), drifted ones
+        with their `update.pad_update_state`-padded state:
+        (F, A0, Up, Vp, Y, Cinv, b) -> x, A0 None when sweeps == 0. The
+        base substitution is one K3 launch over the stack; the products
+        around it are `torch.matmul` in IEEE float32, as the JAX package
+        computes them outside any kernel."""
+        self._check_stack_bucket("_stacked_update_solve_fn", ns, nrhs)
+        return functools.partial(self._one_update_solve, sweeps)
+
+    def _stacked_update_solve_health_fn(self, ns: int, kb: int, nrhs: int, sweeps: int):
+        """The checked stacked Woodbury program: each slot's projected
+        residual goes through its drifted matrix (w^T A1 = wA + (w^T Up)
+        Vp^H, zero-padded columns inert), so a correction gone wrong trips
+        its own slot's verdict only: (F, A0, Up, Vp, Y, Cinv, wA, b) ->
+        (x, (2, ns))."""
+        self._check_stack_bucket("_stacked_update_solve_health_fn", ns, nrhs)
+        return functools.partial(self._stacked_update_solve_health, sweeps)
+
+    def _stacked_update_solve_health(self, sweeps, factors, A0, Up, Vp, Y, Cinv, wA, b2):
+        x = self._one_update_solve(sweeps, factors, A0, Up, Vp, Y, Cinv, b2)
+        return x, health_spot_check_slots(self._probe_w_on(b2.device), wA, x, b2, Up, Vp)
 
     # ------------------------------------------------------------------ #
     # stacked (cold-start) factor programs: the factor lane
@@ -1037,7 +1341,7 @@ class FactorPlan:
                              f"{self.key.dtype}")
 
     def factor(self, A, *, policy: DriftPolicy | None = None, device=None,
-               precision: str | None = None) -> "SolveSession":
+               sid=None, precision: str | None = None) -> "SolveSession":
         """Factor A and open a session on its device-resident factors.
 
         A (numpy or tensor) is put on `device`: the card unless the caller
@@ -1048,7 +1352,8 @@ class FactorPlan:
         `precision` opens the session at a served tier: its factors are
         built at the tier's dtype directly, and its solves default to the
         tier's programs; 'auto' opens on the cheapest rung. None is the
-        native path."""
+        native path. `sid` is the session's stable id (the engine places
+        and names sessions by it)."""
         tier0 = check_precision_request(precision)
         if tier0 == "auto":
             tier0 = PRECISION_TIERS[0]
@@ -1060,7 +1365,7 @@ class FactorPlan:
                        else self._tier_factor_once(tier0, A))
         # tier sessions keep the base: their solves sweep against it
         keep_A = A if (self.key.refine or tier0 is not None) else None
-        return SolveSession(self, factors, keep_A, A, policy, device=dev,
+        return SolveSession(self, factors, keep_A, A, policy, device=dev, sid=sid,
                             served_tier=tier0)
 
 
@@ -1077,10 +1382,12 @@ class SolveSession:
     """
 
     def __init__(self, plan: FactorPlan, factors, A, A_base=None,
-                 policy: DriftPolicy | None = None, *, device=None,
+                 policy: DriftPolicy | None = None, *, device=None, sid=None,
                  served_tier=None, auto_rung: int = 0):
         self.plan = plan
         self.device = device
+        # the stable session id (engine placement, checkpoint records)
+        self.sid = sid
         # every mutation of the resident state, and every read of it,
         # happens under this re-entrant lock (the escalation ladder
         # re-enters it)
@@ -1093,8 +1400,10 @@ class SolveSession:
         self._upd = None           # guarded-by: _lock
         # the base is the caller's tensor until the first refactor
         # replaces it with one the session made; only an owned base is
-        # updated in place (FactorPlan._refresh_fn)
+        # updated in place (FactorPlan._refresh_fn), and only while no
+        # engine lane has read it (`_lane_reads_base`)
         self._owns_base = False    # guarded-by: _lock
+        self._base_shared = False  # guarded-by: _lock
         # attached lazily by resilience.breaker_for
         self._breaker = None
         # the latest capacitance condition estimate (SolveUnhealthy evidence)
@@ -1117,8 +1426,15 @@ class SolveSession:
         self.refactors = 0         # guarded-by: _lock
         # the JAX package's checkpoint dirty clock: bumped by every
         # mutation of what a checkpoint holds (update, refactor, a moved
-        # 'auto' rung); the port's checkpoint codec is not ported yet
+        # 'auto' rung, a device move); the checkpoint waits for tier.py
         self._ckpt_ver = 0         # guarded-by: _lock
+        # gang residency (`gang.SessionGang`): the gang holding a slot for
+        # this session (None: unganged), the slot, and the write-back
+        # clock: every mutation of the resident state bumps `_gang_ver`,
+        # and the gang rewrites the slot when its copy is older
+        self._gang = None
+        self._gang_slot = None
+        self._gang_ver = 0         # guarded-by: _lock
 
     @property
     def factors(self):
@@ -1166,7 +1482,52 @@ class SolveSession:
                     seen[id(leaf)] = leaf.numel() * leaf.element_size()
             return sum(seen.values())
 
-    to_device = _unported("SolveSession.to_device")
+    def to_device(self, device) -> "SolveSession":
+        """Move the session's resident state to `device` and pin it there,
+        the engine's placement hook. One copy per distinct tensor
+        (`batched.put_tree` keeps `_A` aliased to `_A0`, so `nbytes` still
+        counts the base once); the derived cross-tier factors are dropped
+        (rebuilt on the new device when asked for). `device=None`, or the
+        device the session is already on, changes nothing. Runs under the
+        session lock: a concurrent solve never sees half-moved state. A
+        ganged session leaves its gang (the stack stays on the old device;
+        the session joins its new lane's gang at its next stacked
+        dispatch). Returns self."""
+        if device is None:
+            return self
+        dev = resolve_device(device)
+        with self._lock:
+            if self.device is not None and same_device(self.device, dev):
+                return self
+            moved = put_tree(
+                {"f": self._factors, "A": self._A, "A0": self._A0, "probe": self._probe,
+                 "upd": (None if self._upd is None else
+                         {k: self._upd[k] for k in ("Up", "Vp", "Y", "Cinv")})},
+                dev)
+            self._factors = moved["f"]
+            self._A = moved["A"]
+            self._A0 = moved["A0"]
+            self._probe = moved["probe"]
+            self._tier_factors = {}  # derived state stays device-local
+            if self._upd is not None:
+                self._upd = {**self._upd, **moved["upd"]}
+            self.device = dev
+            self._gang_ver += 1
+            self._ckpt_ver += 1
+            if self._gang is not None:
+                # the gang orders its lock after this one (gang.py)
+                self._gang.release(self)
+        return self
+
+    # requires-lock: _lock
+    def _lane_reads_base(self) -> None:
+        """Note that work queued on an engine lane's stream reads the base
+        (a solve's sweeps, a probe row, a gang slot's copy). Until the next
+        refactor replaces it, a refactor makes a new base rather than
+        updating this one in place on the caller's stream, which the lane
+        is not ordered after: queued lane work never reads a half-drifted
+        base. The lane's references keep the old base alive."""
+        self._base_shared = True
 
     def _rhs(self, b):
         plan = self.plan
@@ -1273,6 +1634,9 @@ class SolveSession:
         with self._lock:
             if self._probe is None:
                 self._probe = self.plan._probe_fn()(self._A0)
+                # made on an engine lane's stream, it is used on the
+                # callers' default stream too
+                hand_to_default(self._probe)
             return self._probe
 
     def solve_checked(self, b, *, precision=None):  # hot-path
@@ -1342,6 +1706,7 @@ class SolveSession:
             self.factorizations += 1
             self.refactors += 1
             self._ckpt_ver += 1
+            self._gang_ver += 1  # the gang slot is stale: lazy re-sync
             return self
 
     def _check_uv(self, U, V):
@@ -1404,6 +1769,7 @@ class SolveSession:
             self._upd = {"k": k, "kb": kb, "Up": U, "Vp": V, "Y": Y, "Cinv": Cinv}
             self.updates += 1
             self._ckpt_ver += 1
+            self._gang_ver += 1  # the gang slot is stale: lazy re-sync
         return self
 
     def _refactor(self, Up, Vp):
@@ -1422,8 +1788,10 @@ class SolveSession:
             # first, and update an owned base in place, so the peak holds one
             # base and one factor set
             self._upd = None
-            A_new = plan._refresh_fn(kb, donate=self._owns_base)(self._A0, Up, Vp)
+            donate = self._owns_base and not self._base_shared
+            A_new = plan._refresh_fn(kb, donate=donate)(self._A0, Up, Vp)
             self._A0 = A_new
+            self._base_shared = False
             self._probe = None  # against the superseded base
             self._tier_factors = {}
             self._owns_base = True
@@ -1434,6 +1802,7 @@ class SolveSession:
             self.factorizations += 1
             self.refactors += 1
             self._ckpt_ver += 1
+            self._gang_ver += 1  # the gang slot is stale: lazy re-sync
 
 
 def session_from_numpy(plan: FactorPlan, factors, A, device=None) -> SolveSession:

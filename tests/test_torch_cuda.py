@@ -845,3 +845,172 @@ def test_woodbury_and_tier_solves_do_not_wait_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------- #
+# the serving engine on the card
+# --------------------------------------------------------------------------- #
+
+
+def _engine_sessions(cuda, seed: int):
+    """A (256, 256) and a (4, 256, 256) f32 LU session, v=128."""
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    n = 256
+    single = serve.FactorPlan.create((n, n), torch.float32, v=128)
+    batched = serve.FactorPlan.create((4, n, n), torch.float32, v=128)
+    A1 = _rand((n, n), seed, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    A4 = _rand((4, n, n), seed + 1, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    return single.factor(A1), batched.factor(A4)
+
+
+def test_engine_answers_bitwise_the_direct_solves_at_every_width(cuda):
+    """K3's columns do not depend on the launch's width, so an engine
+    answer is bitwise the direct `session.solve` at every coalesced width,
+    for a single-system and a batched plan, unchecked and checked."""
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.resilience import HealthPolicy
+
+    s1, s4 = _engine_sessions(cuda, 60)
+    rng = np.random.default_rng(61)
+    reqs = []
+    for i, w in enumerate((1, 2, 3, 5, 8, 1, 4, 7, 2, 16)):
+        s = (s1, s4)[i % 2]
+        lead = (4, 256) if s is s4 else (256,)
+        reqs.append((s, rng.standard_normal(lead + (w,)).astype(np.float32)))
+    direct = [s.solve(torch.from_numpy(b).to(cuda)).cpu().numpy() for s, b in reqs]
+    for health in (None, HealthPolicy()):
+        with ServeEngine(max_batch_delay=0.05, max_coalesce_width=32, health=health) as eng:
+            futs = [eng.submit(s, b) for s, b in reqs]
+            got = [f.result(300) for f in futs]
+            assert eng.stats()["coalesced_mean"] > 1.0
+        for g, d in zip(got, direct):
+            np.testing.assert_array_equal(g, d)
+
+
+def test_engine_dispatcher_issues_no_host_sync(cuda):
+    """After prewarm, the dispatcher stages, launches and copies answers
+    back without waiting for the card: torch's sync debug mode ("error")
+    would fail any request whose dispatch synchronized; only the drain
+    thread waits, on each batch's event."""
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.resilience import HealthPolicy
+
+    s1, s4 = _engine_sessions(cuda, 62)
+    rng = np.random.default_rng(63)
+    reqs = [((s1, s4)[i % 2], rng.standard_normal(((256,), (4, 256))[i % 2])
+             .astype(np.float32)) for i in range(24)]
+    for health in (None, HealthPolicy()):
+        with ServeEngine(max_batch_delay=0.002, health=health) as eng:
+            for s in (s1, s4):
+                eng.prewarm(s, widths=(1, 2, 4, 8, 16, 32))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                futs = [eng.submit(s, b) for s, b in reqs]
+                got = [f.result(300) for f in futs]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for (s, b), g in zip(reqs, got):
+            np.testing.assert_array_equal(g, s.solve(torch.from_numpy(b).to(cuda)).cpu().numpy())
+
+
+def test_gang_pad_and_bucket_invariance_on_the_card(cuda):
+    """A gang slot's answer does not depend on the stack bucket or on what
+    the pad slots hold: the resident 8-stack of an engine against a
+    hand-built 2-stack whose other slot carries another session; and the
+    gang's answers match each session's own solve."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.batched import stack_trees
+    from conflux_tpu_torch.engine import ServeEngine
+
+    serve.clear_plans()
+    n = 256
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=128)
+    A = _rand((5, n, n), 64, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    fleet = [plan.factor(A[i]) for i in range(5)]
+    rng = np.random.default_rng(65)
+    bs = [rng.standard_normal((n, 1)).astype(np.float32) for _ in range(5)]
+    eng = ServeEngine(max_batch_delay=60.0, stack_sessions=True, max_stack=8)
+    try:
+        futs = [eng.submit(s, b) for s, b in zip(fleet, bs)]
+    finally:
+        eng.close(timeout=300)
+    got = [f.result(1) for f in futs]
+    assert eng.stats()["gang_batches"] == 1
+    g = eng.lanes[0]._gangs[id(plan)]
+    si = g.slot_of(fleet[2])
+    big = torch.zeros((8, n, 1), device=cuda)
+    big[si] = torch.from_numpy(bs[2]).to(cuda)
+    x8 = plan._stacked_solve_fn(8, 1)(g._F, None, big)[si]
+    two = torch.randn((2, n, 1), device=cuda)
+    two[0] = torch.from_numpy(bs[2]).to(cuda)
+    x2 = plan._stacked_solve_fn(2, 1)(stack_trees([fleet[2].factors, fleet[4].factors]),
+                                      None, two)[0]
+    assert torch.equal(x8, x2)
+    np.testing.assert_array_equal(got[2], x8.cpu().numpy())
+    for s, b, x in zip(fleet, bs, got):
+        ref = s.solve(torch.from_numpy(b).to(cuda)).cpu().numpy()
+        np.testing.assert_allclose(x, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_engine_answers_hold_to_their_drifted_matrix_under_update_refactor(cuda):
+    """A caller drifts and refactors a refine session on the default
+    stream while a guarded engine serves it from its lane stream. A
+    refactor never updates in place a base the lane has read, so no queued
+    lane work reads a half-drifted base: every answer solves one of the
+    matrices the session held (six rank-4 drifts, each refactored), to
+    1e-4 relative, and no other of them."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.resilience import HealthPolicy
+
+    serve.clear_plans()
+    n, rounds, per = 256, 6, 16
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=128, refine=1)
+    A = _rand((n, n), 67, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    s = plan.factor(A)
+    versions = [A.double().cpu()]
+    rng = np.random.default_rng(68)
+    bs = [rng.standard_normal((n, 1 + i % 3)).astype(np.float32) for i in range(rounds * per)]
+    with ServeEngine(max_batch_delay=0.001, health=HealthPolicy()) as eng:
+        eng.prewarm(s, widths=(1, 2, 4, 8, 16, 32))
+        futs = []
+        for r in range(rounds):
+            futs += [eng.submit(s, b) for b in bs[r * per:(r + 1) * per]]
+            U = torch.from_numpy(0.03 * rng.standard_normal((n, 4))).float().to(cuda)
+            W = torch.from_numpy(0.03 * rng.standard_normal((n, 4))).float().to(cuda)
+            s.update(U, W)
+            s.refactor()
+            versions.append(versions[-1] + (U @ W.mT).double().cpu())
+        xs = [f.result(300) for f in futs]
+    assert s.refactors == rounds
+    for b, x in zip(bs, xs):
+        bb, xx = torch.from_numpy(b).double(), torch.from_numpy(x).double()
+        res = sorted(float((Av @ xx - bb).norm() / bb.norm()) for Av in versions)
+        assert res[0] < 1e-4 and res[1] > 1e-3, res[:2]
+
+
+def test_to_device_from_the_cpu_to_the_card_and_back_bitwise(cuda):
+    """`to_device` moves bytes, never computes: a session moved from the
+    CPU to the card and back carries its bits, keeps `_A` aliased to `_A0`
+    and counts the base once."""
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    n = 128
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=64, refine=1)
+    rng = np.random.default_rng(66)
+    A = (rng.standard_normal((n, n)) / np.sqrt(n) + 2 * np.eye(n)).astype(np.float32)
+    s = plan.factor(A, device="cpu")
+    s.solve_checked(np.ones(n, np.float32))  # the probe row moves too
+    before = [t.clone() for t in (*s.factors, s._A0, s._probe)]
+    nbytes = s.nbytes
+    s.to_device(cuda)
+    assert s._A is s._A0 and s._A0.device.type == "cuda" and s.nbytes == nbytes
+    assert all(t.device.type == "cuda" for t in s.factors)
+    s.to_device("cpu")
+    after = (*s.factors, s._A0, s._probe)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert s._A is s._A0 and s.nbytes == nbytes

@@ -61,17 +61,18 @@ def test_unported_plans_raise(kw):
 
 
 def test_unported_session_features_raise():
-    """What the port still leaves out raises, naming it; the precision
-    ladder and the Woodbury update are ported (`test_torch_precision.py`,
-    `test_torch_update.py`)."""
+    """What the port still leaves out raises, naming it: a plan record
+    naming a mesh, or a matmul precision other than 'highest'. The
+    precision ladder, the Woodbury update, the codec, the bucket lifecycle
+    and device moves are ported (`test_torch_precision.py`,
+    `test_torch_update.py`, `test_torch_stacked.py`)."""
     _jp, tp = _plans()
-    rng = np.random.default_rng(3)
-    A = _gen(rng, 1)[0]
-    s = tp.factor(A, device="cpu")
-    for call in (lambda: s.to_device("cpu"), lambda: tp.bucket_ready(width=1),
-                 lambda: tp.release_buckets(widths=(1,)), lambda: tp.spec()):
+    d = tp.spec()
+    for bad in ({**d, "mesh": {"device_ids": [0], "axis_names": ["b"],
+                               "device_shape": [1]}},
+                {**d, "precision": ["precision", "DEFAULT"]}):
         with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+            serve.plan_from_spec(bad)
 
 
 @pytest.mark.parametrize("substitution", ["blocked", "trsm", "inv"])
