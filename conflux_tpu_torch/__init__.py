@@ -27,7 +27,10 @@ precision ladder and the resilience layer's escalation rungs
 `plan_from_spec`); and the serving engine on one card (`engine.py`:
 `ServeEngine` with its solve and factor lanes, gang-resident stacks
 `gang.SessionGang`, QoS admission `qos.py`, prewarm, and the profiler's
-serving counters).
+serving counters); tiered session residency and the fleet checkpoint
+(`tier.py`: `ResidentSet`, `save_fleet`, `load_fleet`, over the port's
+copy of `io.py`'s matrix files) and the adaptive controller
+(`control.py`: `AdaptiveController`, `ControlLimits`).
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_grid
@@ -92,6 +95,13 @@ def __getattr__(name):
         "StatsWindow": ("conflux_tpu_torch.profiler", "StatsWindow"),
         "QosClass": ("conflux_tpu_torch.qos", "QosClass"),
         "TenantThrottled": ("conflux_tpu_torch.resilience", "TenantThrottled"),
+        "ResidentSet": ("conflux_tpu_torch.tier", "ResidentSet"),
+        "save_fleet": ("conflux_tpu_torch.tier", "save_fleet"),
+        "load_fleet": ("conflux_tpu_torch.tier", "load_fleet"),
+        "SessionSpilled": ("conflux_tpu_torch.resilience", "SessionSpilled"),
+        "RestoreCorrupt": ("conflux_tpu_torch.resilience", "RestoreCorrupt"),
+        "AdaptiveController": ("conflux_tpu_torch.control", "AdaptiveController"),
+        "ControlLimits": ("conflux_tpu_torch.control", "ControlLimits"),
     }
     if name in _lazy:
         import importlib
@@ -159,4 +169,11 @@ __all__ = [
     "StatsWindow",
     "QosClass",
     "TenantThrottled",
+    "ResidentSet",
+    "save_fleet",
+    "load_fleet",
+    "SessionSpilled",
+    "RestoreCorrupt",
+    "AdaptiveController",
+    "ControlLimits",
 ]

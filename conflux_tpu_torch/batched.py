@@ -73,14 +73,17 @@ def put_tree(tree, device):
 
 
 def stack_host_trees(trees, device):
-    """Stack identical-structure trees of host (numpy) leaves along a new
-    leading axis in numpy, then move each stacked leaf to `device` once:
+    """Stack identical-structure trees of host leaves (numpy, or CPU
+    tensors: the tier layer's records, bfloat16 included) along a new
+    leading axis on the host, then move each stacked leaf to `device` once:
     one host-to-device copy per leaf position instead of one per tree and
     leaf. Bitwise the per-leaf transfer (a memcpy and a copy never touch
     the bits). None leaves must agree (they stay None)."""
     device = torch.device(device)
 
     def one(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack([x.cpu() for x in xs]).to(device)
         return torch.from_numpy(np.stack([np.asarray(x) for x in xs])).to(device)
 
     return _tree_map(one, *trees)

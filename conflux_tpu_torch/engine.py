@@ -73,11 +73,23 @@ factor lane's sessions, probe rows) are recorded on the default stream
 (`record_stream`) so their memory is not reused before the caller's work
 on them completes.
 
+- **Tiered residency and the fleet checkpoint** (`tier`): with
+  ``residency=ResidentSet(...)`` the engine faults a spilled session back
+  in before dispatching to it (deadline-aware: the revive wait is capped
+  at the requests' soonest deadline, else ``revive_wait``) and lends its
+  factor lane to the manager's stale-drift revivals; ``checkpoint()``
+  snapshots the fleet at a drain barrier and ``restore()`` brings it back
+  (lazily, host-tier, with a residency; resident without one).
+
+- **The adaptive controller** (`control.AdaptiveController`, attached with
+  ``controller=``) retunes the knobs from windowed telemetry on its own
+  thread, through :meth:`ServeEngine.set_knobs` only, and grows a bucket
+  cap only onto buckets `prewarm` has made ready.
+
 Not ported yet, each raising NotImplementedError naming what it waits
-for: ``residency=`` and ``checkpoint``/``restore`` (the tier slice),
-``controller=`` (`control.py`), ``lanes`` other than 1 or ``devices=``
-naming more than one device (several cards, the serving mesh lane).
-Mesh plans do not exist in the port yet.
+for: ``lanes`` other than 1 or ``devices=`` naming more than one device
+(several cards, the serving mesh lane). Mesh plans do not exist in the
+port yet.
 
 Sessions mutate under ``update`` and refactor; the engine calls
 ``session.solve`` / ``solve_checked`` under the session's lock. Do not
@@ -125,9 +137,6 @@ from conflux_tpu_torch.serve import FactorPlan, SolveSession
 from conflux_tpu_torch.update import rank_bucket, zero_update_state
 
 _SLICES = {
-    "residency": "residency= (tiered residency, tier.py)",
-    "checkpoint": "checkpoint()/restore() (tier.py's fleet records)",
-    "controller": "controller= (the adaptive controller, control.py)",
     "lanes": ("more than one lane (several cards and the serving mesh lane, "
               "ROADMAP Slice 7 item 14)"),
 }
@@ -754,6 +763,26 @@ class DeviceLane:
         return host, buf, spec
 
     # hot-path
+    def _revive_for(self, session, reqs) -> None:
+        """Deadline-aware fault-in ahead of a dispatch to a spilled
+        session: the revive-lane wait is capped at the requests' soonest
+        deadline (else the engine's `revive_wait`), so a request expiring
+        mid-revival fails through the survivor machinery (its admission
+        slot released, the session left fully spilled with its record
+        intact) instead of wedging the dispatcher. The resident fast path
+        costs two attribute reads."""
+        rs = session._residency
+        # racy fast-path read by design: fault_in re-checks under the
+        # session lock
+        if rs is None or session._spill is None:
+            return
+        timeout = self.eng.revive_wait
+        exps = [r.expiry for r in reqs if r.expiry is not None]
+        if exps:
+            timeout = max(0.0, min(exps) - time.perf_counter())
+        rs.fault_in(session, timeout=timeout)
+
+    # hot-path
     def _solve_session(self, session, b, precision=None):
         """One dispatch through the session, checked when the policy says
         so (or for an 'auto' request, whose verdict is the ladder's
@@ -793,6 +822,7 @@ class DeviceLane:
                 if not reqs:
                     return
                 host, buf, spec = self._stage(reqs)
+            self._revive_for(session, reqs)
             bd = self._h2d(host, session.device)
             x, verdict, keep = self._solve_session(session, bd, reqs[0].precision)
             xh, vh = self._d2h(x), self._d2h(verdict)
@@ -958,6 +988,7 @@ class DeviceLane:
             eng._factor_slots += bb
             eng._factor_pad += bb - len(reqs)
             eng._factor_bucket_hits[bb] = eng._factor_bucket_hits.get(bb, 0) + 1
+            eng._active_plans[id(plan)] = weakref.ref(plan)
             self.factor_batches += 1
             self.factor_coalesced += len(reqs)
         return _FactorBatch(plan, reqs, F, wA, vh, Ad, event, solo, tier)
@@ -1355,6 +1386,7 @@ class DeviceLane:
             if eng.health is not None and eng.health.check_rhs \
                     and not self._isolate_poisoned([r]):
                 return
+            self._revive_for(session, [r])
             x, verdict, _keep = self._solve_session(session, buf, r.precision)
             if verdict is not None:
                 limit = eng._limit(session)
@@ -1450,8 +1482,22 @@ class ServeEngine:
     persistent_cache: kept for the JAX package's signature; the port has
         no XLA cache to switch on, and its kernel build directory
         (`ops/_build.py`) already persists between processes.
-    residency, controller, lanes other than 1, devices= of several
-        devices: not ported yet (NotImplementedError naming the slice).
+    residency: a :class:`~conflux_tpu_torch.tier.ResidentSet` managing the
+        served fleet's tiers. The engine then faults spilled sessions back
+        in before dispatching to them (deadline-aware) and lends its
+        factor lane to the manager's stale-drift revivals; `stats()` gains
+        the manager's gauges under 'tier', and `checkpoint()`/`restore()`
+        default to this fleet.
+    revive_wait: worker-thread cap (seconds) on waiting for a revive slot
+        when the faulting requests carry no deadline: how long a saturated
+        revive lane may stall the dispatcher before the requests fail with
+        `SessionSpilled`.
+    controller: a :class:`~conflux_tpu_torch.control.AdaptiveController`,
+        attached last and started on its own thread; it writes only
+        through :meth:`set_knobs` and stops first in :meth:`close`. None
+        leaves every knob as constructed.
+    lanes other than 1, devices= of several devices: not ported yet
+        (NotImplementedError naming the slice).
     """
 
     def __init__(self, *, max_batch_delay: float = 0.002,
@@ -1464,7 +1510,7 @@ class ServeEngine:
                  health: HealthPolicy | None = None,
                  fault_plan=None,
                  watchdog_interval: float = 0.2,
-                 residency=None, controller=None,
+                 residency=None, revive_wait: float = 30.0, controller=None,
                  lanes: int | str = 1, devices=None, device=None):
         if on_full not in ("reject", "block"):
             raise ValueError(f"unknown on_full {on_full!r} (reject|block)")
@@ -1472,10 +1518,6 @@ class ServeEngine:
                 or max_factor_batch < 1:
             raise ValueError("max_pending, max_coalesce_width, max_stack and "
                              "max_factor_batch must be >= 1")
-        if residency is not None:
-            raise _not_ported("residency")
-        if controller is not None:
-            raise _not_ported("controller")
         if lanes != 1:
             raise _not_ported("lanes")
         if devices is not None:
@@ -1500,12 +1542,24 @@ class ServeEngine:
         self.health = health
         self._faults = fault_plan
         self.watchdog_interval = float(watchdog_interval)
+        self.residency = residency
+        self.revive_wait = float(revive_wait)
+        if residency is not None and residency.engine is None:
+            # lend the factor lane to the manager's stale-drift revivals
+            residency.engine = self
         self._lanes: tuple = (DeviceLane(self, 0, dev),)
         # the admission lock: every counter and the live set below are
         # guarded by it; it is never held across a device dispatch
         self._lock = threading.Lock()
         self._not_full = threading.Condition(self._lock)
         self._closed = False            # guarded-by: _lock
+        # the checkpoint drain barrier: admission holds while True, so the
+        # snapshot sees a quiesced fleet (pending == 0)
+        self._draining = False          # guarded-by: _lock
+        # serializes whole checkpoint() calls: two overlapping drains
+        # would share the one flag, and the first to finish would reopen
+        # admission under the other's snapshot
+        self._ckpt_lock = threading.Lock()
         self._pending = 0               # guarded-by: _lock
         self._queue_peak = 0            # guarded-by: _lock
         self._requests = 0              # guarded-by: _lock
@@ -1540,8 +1594,10 @@ class ServeEngine:
         self._stack_exclusions: dict = {  # guarded-by: _lock
             k: 0 for k in ("upd_pending", "checked", "mesh", "batched", "singleton",
                            "stack_cap", "error", "kind", "precision")}
-        # recently served sessions, weakly held (the ladder's roll-up)
+        # recently served sessions and factor-lane plans, weakly held (the
+        # ladder's roll-up, the controller's prewarm targets)
         self._active_sessions: dict = {}  # guarded-by: _lock
+        self._active_plans: dict = {}     # guarded-by: _lock
         # measured drain rate (completions/s) that sizes retry_after
         self._drain_rate: float | None = None  # guarded-by: _lock
         # guard relaxation: staging guard on 1-in-stride batches and a
@@ -1568,6 +1624,15 @@ class ServeEngine:
             self._watchdog = threading.Thread(target=self._watchdog_loop,
                                               name="serve-engine-watchdog", daemon=True)
             self._watchdog.start()
+        # the adaptive controller attaches last, so its first window sees
+        # a whole engine; close() stops it first, and its loop ends by
+        # itself when a watchdog trip closes the engine (the knobs keep
+        # their last values: the controller is advisory)
+        self._controller = None
+        if controller is not None:
+            controller.attach(self)
+            controller.start()
+            self._controller = controller
 
     # ------------------------------------------------------------------ #
     # client surface
@@ -1702,6 +1767,23 @@ class ServeEngine:
         Returns True when the request was admitted."""
         if self._closed:
             raise EngineClosed("submit() on a closed ServeEngine")
+        while self._draining and not self._closed:
+            if isinstance(req, _FactorRequest):
+                # a factor submission sheds at the drain barrier, never
+                # waits: a client's stale-drift revival holds its session
+                # lock while it submits here, and the checkpoint needs that
+                # lock before the barrier clears. EngineSaturated sends the
+                # revival to its direct plan._factor_once path (same bits)
+                raise EngineSaturated(
+                    "factor lane paused at the checkpoint drain barrier (snapshot "
+                    "serializing): retry shortly, or fall back to plan.factor",
+                    retry_after=0.05)
+            if not wait:
+                return False
+            # hold admission (both policies) until the snapshot completes
+            self._not_full.wait()
+        if self._closed:
+            raise EngineClosed("engine closed while checkpointing")
         if self._pending >= self.max_pending:
             if self.on_full == "reject":
                 self._sheds += 1
@@ -1904,6 +1986,9 @@ class ServeEngine:
             already = self._closed
             self._closed = True
             self._not_full.notify_all()
+        if self._controller is not None:
+            # stop the knob writer before tearing down what it tunes
+            self._controller.close()
         if not already:
             for lane in self._lanes:
                 lane._inq.put(_STOP)
@@ -2069,14 +2154,106 @@ class ServeEngine:
             self._staging_tick += 1
             return self._staging_tick % s == 0
 
+    def active_targets(self) -> tuple:
+        """(sessions, plans) recently served by this engine, live
+        references only: the controller's prewarm targets when it grows a
+        bucket set. Dead references are pruned as a side effect."""
+        with self._lock:
+            srefs = list(self._active_sessions.items())
+            prefs = list(self._active_plans.items())
+        sessions, plans, dead_s, dead_p = [], [], [], []
+        for k, ref in srefs:
+            obj = ref()
+            (sessions.append(obj) if obj is not None else dead_s.append(k))
+        for k, ref in prefs:
+            obj = ref()
+            (plans.append(obj) if obj is not None else dead_p.append(k))
+        if dead_s or dead_p:
+            with self._lock:
+                for k in dead_s:
+                    self._active_sessions.pop(k, None)
+                for k in dead_p:
+                    self._active_plans.pop(k, None)
+        return sessions, plans
+
+    def _gang_readopt(self, sessions) -> None:
+        """Adopt revived sessions straight back into the lane's gangs: the
+        tier layer's grouped-revival hook (`ResidentSet.revive_many`), so a
+        revived fleet's first window already dispatches stacked. Advisory:
+        a failure leaves adoption to the next stacked dispatch. Called with
+        no session lock held."""
+        if not self.stack_sessions:
+            return
+        lane = self._lanes[0]
+        groups: dict = {}
+        for s in sessions:
+            if s.plan.batched or s.plan.key.kind == "qr" or s._served_tier is not None:
+                continue
+            groups.setdefault(id(s.plan), (s.plan, []))[1].append(s)
+        checked = self.health is not None and self.health.check_output
+        for plan, group in groups.values():
+            try:
+                with lane._on_lane_stream():
+                    lane._gang_for(plan).ensure(group, self.max_stack, checked)
+            except Exception:  # noqa: BLE001 - adoption is advisory
+                pass
+
+    def _is_worker_thread(self) -> bool:
+        """True on a lane's dispatcher or drain thread: the tier manager's
+        refactor-revival must not block on the factor lane from one (a
+        worker waiting on its own queue would deadlock)."""
+        t = threading.current_thread()
+        return any(t is ln._dispatcher or t is ln._drainer for ln in self._lanes)
+
+    # ------------------------------------------------------------------ #
+    # durable checkpoint and warm restart
+    # ------------------------------------------------------------------ #
+
     def checkpoint(self, path: str, sessions=None, names=None, *, base=None, gen=None,
                    full=True) -> dict:
-        """Not ported yet: the fleet records of `tier.py`."""
-        raise _not_ported("checkpoint")
+        """Snapshot the served fleet to `path` at a drain barrier.
+
+        Admission holds (both `on_full` policies wait briefly; factor
+        submissions shed) while the engine waits for `pending == 0`, so the
+        snapshot sees no mutation in flight: a consistent cut of every
+        session's factors, base, Woodbury state, probe row and counters
+        across every tier, without moving anything (`tier.save_fleet`).
+        `sessions` defaults to the attached residency's fleet. Restored
+        sessions (`restore`) solve bitwise like their pre-checkpoint
+        selves. Returns {name: record dir}. `base`/`gen`/`full` pass
+        through to `tier.save_fleet`'s incremental generations."""
+        if sessions is None and self.residency is None:
+            raise ValueError("checkpoint() needs sessions= when the engine has no "
+                             "residency-managed fleet")
+        from conflux_tpu_torch import tier
+
+        with self._ckpt_lock:
+            with self._lock:
+                self._draining = True
+                while self._pending and not self._closed:
+                    self._not_full.wait()
+            try:
+                if sessions is None:
+                    # resolved at the barrier: sessions adopted while this
+                    # call queued behind another checkpoint make this one
+                    sessions = self.residency.sessions()
+                return tier.save_fleet(path, sessions, names, base=base, gen=gen, full=full)
+            finally:
+                with self._lock:
+                    self._draining = False
+                    self._not_full.notify_all()
 
     def restore(self, path: str) -> list:
-        """Not ported yet: the fleet records of `tier.py`."""
-        raise _not_ported("checkpoint")
+        """Rebuild a `checkpoint()` fleet on this engine's card: plans
+        from their exact specs, sessions with their full state and
+        counters. With a residency attached the sessions come back
+        host-tier and fault in as traffic touches them (restore costs file
+        reads, capacity stays bounded); without one they restore resident.
+        Returns the sessions in checkpoint order."""
+        from conflux_tpu_torch import tier
+
+        return tier.load_fleet(path, residency=self.residency,
+                               device=self._lanes[0].device)
 
     # ------------------------------------------------------------------ #
     # prewarming
@@ -2116,6 +2293,9 @@ class ServeEngine:
         def run():
             lane = self._lanes[0]
             with profiler.region("engine.prewarm"), lane._on_lane_stream():
+                if session is not None:
+                    with session._lock:  # a spilled target faults in
+                        session._ensure_resident()
                 order_after_default(lane.device)
                 if session is not None:
                     for wb in sorted({rank_bucket(w) for w in widths}):
@@ -2173,6 +2353,7 @@ class ServeEngine:
             return
         b2 = self._zeros_rhs(session, wb)
         with session._lock:
+            session._ensure_resident()
             session._lane_reads_base()
             F, A, A0 = session._factors, session._A, session._A0
             probe = session._probe_row() if checked else None
@@ -2201,6 +2382,7 @@ class ServeEngine:
         if plan.device_warm(kind, (sb, wb), dk) and not ranks:
             return
         with session._lock:
+            session._ensure_resident()
             session._lane_reads_base()
             F0, A0, A0full = session._factors, session._A, session._A0
             probe = session._probe_row() if checked else None
@@ -2265,6 +2447,7 @@ class ServeEngine:
             return
         b2 = self._zeros_rhs(session, wb)
         with session._lock:
+            session._ensure_resident()
             session._lane_reads_base()
             F = (session._factors if tier == session._served_tier
                  else session._tier_factor(tier))
@@ -2537,6 +2720,16 @@ class ServeEngine:
             out["precision_fallbacks"] = pfb
             if self._qos is not None:
                 out["qos"] = self._qos.stats(self.max_pending)
+        if self.residency is not None:
+            # outside the engine lock: the manager takes its own
+            out["tier"] = self.residency.stats()
+            if self._lanes[0].cuda:
+                # the allocator's view beside the tier's accounting (the
+                # caching allocator keeps freed blocks)
+                out["tier"]["memory_allocated"] = torch.cuda.memory_allocated(
+                    self._lanes[0].device)
+        if self._controller is not None:
+            out["controller"] = self._controller.stats()
         return out
 
     def latency_samples(self) -> list:

@@ -7,7 +7,8 @@ member sessions' factors for every window would pay in data movement what
 the dispatch saves, so a :class:`SessionGang` keeps the stacked state
 resident: same-plan sessions adopt into a shared stacked factor tree (plus
 base, probe and drift stacks) on their device. Slots are assigned at
-adopt and freed on release or garbage collection; pad slots repeat slot
+adopt and freed on release (a device move, or a spill of the member to
+the host tier: `tier.ResidentSet`) or garbage collection; pad slots repeat slot
 0; a slot round-trips bitwise (`batched.write_slot_tree` /
 `unstack_tree`). A stacked solve reads the resident stack directly: no
 restacking and no factor movement per dispatch beyond the RHS staging
@@ -165,7 +166,7 @@ class SessionGang:
         self._KB = 0
 
     def release(self, session) -> None:
-        """Free the session's slot (`to_device`, engine teardown). The
+        """Free the session's slot (`to_device`, a spill). The
         caller holds the session's RLock: release is the one gang entry
         reached from under a session lock, which is why `ensure` never
         nests the locks the other way. A release that races a pending
@@ -192,6 +193,9 @@ class SessionGang:
         lock held). Marks tentative membership, so that a concurrent
         release cancels the pending adoption."""
         with session._lock:
+            # a spilled member revives first (from the dispatcher, a
+            # bounded wait: `ResidentSet.fault_in`)
+            session._ensure_resident()
             session._gang = self
             # the state is copied into the stacks on this thread's stream:
             # after the caller's work that made it, and kept from reuse

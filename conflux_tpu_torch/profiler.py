@@ -17,10 +17,11 @@ counted apart, in `FactorPlan.trace_counts`.
 
 The serving half: `serve_stats()` reads the `serve.*` regions as per-phase
 counters beside the live engines' counters (`engine_stats`), the
-resilience outcome counters and the QoS rows (`qos_stats`);
-`StatsWindow` and `CounterWindow` give rolling deltas of them. The JAX
-package's `serve_stats` also carries 'tier' and 'fabric' sub-dicts: they
-come with the ports of `tier.py` and `fabric.py`. Its XLA tools
+resilience outcome counters, the QoS rows (`qos_stats`) and the tier
+layer's counters and gauges (`tier.tier_stats`); `StatsWindow` and
+`CounterWindow` give rolling deltas of them. The JAX package's
+`serve_stats` also carries a 'fabric' sub-dict: it comes with the port of
+`fabric.py`. Its XLA tools
 (`phase_table`, `op_name_map`, the trace readers) read HLO and XLA traces
 and have no counterpart yet (ROADMAP, Slice 7 tooling).
 """
@@ -112,14 +113,16 @@ def report() -> str:
 
 
 def clear() -> None:
-    """Reset the region tables and, global like them, the resilience
-    outcome counters (engine counters live on the engines and survive)."""
+    """Reset the region tables and, global like them, the resilience and
+    tier outcome counters (engine counters and the ResidentSet gauges live
+    on their objects and survive)."""
     with _PROF_LOCK:
         _times.clear()
         _counts.clear()
-    from conflux_tpu_torch import resilience
+    from conflux_tpu_torch import resilience, tier
 
     resilience.clear_health()
+    tier.clear_tier()
 
 
 def timings() -> dict[str, tuple[int, float]]:
@@ -279,12 +282,14 @@ def serve_stats() -> dict:
     """Per-phase serving counters from the `serve.*` regions:
     {phase: {'count', 'wall_s'}} for factor / solve / update / refactor,
     the amortization ratios 'solves_per_factor' and
-    'updates_per_refactor', and three sub-dicts: 'engine' (the live
+    'updates_per_refactor', and four sub-dicts: 'engine' (the live
     engines' counters, :func:`engine_stats`; they live on the engines, so
     `clear()` leaves them), 'health' (the resilience outcome counters,
-    global like the region tables, reset by `clear()`) and 'qos'
-    (:func:`qos_stats`). The JAX package's 'tier' and 'fabric' sub-dicts
-    come with the ports of `tier.py` and `fabric.py`."""
+    global like the region tables, reset by `clear()`), 'qos'
+    (:func:`qos_stats`) and 'tier' (`tier.tier_stats`: spill and revive
+    counters with the fault-in p50/p95/p99, reset by `clear()`, and the
+    live ResidentSets' population and byte gauges, which survive it). The
+    JAX package's 'fabric' sub-dict comes with the port of `fabric.py`."""
     times, counts = _snapshot()
     out: dict = {}
     for ph in SERVE_PHASES:
@@ -296,10 +301,11 @@ def serve_stats() -> dict:
     out["updates_per_refactor"] = (out["update"]["count"] / refac if refac
                                    else float("inf") if out["update"]["count"] else 0.0)
     out["engine"] = engine_stats()
-    from conflux_tpu_torch import resilience
+    from conflux_tpu_torch import resilience, tier
 
     out["health"] = resilience.health_stats()
     out["qos"] = qos_stats()
+    out["tier"] = tier.tier_stats()
     return out
 
 
@@ -318,6 +324,14 @@ _ENGINE_COUNTERS = (
 )
 # the per-class counters a qos_class= window adds
 _QOS_WINDOW_COUNTERS = ("qos_requests", "qos_completed", "qos_failed", "qos_throttled")
+# tier.tier_stats() keys that are not counters: the managers' population
+# and byte gauges and the fault-in percentiles (cumulative)
+_TIER_GAUGES = frozenset({
+    "managed_sessions", "resident_sessions", "host_sessions", "disk_sessions",
+    "corrupt_sessions", "device_bytes", "device_bytes_high_water",
+    "resident_high_water", "host_bytes", "disk_bytes", "fault_in_p50_ms",
+    "fault_in_p95_ms", "fault_in_p99_ms",
+})
 
 
 def _diff(cur: dict, prev: dict, keys=None) -> dict:
@@ -393,8 +407,9 @@ class StatsWindow:
             lats.extend(new)
             flats.extend(fnew)
         times, counts = _snapshot()
-        from conflux_tpu_torch import resilience
+        from conflux_tpu_torch import resilience, tier
 
+        t = tier.tier_stats()
         cur = {
             "engine": eng,
             "bucket_hits": bucket_hits,
@@ -403,6 +418,8 @@ class StatsWindow:
                             "wall_s": times.get(f"serve.{ph}", 0.0)}
                        for ph in SERVE_PHASES},
             "health": resilience.health_stats(),
+            "tier": {k: v for k, v in t.items() if k not in _TIER_GAUGES},
+            "tier_gauges": {k: t[k] for k in _TIER_GAUGES if k in t},
         }
         return cur, lats, flats
 
@@ -414,7 +431,7 @@ class StatsWindow:
         prev = self._prev
         if prev is None:
             prev = {"engine": {}, "bucket_hits": {}, "factor_bucket_hits": {},
-                    "phases": {ph: {} for ph in SERVE_PHASES}, "health": {}}
+                    "phases": {ph: {} for ph in SERVE_PHASES}, "health": {}, "tier": {}}
         dt = max(1e-9, now - self._t_prev)
         keys = (_ENGINE_COUNTERS if self._qos_class is None
                 else _ENGINE_COUNTERS + _QOS_WINDOW_COUNTERS)
@@ -443,6 +460,8 @@ class StatsWindow:
                                  ("count", "wall_s"))
                        for ph in SERVE_PHASES},
             "health": _diff(cur["health"], prev["health"]),
+            "tier": _diff(cur["tier"], prev["tier"]),
+            "tier_gauges": cur["tier_gauges"],
         }
         self._prev = cur
         self._t_prev = now

@@ -84,8 +84,10 @@ policy, refine_checked (the escalation ladder's rung 2), the precision
 tiers, the stacked (gang) programs, the bucket lifecycle
 (`bucket_ready`, `release_buckets` and the per-device warmth registry,
 one set of warm buckets),
-`SolveSession.to_device` and the plan codec (`plan_spec`,
-`plan_from_spec`). Not ported yet, each raising NotImplementedError: mesh
+`SolveSession.to_device`, the plan codec (`plan_spec`,
+`plan_from_spec`) and the residency hooks of tiered sessions (`tier`: a
+spilled session faults back in under its lock on its next touch,
+`_ensure_resident`). Not ported yet, each raising NotImplementedError: mesh
 plans and matmul precision other than 'highest'.
 """
 
@@ -1424,10 +1426,20 @@ class SolveSession:
         self.solves = 0            # guarded-by: _lock
         self.updates = 0           # guarded-by: _lock
         self.refactors = 0         # guarded-by: _lock
-        # the JAX package's checkpoint dirty clock: bumped by every
-        # mutation of what a checkpoint holds (update, refactor, a moved
-        # 'auto' rung, a device move); the checkpoint waits for tier.py
+        # the checkpoint dirty clock: bumped by every mutation of what a
+        # checkpoint holds (update, refactor, a moved 'auto' rung, a device
+        # move, adoption by a ResidentSet); solve-only traffic leaves it,
+        # so an incremental checkpoint (`tier.save_fleet(base=...)`)
+        # carries the session's previous record
         self._ckpt_ver = 0         # guarded-by: _lock
+        # tiered residency (`tier.ResidentSet`): the managing set (None:
+        # untiered), the spill record while the state lives off the card
+        # (every state-touching method faults it back in first,
+        # `_ensure_resident`, under this lock), and the LRU clock (one int
+        # write per touch, read racily by the manager's eviction)
+        self._residency = None
+        self._spill = None         # guarded-by: _lock
+        self._tier_stamp = 0
         # gang residency (`gang.SessionGang`): the gang holding a slot for
         # this session (None: unganged), the slot, and the write-back
         # clock: every mutation of the resident state bumps `_gang_ver`,
@@ -1461,18 +1473,48 @@ class SolveSession:
 
     @property
     def update_rank(self) -> int:
-        """Accumulated drift rank since the last (re)factorization."""
+        """Accumulated drift rank since the last (re)factorization (a
+        spilled session reports its record's, without faulting in)."""
         with self._lock:
+            if self._spill is not None and self._spill.meta:
+                u = self._spill.meta.get("upd")
+                return 0 if u is None else u["k"]
             return 0 if self._upd is None else self._upd["k"]
+
+    # requires-lock: _lock
+    def _ensure_resident(self) -> None:
+        """Fault a spilled session back in and stamp the LRU clock: the
+        revival hook every state-touching method runs first, under the
+        session lock (a request never sees half-restored state). Untiered
+        sessions pay two attribute reads."""
+        if self._spill is not None:
+            if self._residency is None:
+                raise resilience.SessionSpilled(
+                    "session is spilled but no ResidentSet manages it (the manager "
+                    "detached or the record was grafted): revive through "
+                    "ResidentSet.fault_in")
+            self._residency.fault_in(self)
+        rs = self._residency
+        if rs is not None:
+            self._tier_stamp = rs._tick()
+
+    @property
+    def tier(self) -> str:
+        """'device' (resident), 'host' or 'disk' (spilled), or 'corrupt'
+        (a record that failed its integrity check: `RestoreCorrupt`)."""
+        with self._lock:
+            return "device" if self._spill is None else self._spill.tier
 
     @property
     def nbytes(self) -> int:
         """Device-resident footprint in bytes: factors, base matrix, the
         Woodbury state and the cached probe, each buffer counted once (`_A`
         aliases `_A0` whenever the plan keeps it); the derived cross-tier
-        factors are left out."""
+        factors are left out. 0 while spilled: the spill record accounts
+        its own host or disk bytes (`tier.ResidentSet` and
+        `engine.stats()` read this)."""
         with self._lock:
-            leaves = [*self._factors, self._A, self._A0]
+            leaves = [*(self._factors or ()), self._A, self._A0]
             leaves += list(self._probe) if isinstance(self._probe, tuple) else [self._probe]
             if self._upd is not None:
                 leaves += [self._upd[k] for k in ("Up", "Vp", "Y", "Cinv")]
@@ -1497,6 +1539,7 @@ class SolveSession:
             return self
         dev = resolve_device(device)
         with self._lock:
+            self._ensure_resident()
             if self.device is not None and same_device(self.device, dev):
                 return self
             moved = put_tree(
@@ -1613,6 +1656,7 @@ class SolveSession:
         plan = self.plan
         b2, nb, nrhs, squeeze = self._rhs_bucketed(b)
         with self._lock:
+            self._ensure_resident()
             tier = self._resolve_tier(precision)
             with profiler.region("serve.solve"):
                 if self._upd is not None:
@@ -1632,6 +1676,7 @@ class SolveSession:
         """The session's cached probe row wA = w^T A0 ((u, uA) for a QR
         plan): device-resident, once per base."""
         with self._lock:
+            self._ensure_resident()
             if self._probe is None:
                 self._probe = self.plan._probe_fn()(self._A0)
                 # made on an engine lane's stream, it is used on the
@@ -1648,6 +1693,7 @@ class SolveSession:
         plan = self.plan
         b2, nb, nrhs, squeeze = self._rhs_bucketed(b)
         with self._lock:
+            self._ensure_resident()
             tier = self._resolve_tier(precision)
             wA = self._probe_row()
             with profiler.region("serve.solve"):
@@ -1678,6 +1724,7 @@ class SolveSession:
         if nb != nrhs:
             x2 = torch.nn.functional.pad(x2, (0, nb - nrhs))
         with self._lock:
+            self._ensure_resident()
             if self._upd is not None:
                 raise AssertionError(
                     "refine_checked rides the base factors — refactor() the drifted "
@@ -1693,6 +1740,7 @@ class SolveSession:
         (:meth:`_refactor`); an undrifted session refactors its resident
         base, replacing possibly corrupt factors. Returns self."""
         with self._lock:
+            self._ensure_resident()
             if self._upd is not None:
                 k = self._upd["k"]
                 self._refactor(self._upd["Up"][..., :k], self._upd["Vp"][..., :k])
@@ -1743,6 +1791,7 @@ class SolveSession:
         V = _as_tensor(V, self.device).to(dtype)
         self._check_uv(U, V)
         with self._lock, profiler.region("serve.update"):
+            self._ensure_resident()
             if self._upd is not None:
                 if not replace:
                     k0 = self._upd["k"]
@@ -1770,6 +1819,9 @@ class SolveSession:
             self.updates += 1
             self._ckpt_ver += 1
             self._gang_ver += 1  # the gang slot is stale: lazy re-sync
+            if self._residency is not None:
+                # the Woodbury state grew the footprint
+                self._residency._note_bytes(self)
         return self
 
     def _refactor(self, Up, Vp):
@@ -1803,6 +1855,9 @@ class SolveSession:
             self.refactors += 1
             self._ckpt_ver += 1
             self._gang_ver += 1  # the gang slot is stale: lazy re-sync
+            if self._residency is not None:
+                # the Woodbury state is gone and the base may be new
+                self._residency._note_bytes(self)
 
 
 def session_from_numpy(plan: FactorPlan, factors, A, device=None) -> SolveSession:

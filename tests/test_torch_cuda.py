@@ -1014,3 +1014,182 @@ def test_to_device_from_the_cpu_to_the_card_and_back_bitwise(cuda):
     after = (*s.factors, s._A0, s._probe)
     assert all(torch.equal(a, b) for a, b in zip(before, after))
     assert s._A is s._A0 and s.nbytes == nbytes
+
+
+# --------------------------------------------------------------------------- #
+# tiered residency and the fleet checkpoint on the card
+# --------------------------------------------------------------------------- #
+
+
+def _tier_session(cuda, case: str):
+    """A (256, 256) session of each tiered case: an f32 LU plan drifted by
+    rank 3 (refine 1), a `bf16_ir` tier session (bf16 factors, int64
+    permutation) and an f64 LU plan."""
+    from conflux_tpu_torch import serve
+
+    serve.clear_plans()
+    n = 256
+    dtype = torch.float64 if case == "f64" else torch.float32
+    plan = serve.FactorPlan.create((n, n), dtype, v=128, refine=1)
+    A = (_rand((n, n), 70, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)).to(dtype)
+    if case == "bf16_ir":
+        return plan.factor(A, precision="bf16_ir"), n
+    s = plan.factor(A)
+    if case == "f32_drift":
+        U = (0.01 * _rand((n, 3), 71, cuda)).to(dtype)
+        s.update(U, U)
+    return s, n
+
+
+@pytest.mark.parametrize("case", ["f32_drift", "bf16_ir", "f64"])
+def test_tier_spill_disk_and_checkpoint_round_trips_bitwise(cuda, case, tmp_path):
+    """Spill -> revive (host), spill -> demote -> revive (disk) and
+    checkpoint -> restore give bitwise the never-spilled session's plain
+    and checked answers, bf16 factors and int64 permutations included."""
+    from conflux_tpu_torch import tier
+    from conflux_tpu_torch.tier import ResidentSet
+
+    s, n = _tier_session(cuda, case)
+    dtypes = {str(t.dtype) for t in s.factors}
+    if case == "bf16_ir":
+        assert "torch.bfloat16" in dtypes and "torch.int64" in dtypes, dtypes
+    b = _rand((n, 2), 72, cuda).to(s._A0.dtype)
+    x0 = s.solve(b).clone()
+    xc0, v0 = (t.clone() for t in s.solve_checked(b))
+    leaves0 = {k: t.clone() for k, t in tier._extract_state(s)[0].items()}
+    rs = ResidentSet(disk_dir=str(tmp_path / "spill"))
+    rs.adopt(s)
+
+    def same():
+        xc, v = s.solve_checked(b)
+        return torch.equal(x0, s.solve(b)) and torch.equal(xc0, xc) and torch.equal(v0, v)
+
+    assert rs.spill(s) == 1 and s.tier == "host" and s.nbytes == 0
+    assert same() and s.tier == "device"
+    for k, t in tier._extract_state(s)[0].items():
+        assert t.device.type == "cuda" and t.dtype == leaves0[k].dtype
+        assert t.stride() == leaves0[k].stride() and torch.equal(t, leaves0[k]), k
+    assert rs.spill(s) == 1 and rs.demote(s) == 1 and s.tier == "disk"
+    assert same()
+    tier.save_fleet(str(tmp_path / "ck"), [s])
+    (r,) = tier.load_fleet(str(tmp_path / "ck"))
+    xc, v = r.solve_checked(b)
+    assert torch.equal(x0, r.solve(b)) and torch.equal(xc0, xc) and torch.equal(v0, v)
+
+
+def _sync_warnings(fn) -> int:
+    """The host syncs `fn` makes, as torch's sync debug mode counts them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_tier_spill_wave_makes_one_host_sync_and_dispatch_stays_sync_free(cuda):
+    """An eviction wave of 8 sessions waits for the card once (the pinned
+    copies ride one copy stream); the revivals queue their copies without
+    waiting; and with a residency attached the resident dispatch path of
+    the engine makes no host sync at all."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.tier import ResidentSet
+
+    serve.clear_plans()
+    n = 256
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=128)
+    A = _rand((8, n, n), 73, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    fleet = [plan.factor(A[i]) for i in range(8)]
+    b = _rand((n, 1), 74, cuda)
+    want = [s.solve(b).clone() for s in fleet]
+    rs = ResidentSet(evict_batch=8)
+    rs.adopt(*fleet)
+    rs.spill(*fleet[:2])  # warm the copy stream and the pinned host cache
+    for s in fleet[:2]:
+        rs.fault_in(s)
+    assert _sync_warnings(lambda: rs.spill(*fleet)) == 1
+    assert all(s.tier == "host" for s in fleet)
+    assert _sync_warnings(lambda: [rs.fault_in(s) for s in fleet]) == 0
+    assert all(torch.equal(w, s.solve(b)) for w, s in zip(want, fleet))
+    with ServeEngine(max_batch_delay=0.002, residency=rs) as eng:
+        eng.prewarm(fleet[0], widths=(1,))
+        rng = np.random.default_rng(75)
+        reqs = [(fleet[i % 8], rng.standard_normal(n).astype(np.float32)) for i in range(32)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [f.result(300) for f in [eng.submit(s, x) for s, x in reqs]]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for (s, x), g in zip(reqs, got):
+        np.testing.assert_array_equal(g, s.solve(torch.from_numpy(x).to(cuda)).cpu().numpy())
+
+
+def test_tier_spill_revive_hammer_under_live_engine_traffic(cuda):
+    """12 sessions over 4 resident slots behind an engine: client threads
+    submit against random sessions while another thread spills and
+    revives; every answer holds to its own session's A."""
+    import threading
+
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.tier import ResidentSet
+
+    serve.clear_plans()
+    n, S = 256, 12
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=128)
+    A = _rand((S, n, n), 76, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    fleet = [plan.factor(A[i]) for i in range(S)]
+    per = fleet[0].nbytes
+    rs = ResidentSet(max_sessions=4, evict_batch=2)
+    errs, results = [], []
+    lock = threading.Lock()
+    with ServeEngine(max_batch_delay=0.001, residency=rs, revive_wait=60.0) as eng:
+        rs.adopt(*fleet)
+        eng.prewarm(fleet[0], widths=(1, 2, 4, 8))
+        stop = threading.Event()
+
+        def client(seed):
+            rng = np.random.default_rng(seed)
+            try:
+                for _ in range(40):
+                    i = int(rng.integers(S))
+                    x = rng.standard_normal(n).astype(np.float32)
+                    got = eng.submit(fleet[i], x).result(300)
+                    with lock:
+                        results.append((i, x, got))
+            except Exception as e:  # noqa: BLE001 - recorded, asserted
+                errs.append(e)
+
+        def churn():
+            rng = np.random.default_rng(77)
+            while not stop.is_set():
+                rs.spill(fleet[int(rng.integers(S))])
+                rs.spill_lru(1)
+                rs.fault_in(fleet[int(rng.integers(S))])
+
+        ch = threading.Thread(target=churn, daemon=True)
+        ch.start()
+        ts = [threading.Thread(target=client, args=(80 + k,)) for k in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        stop.set()
+        ch.join(60)
+    assert not errs, errs[:3]
+    assert len(results) == 160
+    worst = 0.0
+    for i, x, got in results:
+        xx = torch.from_numpy(got).to(cuda)[:, None]
+        bb = torch.from_numpy(x).to(cuda)[:, None]
+        worst = max(worst, float((A[i] @ xx - bb).abs().max()))
+    assert worst < 1e-4, worst
+    st = rs.stats()
+    assert st["resident_high_water"] <= 4 and st["device_bytes_high_water"] <= 4 * per

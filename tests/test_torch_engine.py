@@ -377,13 +377,16 @@ def test_engine_knobs_and_unported_keywords():
             eng.set_knobs(max_stack=0)
         with pytest.raises(ValueError, match="lane"):
             eng.set_knobs(lane=0, max_batch_delay=0.001, stack_sessions=True)
-        for call, what in ((lambda: eng.checkpoint("x", sessions=[]), "tier.py"),
-                           (lambda: eng.restore("x"), "tier.py")):
-            with pytest.raises(NotImplementedError, match=what):
-                call()
-    for kw, what in (({"residency": object()}, "tier.py"),
-                     ({"controller": object()}, "control.py"),
-                     ({"lanes": 2}, "mesh lane"), ({"lanes": "auto"}, "mesh lane"),
+        # ported since: checkpoint needs a fleet (sessions= or a residency)
+        with pytest.raises(ValueError, match="residency"):
+            eng.checkpoint("x")
+    from conflux_tpu_torch.control import AdaptiveController
+    from conflux_tpu_torch.tier import ResidentSet
+
+    rs, ctl = ResidentSet(), AdaptiveController(interval=60.0)
+    with ServeEngine(device=CPU, residency=rs, controller=ctl) as eng:
+        assert rs.engine is eng and "tier" in eng.stats() and "controller" in eng.stats()
+    for kw, what in (({"lanes": 2}, "mesh lane"), ({"lanes": "auto"}, "mesh lane"),
                      ({"devices": ["cpu", "cpu"]}, "mesh lane")):
         with pytest.raises(NotImplementedError, match=what):
             ServeEngine(device=CPU, **kw)

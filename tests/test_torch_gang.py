@@ -1,7 +1,8 @@
 """Gang-resident session stacks in the port (`conflux_tpu_torch.gang`,
 `ServeEngine(stack_sessions=True)`) on the CPU: twins of the reference's
-tests/test_gang.py, one lane. The reference's spill/revive, controller
-and per-lane-slice cases wait for tier.py, control.py and several lanes.
+tests/test_gang.py, one lane. The reference's spill/revive and controller
+cases are in test_torch_tier.py and test_torch_control.py; its per-lane-slice
+cases wait for several lanes.
 
 Gang answers are allclose the solo dispatch here (rtol 2e-5 plain, 5e-5
 drifted, the reference's bars) and bitwise invariant to the stack bucket
