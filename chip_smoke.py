@@ -190,12 +190,26 @@ Phases, each of which must pass or the script exits non-zero:
      growth to 64: at least 12 ticks and no tick error, every width
      growth bucket-ready with no build and no program across the switch,
      sampled answers bitwise the direct solves, every K3 round at a new
-     shape held against its plain version; p99 per regime printed.
+     shape held against its plain version; p99 per regime printed;
+ 31. the serve fabric (`fabric.ServeFabric`, cell p): in process, three
+     `LocalHost`s on the card with 12 sessions (six (32, 256, 256) f32 LU
+     plans, v=128, four (1024, 1024) LU plans, v=256, two drifted by rank
+     16, two (32, 256, 256) SPD plans), K4/K5 launches equal to the opens'
+     factor-lane batches, 192 requests of widths 1,1,2,4 from 8 threads
+     bitwise the direct `session.solve` (the drifted sessions' within 1e-5,
+     their non-bitwise answers counted; first K3 round at each shape held
+     against its plain version, K3 once per engine batch), one host
+     killed (bitwise, 0 lost, census conserved), one live migration and a
+     replicas=2 kill that re-points; then `scripts/torch_fabric_drill.py`:
+     six worker processes on the card over the shm wire (2 workers against
+     1 bitwise, migration, SIGKILL -> HostUnavailable -> fail-over, K=2
+     re-point, a torn reply read as WireCorrupt, no /dev/shm leak), each
+     worker's K3/K4/K5 launches read through the host `stats` op.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round (phase 29 reads the counts
-of its two processes from their last lines; phase 30 serves solves only,
-K3).
+of its two processes from their last lines, phase 31 its drill's workers'
+from the drill's last line; phase 30 serves solves only, K3).
 
 The line before the last is the kernels' JSON record (K3's entry: the LU
 round, `btrsm_pair`, at serving (a)'s (32, 256, 256) with one right-hand
@@ -1534,7 +1548,8 @@ def _held_to_plain(tag: str, kernels: tuple = ("gemm", "lu_block")):
     (`lu_block`) by equal pivots and alive rows in every slot and its output
     allclose K2_TOL, K3 (`btrsm_pair`, a solve round) by relative Frobenius
     error K3_TOL (its probe stats K3_STATS_TOL; a round with the fused
-    probe is keyed apart, its dtype marked "probe"; a round whose rhs is
+    probe is keyed apart, its dtype marked "probe", and an SPD round, back
+    through L^T, marked "L^T"; a round whose rhs is
     not finite or all zero, an injected fault or a warm-up, is not
     compared). One line a kernel
     after the block; fails the phase on any disagreement, or if a kernel of
@@ -1568,8 +1583,8 @@ def _held_to_plain(tag: str, kernels: tuple = ("gemm", "lu_block")):
 
     def held_btrsm_pair(T, Dl, Du, b, *, perm=None, trans_back=False, wA=None):
         got = btrsm_pair(T, Dl, Du, b, perm=perm, trans_back=trans_back, wA=wA)
-        key = (str(T.dtype).removeprefix("torch.") + ("" if wA is None else " probe"),
-               tuple(b.shape))
+        key = (str(T.dtype).removeprefix("torch.") + ("" if wA is None else " probe")
+               + (" L^T" if trans_back else ""), tuple(b.shape))
         if key not in k3 and bool(torch.isfinite(b).all()) and bool(b.any()):
             want = hk.btrsm_pair_plain(T, Dl, Du, b, perm, trans_back, wA)
             x, xw = (got, want) if wA is None else (got[0], want[0])
@@ -3208,6 +3223,228 @@ def phase_controller() -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# 31: the serve fabric (`fabric.ServeFabric`) on the card
+# --------------------------------------------------------------------------- #
+
+
+def _drill_module():
+    """`scripts/torch_fabric_drill.py` as a module: its fleet, traces and
+    helpers serve the in-process leg too."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_fabric_drill.py")
+    spec = importlib.util.spec_from_file_location("torch_fabric_drill", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k in ("btrsm", "batched_lu", "batched_chol"):
+        total[k] = total.get(k, 0) + int(counts.get(k, 0))
+
+
+def _engines_sum(fab, key: str) -> int:
+    return sum(h.core.eng.counters()[key] for h in fab._hosts.values()
+               if not h._killed.is_set())
+
+
+def phase_fabric() -> dict:
+    """(31) The serve fabric on the card. (a) In process: `local_fabric(3)`
+    with engines on the card, 12 sessions (six (32, 256, 256) f32 LU plans,
+    v=128; four (1024, 1024) LU plans, v=256, two of them drifted by rank
+    16 through `fabric.update`; two (32, 256, 256) SPD plans, v=128), K4
+    and K5 launches equal to the factor-lane batches of the opens, 192
+    requests of widths 1, 1, 2, 4 from 8 front threads, every answer of an
+    undrifted session bitwise the direct `session.solve` in this process (a
+    drifted one's within 1e-5: its Woodbury correction is a library
+    product over the coalesced width) and max |A x - b| < 1e-4,
+    K3 once per batch with its first round at each shape held against
+    `btrsm_pair_plain`; one host killed (every session bitwise as before,
+    adopted == owned, 0 lost, the census conserved), one live migration
+    bitwise, and a `replicas=2` fabric whose kill re-points (repointed ==
+    adopted >= 1, 0 snapshot restores). (b) Worker processes:
+    `scripts/torch_fabric_drill.py` as a subprocess (six workers on the
+    card over the shm wire), its last line read as phase 29 reads its
+    round trip's. Returns the launches of both legs."""
+    import numpy as np
+
+    from conflux_tpu_torch import fabric, resilience, serve
+    from conflux_tpu_torch.fabric import FabricPolicy
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    drill = _drill_module()
+    t_phase = time.perf_counter()
+    serve.clear_plans()
+    sessions = drill.fleet("gpu", bigs=4)
+    drifted = ("big-0", "big-1")
+    total: dict = {}
+    pol = FabricPolicy(heartbeat_interval=0.25, heartbeat_timeout=30.0, call_timeout=120.0)
+    eng = {"max_batch_delay": 0.002}
+    with tempfile.TemporaryDirectory(prefix="fabric31-") as root:
+        fab = fabric.local_fabric(3, os.path.join(root, "a"), engine_kwargs=eng, policy=pol)
+        try:
+            fab.start()
+            torch.cuda.synchronize()
+            hk.reset_launches()
+            mats = drill.open_fleet(fab, sessions, drifted=drifted)
+            torch.cuda.synchronize()
+            c_open = dict(hk.LAUNCHES)
+            fbatches = _engines_sum(fab, "factor_batches")
+            _add_counts(total, c_open)
+            n_spd = sum(spec["kind"] == "chol" for _s, spec, _d in sessions)
+            print(f"[fabric 31] opened {len(sessions)} sessions over 3 in-process hosts "
+                  f"(owners {fab.owner_census()}): launches {c_open}, factor-lane batches "
+                  f"{fbatches}", flush=True)
+            check(c_open["batched_lu"] + c_open["batched_chol"] == fbatches
+                  and c_open["batched_chol"] == n_spd
+                  and c_open["batched_lu"] == len(sessions) - n_spd,
+                  f"fabric 31: K4/K5 launches {c_open} != the opens' factor batches {fbatches}")
+            # the same plans and matrices, factored and drifted in this process
+            direct = {}
+            for sid, spec, seed in sessions:
+                d = drill.make_plan(spec).factor(drill.matrix(spec, seed))
+                if sid in drifted:
+                    d.update(*drill.drift(spec, seed))
+                direct[sid] = d
+            reqs = drill.trace(sessions, seed=31)
+            b0 = _engines_sum(fab, "batches")
+            torch.cuda.synchronize()
+            hk.reset_launches()
+            with _held_to_plain("fabric 31", ("btrsm",)):
+                xs, dt = drill.run_traffic(fab, reqs)
+                torch.cuda.synchronize()
+            c_traffic = dict(hk.LAUNCHES)
+            batches = _engines_sum(fab, "batches") - b0
+            _add_counts(total, c_traffic)
+            want = [direct[sid].solve(torch.from_numpy(b).cuda()).cpu().numpy()
+                    for sid, b in reqs]
+            # bitwise for sessions without drift; a drifted session's
+            # Woodbury correction is a library product over the coalesced
+            # width, held to 1e-5 and its non-bitwise answers counted
+            plain = [(x, w) for (sid, _b), x, w in zip(reqs, xs, want) if sid not in drifted]
+            bitwise = sum(int(x.shape == w.shape and bool((x == w).all())) for x, w in plain)
+            drift_rel = [float(np.abs(x - w).max() / np.abs(w).max())
+                         for (sid, _b), x, w in zip(reqs, xs, want) if sid in drifted]
+            worst = max(drill.residual(mats[sid], x, b) for (sid, b), x in zip(reqs, xs))
+            print(f"[fabric 31] {len(reqs)} requests from {drill.THREADS} threads in "
+                  f"{dt * 1e3:.1f} ms ({len(reqs) / dt:.1f} solves/s, host clock, with the "
+                  f"plain comparisons): {batches} engine batches, launches {c_traffic}; "
+                  f"bitwise the direct solve {bitwise}/{len(plain)} of the undrifted "
+                  f"sessions' answers; drifted: {sum(r > 0 for r in drift_rel)}/"
+                  f"{len(drift_rel)} not bitwise, max rel {max(drift_rel):.3e}; max "
+                  f"|A x - b| {worst:.3e}", flush=True)
+            check(bitwise == len(plain) and max(drift_rel) <= 1e-5,
+                  f"fabric 31: {bitwise}/{len(plain)} answers bitwise, drifted max rel "
+                  f"{max(drift_rel):.3e}")
+            check(worst < SOLVE_TOL, f"fabric 31: max |A x - b| {worst:.3e}")
+            check(c_traffic["btrsm"] == batches and c_traffic["batched_lu"] == 0,
+                  f"fabric 31: K3 launches {c_traffic} != engine batches {batches}")
+            rhs, ref = drill.sequential_refs(fab, sessions, seed=32)
+            hk.reset_launches()
+            # kill the host holding a drifted session
+            victim = fab.owner_of("big-0")
+            owned = sorted(s for s in ref if fab.owner_of(s) == victim)
+            fab._hosts[victim].kill()
+            rec = drill.wait_recovery(fab, victim) or {}
+            bad: list = []
+            after = {sid: drill.answer_through_failover(fab, sid, rhs[sid], bad, "kill")
+                     for sid in ref}
+            same = sum(int(after[s] is not None and np.array_equal(after[s], ref[s]))
+                       for s in ref)
+            st = fab.stats()
+            conserved = (st["sessions"] == len(sessions) and st["admitted_sessions"]
+                         == st["sessions"] + st["lost_sessions"] + st["closed_sessions"])
+            print(f"[fabric 31] killed {victim} ({len(owned)} sessions): recovery "
+                  f"{rec.get('seconds', float('nan')) * 1e3:.1f} ms, adopted "
+                  f"{rec.get('adopted')}, lost {rec.get('lost')}; bitwise as before "
+                  f"{same}/{len(ref)}; census {st['sessions']} open of "
+                  f"{st['admitted_sessions']} admitted", flush=True)
+            check(not bad and same == len(ref), f"fabric 31: after the kill {same}/{len(ref)} "
+                  f"bitwise {bad}")
+            check(rec.get("adopted") == len(owned) and rec.get("lost") == 0 and conserved,
+                  f"fabric 31: recovery {rec} for {len(owned)} owned, stats {st}")
+            mig = next(s for s in ref if fab.owner_of(s) != victim and s != "big-0")
+            src = fab.owner_of(mig)
+            tgt = fab.migrate(mig)
+            moved_ok = tgt != src and np.array_equal(np.asarray(fab.solve(mig, rhs[mig])),
+                                                     ref[mig])
+            print(f"[fabric 31] migrated {mig} {src} -> {tgt}: bitwise {moved_ok}", flush=True)
+            check(moved_ok, f"fabric 31: migration of {mig} not bitwise")
+            torch.cuda.synchronize()
+            _add_counts(total, hk.LAUNCHES)
+        finally:
+            fab.close()
+        # replicas=2: a kill re-points to the standbys
+        ids = ["h0", "h1", "h2"]
+        rsess = [(sid, spec, seed) for sid, (_n, spec, seed) in
+                 zip(drill.spread_sids("rep", ids, 2), sessions[:6])]
+        rpol = FabricPolicy(heartbeat_interval=0.25, heartbeat_timeout=30.0,
+                            call_timeout=120.0, replicas=2)
+        fab = fabric.local_fabric(3, os.path.join(root, "r"), engine_kwargs=eng, policy=rpol)
+        try:
+            fab.start()
+            torch.cuda.synchronize()
+            hk.reset_launches()
+            drill.open_fleet(fab, rsess, drifted=())
+            rrhs, rref = drill.sequential_refs(fab, rsess, seed=33)
+            replicated = fab.stats()["replicated_sessions"]
+            r0 = resilience.health_stats().get("fabric_snapshot_restores", 0)
+            rvictim = fab.owner_of(rsess[0][0])
+            rowned = [s for s in rref if fab.owner_of(s) == rvictim]
+            fab._hosts[rvictim].kill()
+            rrec = drill.wait_recovery(fab, rvictim) or {}
+            restores = resilience.health_stats().get("fabric_snapshot_restores", 0) - r0
+            bad = []
+            rsame = 0
+            for sid in rref:
+                got = drill.answer_through_failover(fab, sid, rrhs[sid], bad, "replica")
+                rsame += int(got is not None and np.array_equal(got, rref[sid]))
+            torch.cuda.synchronize()
+            _add_counts(total, hk.LAUNCHES)
+            print(f"[fabric 31] replicas=2: {replicated}/{len(rsess)} replicated; killed "
+                  f"{rvictim} ({len(rowned)} sessions): re-pointed {rrec.get('repointed')} "
+                  f"of {rrec.get('adopted')} adopted in "
+                  f"{rrec.get('seconds', float('nan')) * 1e3:.1f} ms, {restores} snapshot "
+                  f"restores, lost {rrec.get('lost')}; bitwise {rsame}/{len(rref)}", flush=True)
+            check(replicated == len(rsess) and rrec.get("repointed") == rrec.get("adopted")
+                  == len(rowned) >= 1 and rrec.get("lost") == 0 and restores == 0,
+                  f"fabric 31: replica kill {rrec}, {restores} snapshot restores")
+            check(not bad and rsame == len(rref), f"fabric 31: replicas {rsame}/{len(rref)} "
+                  f"bitwise {bad}")
+        finally:
+            fab.close()
+    del direct
+    torch.cuda.empty_cache()
+    print(f"[fabric 31] in-process leg {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{total}", flush=True)
+    # (b) the worker processes
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_fabric_drill.py")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=900)
+    lines = p.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[fabric 31] {line}", flush=True)
+    if p.returncode != 0:
+        print(p.stderr[-4000:], file=sys.stderr, flush=True)
+    check(p.returncode == 0 and lines, f"fabric 31: the drill exited {p.returncode}")
+    doc = json.loads(lines[-1])
+    check(doc["ok"], f"fabric 31: the drill failed: {doc['failures']}")
+    print(f"[fabric 31] drill {time.perf_counter() - t0:.1f} s: workers started in "
+          f"{doc['start_s']} s, launches per worker {doc['launches']}, solves/s 2 workers "
+          f"{doc['healthy']['solves_per_s_2_workers']} vs 1 worker "
+          f"{doc['healthy']['solves_per_s_1_worker']}, SIGKILL recovery "
+          f"{doc['kill']['recovery']['seconds'] * 1e3:.1f} ms, HostUnavailable in "
+          f"{doc['kill']['host_unavailable_ms']} ms, shm leaks {doc['shm_leaks']}", flush=True)
+    _add_counts(total, doc["launches_total"])
+    print(f"[fabric 31] phase {time.perf_counter() - t_phase:.1f} s, launches {total}",
+          flush=True)
+    return total
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -3266,7 +3503,8 @@ def main() -> int:
     c28 = phase_tier()
     c29 = phase_ckpt()
     c30 = phase_controller()
-    late = (c28, c29, c30)
+    c31 = phase_fabric()
+    late = (c28, c29, c30, c31)
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"] + sum(c.get("gemm", 0) for c in late)
     k2["launches"] += cf["lu_block"] + cl["lu_block"] + sum(c.get("lu_block", 0) for c in late)
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]

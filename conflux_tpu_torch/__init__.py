@@ -30,7 +30,11 @@ precision ladder and the resilience layer's escalation rungs
 serving counters); tiered session residency and the fleet checkpoint
 (`tier.py`: `ResidentSet`, `save_fleet`, `load_fleet`, over the port's
 copy of `io.py`'s matrix files) and the adaptive controller
-(`control.py`: `AdaptiveController`, `ControlLimits`).
+(`control.py`: `AdaptiveController`, `ControlLimits`); and the serve
+fabric (`fabric.py`: `ServeFabric` over in-process `LocalHost`s or
+`ProcessHost` worker processes, with fail-over, migration, elastic
+membership and replicas; `wire.py`, the shared-memory payload rings; and
+`control.py`'s `HostLoadEstimator`, `AutoscalePolicy`, `FabricAutoscaler`).
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_grid
@@ -102,6 +106,26 @@ def __getattr__(name):
         "RestoreCorrupt": ("conflux_tpu_torch.resilience", "RestoreCorrupt"),
         "AdaptiveController": ("conflux_tpu_torch.control", "AdaptiveController"),
         "ControlLimits": ("conflux_tpu_torch.control", "ControlLimits"),
+        "CholeskyGeometry": ("conflux_tpu_torch.geometry", "CholeskyGeometry"),
+        "CounterWindow": ("conflux_tpu_torch.profiler", "CounterWindow"),
+        "DeadlineExceeded": ("conflux_tpu_torch.resilience", "DeadlineExceeded"),
+        "SessionQuarantined": ("conflux_tpu_torch.resilience", "SessionQuarantined"),
+        "MeshPlanUnsupported": ("conflux_tpu_torch.resilience", "MeshPlanUnsupported"),
+        "HostUnavailable": ("conflux_tpu_torch.resilience", "HostUnavailable"),
+        "FleetDegraded": ("conflux_tpu_torch.resilience", "FleetDegraded"),
+        "FairShareLedger": ("conflux_tpu_torch.qos", "FairShareLedger"),
+        "stack_trees": ("conflux_tpu_torch.batched", "stack_trees"),
+        "unstack_tree": ("conflux_tpu_torch.batched", "unstack_tree"),
+        "write_slot_tree": ("conflux_tpu_torch.batched", "write_slot_tree"),
+        "grow_stack_tree": ("conflux_tpu_torch.batched", "grow_stack_tree"),
+        "DeviceLane": ("conflux_tpu_torch.engine", "DeviceLane"),
+        "HostLoadEstimator": ("conflux_tpu_torch.control", "HostLoadEstimator"),
+        "AutoscalePolicy": ("conflux_tpu_torch.control", "AutoscalePolicy"),
+        "FabricAutoscaler": ("conflux_tpu_torch.control", "FabricAutoscaler"),
+        "ServeFabric": ("conflux_tpu_torch.fabric", "ServeFabric"),
+        "FabricPolicy": ("conflux_tpu_torch.fabric", "FabricPolicy"),
+        "LocalHost": ("conflux_tpu_torch.fabric", "LocalHost"),
+        "ProcessHost": ("conflux_tpu_torch.fabric", "ProcessHost"),
     }
     if name in _lazy:
         import importlib
@@ -176,4 +200,24 @@ __all__ = [
     "RestoreCorrupt",
     "AdaptiveController",
     "ControlLimits",
+    "CholeskyGeometry",
+    "CounterWindow",
+    "DeadlineExceeded",
+    "SessionQuarantined",
+    "MeshPlanUnsupported",
+    "HostUnavailable",
+    "FleetDegraded",
+    "FairShareLedger",
+    "stack_trees",
+    "unstack_tree",
+    "write_slot_tree",
+    "grow_stack_tree",
+    "DeviceLane",
+    "HostLoadEstimator",
+    "AutoscalePolicy",
+    "FabricAutoscaler",
+    "ServeFabric",
+    "FabricPolicy",
+    "LocalHost",
+    "ProcessHost",
 ]

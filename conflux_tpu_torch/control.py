@@ -1,5 +1,5 @@
 """Closed-loop autotuning of the serve engine from live telemetry (the
-port of the controller half of `conflux_tpu/control.py`).
+port of `conflux_tpu/control.py`).
 
 The serving stack's throughput comes from spending a little buffering and
 latency to buy fewer, larger device operations, and the knobs that price
@@ -54,9 +54,13 @@ carry no behavioral change.
     eng.stats()["controller"]   # ticks, decisions, window, knobs
 
 Decisions are recorded in a bounded log (`stats()['decisions_log']`), each
-entry (t, knob, old, new, reason). The fabric's autoscaling half
-(`HostLoadEstimator`, `AutoscalePolicy`, `FabricAutoscaler`) waits for the
-port of `fabric.py`.
+entry (t, knob, old, new, reason).
+
+The fabric half: :class:`HostLoadEstimator` keeps per-host drain-rate EMAs
+for the serve fabric's retry hints and least-loaded picks, and
+:class:`FabricAutoscaler` grows, shrinks and rebalances a
+:class:`~conflux_tpu_torch.fabric.ServeFabric` under an
+:class:`AutoscalePolicy`, behind a ``HostProvider`` callback.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ import time
 
 from conflux_tpu_torch import profiler
 from conflux_tpu_torch import qos as qos_mod
+from conflux_tpu_torch.resilience import bump
 from conflux_tpu_torch.update import rank_bucket
 
 # the health counters whose window deltas count as "guard trips" — any
@@ -1175,3 +1180,445 @@ class AdaptiveController:
             "tier": {},
             "tier_gauges": {},
         }
+
+
+class HostLoadEstimator:
+    """Per-host drain-rate EMAs for the serve fabric.
+
+    The fabric's heartbeat thread feeds each host's counter deltas
+    (``profiler.CounterWindow`` output over the ping payload) into
+    :meth:`feed`; this keeps one smoothed solves/s estimate and one
+    pending-depth gauge per host.  Two consumers:
+
+    * :meth:`retry_after` — a measured-drain-rate retry hint for
+      ``HostUnavailable``/``FleetDegraded`` (same policy as
+      ``EngineSaturated.retry_after``: backlog over the smoothed
+      drain rate, clamped to ``[floor, ceil]``).
+    * :meth:`least_loaded` — migration/fail-over target pick among
+      candidate hosts: lowest pending depth, ties broken by highest
+      drain rate, then host id (deterministic).
+    """
+
+    def __init__(self, ema: float = 0.3, floor: float = 0.05,
+                 ceil: float = 5.0):
+        self.ema = float(ema)
+        self.floor = float(floor)
+        self.ceil = float(ceil)
+        self._lock = threading.Lock()
+        self._rate: dict[str, float] = {}     # guarded-by: _lock
+        self._pending: dict[str, int] = {}    # guarded-by: _lock
+        # host -> tier -> smoothed drain rate, fed from the flat
+        # qos_<tier>_solves heartbeat counters (DESIGN §30); empty for
+        # hosts that never report classified traffic
+        self._tier_rate: dict[str, dict[str, float]] = {}  # guarded-by: _lock
+        # host -> shm wire ring occupancy in [0, 1] (DESIGN §31): the
+        # fuller of the host's two payload rings, a gauge straight off
+        # the ping payload; absent for pickle-wire hosts
+        self._wire: dict[str, float] = {}  # guarded-by: _lock
+
+    def feed(self, host: str, delta: dict) -> None:
+        """Fold one heartbeat counter-delta window for ``host``.
+
+        ``delta`` is a ``CounterWindow.feed`` result over the host's
+        engine counters: ``solves`` (window increment) and ``seconds``
+        give the instantaneous rate; ``pending`` gives the depth (a
+        gauge — the fabric re-injects the RAW heartbeat value after
+        the window differences the payload). ``wire_used_frac`` (also
+        a re-injected gauge) reports the host's shm payload-ring
+        occupancy (DESIGN §31) — a near-full wire backpressures
+        admission before pending depth shows it, so placement reads
+        it directly.
+        """
+        secs = max(1e-9, float(delta.get("seconds", 0.0) or 0.0))
+        rate = float(delta.get("solves", 0) or 0) / secs
+        pending = int(delta.get("pending", 0) or 0)
+        tiers = {k[len("qos_"):-len("_solves")]:
+                 float(v or 0) / secs
+                 for k, v in delta.items()
+                 if k.startswith("qos_") and k.endswith("_solves")}
+        with self._lock:
+            prev = self._rate.get(host)
+            if prev is None:
+                self._rate[host] = rate
+            else:
+                self._rate[host] = self.ema * rate + (1 - self.ema) * prev
+            self._pending[host] = pending
+            wire = delta.get("wire_used_frac")
+            if wire is not None:
+                self._wire[host] = min(1.0, max(0.0, float(wire)))
+            if tiers:
+                cur = self._tier_rate.setdefault(host, {})
+                for t, r in tiers.items():
+                    p = cur.get(t)
+                    cur[t] = r if p is None else (
+                        self.ema * r + (1 - self.ema) * p)
+
+    def forget(self, host: str) -> None:
+        """Drop a dead host's state so it doesn't skew future picks."""
+        with self._lock:
+            self._rate.pop(host, None)
+            self._pending.pop(host, None)
+            self._tier_rate.pop(host, None)
+            self._wire.pop(host, None)
+
+    def retry_after(self, backlog: int = 1,
+                    hosts: "list[str] | None" = None) -> float:
+        """Seconds until ~``backlog`` items drain at the measured
+        aggregate rate of ``hosts`` (all known hosts when None)."""
+        with self._lock:
+            rates = [r for h, r in self._rate.items()
+                     if hosts is None or h in hosts]
+        total = sum(rates)
+        if total <= 0.0:
+            return self.ceil
+        return min(self.ceil, max(self.floor, backlog / total))
+
+    def wire_frac(self, host: str) -> float:
+        """The host's last-reported shm ring occupancy in [0, 1]
+        (0.0 when unknown/pickle-wire) — the fabric's shared
+        `_pick_target` refuses rebalance targets at ≥ 0.9."""
+        with self._lock:
+            return self._wire.get(host, 0.0)
+
+    def sessions_capacity_util(self, host: str,
+                               sessions: int,
+                               bytes_per_session: float,
+                               host_bytes: float) -> float:
+        """Memory-model utilization for one host: owned sessions ×
+        the measured bytes/session working set over the host's state
+        budget. The :class:`FabricAutoscaler`'s capacity axis, seeded
+        from BENCH_WORKINGSET's bytes/session."""
+        del host  # symmetry with the rate axis; the model is global
+        if host_bytes <= 0:
+            return 0.0
+        return sessions * bytes_per_session / host_bytes
+
+    def drain_util(self, host: str, capacity_per_s: float) -> float:
+        """Rate-model utilization for one host: the smoothed TOTAL
+        qos drain rate (sum over tiers — the per-host
+        `qos_drain_per_s` EMAs off the heartbeat's flat counters)
+        against a per-host drain capacity. 0.0 when the capacity is
+        unset/unknown — the memory axis then decides alone."""
+        if capacity_per_s <= 0:
+            return 0.0
+        with self._lock:
+            tiers = self._tier_rate.get(host)
+            rate = (sum(tiers.values()) if tiers
+                    else self._rate.get(host, 0.0))
+        return rate / capacity_per_s
+
+    def least_loaded(self, hosts: "list[str]") -> str:
+        """The best adoption target among ``hosts``: hosts whose shm
+        wire is congested (ring ≥ 90% full — their admission is about
+        to shed RingFull regardless of queue depth) sort behind
+        everyone else, then fewest pending solves, then fastest drain,
+        then lexicographic host id."""
+        if not hosts:
+            raise ValueError("least_loaded() needs at least one host")
+        with self._lock:
+            return min(hosts, key=lambda h: (self._wire.get(h, 0.0) >= 0.9,
+                                             self._pending.get(h, 0),
+                                             -self._rate.get(h, 0.0), h))
+
+    def stats(self) -> dict:
+        """Per-host smoothed rates and pending depths (telemetry)."""
+        with self._lock:
+            out = {h: {"drain_per_s": self._rate[h],
+                       "pending": self._pending.get(h, 0)}
+                   for h in sorted(self._rate)}
+            for h, tiers in self._tier_rate.items():
+                if h in out:
+                    out[h]["qos_drain_per_s"] = dict(sorted(tiers.items()))
+            for h, frac in self._wire.items():
+                if h in out:
+                    out[h]["wire_used_frac"] = round(frac, 4)
+            return out
+
+
+# --------------------------------------------------------------------------- #
+# fabric autoscaling (DESIGN §34)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class AutoscalePolicy:
+    """Knobs for :class:`FabricAutoscaler` (TUNING.md "Elastic
+    fabric"). The decision table lives in DESIGN §34.
+
+    min_hosts / max_hosts: hard bounds on the live host count.
+    interval: controller tick period (seconds) for the daemon loop.
+    high_water / low_water: fleet-mean utilization thresholds. Scale
+        OUT above high_water; scale IN only when the fleet would
+        STILL sit below high_water after losing a host (the low_water
+        check alone would flap right back out).
+    sustain: consecutive ticks a threshold must hold before acting —
+        the hysteresis that keeps one Poisson clump of arrivals (or
+        one quiet beat) from triggering a resize.
+    cooldown: seconds after ANY membership action before the next;
+        covers the drain/adopt transient a resize itself causes.
+    bytes_per_session: capacity-model seed — the measured per-session
+        working set (BENCH_WORKINGSET: ~525 KB/session for the
+        default serve shapes; re-seed from your own artifact).
+    host_bytes: per-host session-state budget the memory axis fills.
+    drain_capacity_per_s: per-host solve-rate capacity for the
+        `qos_drain_per_s` axis; 0 disables it (memory axis only).
+        Seeded from the measured bench drain numbers the same way
+        the memory axis rides BENCH_WORKINGSET: BENCH_QOS's bulk
+        overload leg drains ~1348 solves/s and BENCH_ADAPTIVE's
+        burst leg ~1253/s per host at the default serve shapes —
+        the default takes the conservative burst figure, so
+        sustained qos pressure (not just memory) can trigger
+        growth. Re-seed from your own artifact for other shapes.
+    rebalance_ratio / rebalance_floor / max_rebalance_moves: the
+        hot-host skew detector forwarded to `ServeFabric.rebalance`
+        every tick (bounded background correction, independent of the
+        resize hysteresis).
+    """
+
+    min_hosts: int = 1
+    max_hosts: int = 8
+    interval: float = 0.5
+    high_water: float = 0.80
+    low_water: float = 0.35
+    sustain: int = 3
+    cooldown: float = 5.0
+    bytes_per_session: float = 525e3
+    host_bytes: float = 64e6
+    drain_capacity_per_s: float = 1250.0
+    rebalance_ratio: float = 2.0
+    rebalance_floor: int = 4
+    max_rebalance_moves: int = 2
+
+    def __post_init__(self):
+        if not (1 <= self.min_hosts <= self.max_hosts):
+            raise ValueError("need 1 <= min_hosts <= max_hosts")
+        if not (0.0 < self.low_water < self.high_water):
+            raise ValueError("need 0 < low_water < high_water")
+        if self.sustain < 1 or self.interval <= 0:
+            raise ValueError("sustain must be >= 1 and interval > 0")
+        if self.cooldown < 0 or self.bytes_per_session <= 0 \
+                or self.host_bytes <= 0 \
+                or self.drain_capacity_per_s < 0:
+            raise ValueError("cooldown >= 0 and positive capacity "
+                             "model required")
+
+
+class FabricAutoscaler:
+    """The elastic-fabric controller loop (DESIGN §34): grows and
+    shrinks a :class:`~conflux_tpu_torch.fabric.ServeFabric`'s host set and
+    drains hot-host skew, from the same telemetry the fabric already
+    collects (`HostLoadEstimator` EMAs + the owners census).
+
+    **Utilization model.** Per alive host, utilization is the max of
+    two axes: memory (owned sessions × `bytes_per_session` /
+    `host_bytes` — the BENCH_WORKINGSET capacity model) and drain
+    rate (the per-host `qos_drain_per_s` EMA sum against
+    `drain_capacity_per_s`, when configured). Decisions use the
+    fleet MEAN over alive hosts.
+
+    **Decision table** (evaluated every `interval`; see DESIGN §34):
+    scale OUT one host when mean utilization > `high_water` for
+    `sustain` consecutive ticks (bounded by `max_hosts`); scale IN
+    one host — the least-loaded alive host, drained through
+    `remove_host(drain=True)` — when mean utilization < `low_water`
+    for `sustain` ticks AND the post-removal fleet would still sit
+    under `high_water` (bounded by `min_hosts`). Every action arms a
+    `cooldown`; ticks inside it only rebalance. A tick that crosses
+    neither threshold resets both streaks — hysteresis by
+    construction, so one Poisson clump never resizes the fleet.
+
+    **Host identity.** New hosts come from the `provider` callback
+    (``provider(host_id) -> HostHandle``, unstarted — tests and
+    soaks pass LocalHost factories; deployments spawn ProcessHost
+    or cloud instances). Ids are fresh monotonically (`as0`, `as1`,
+    ...) and never reuse a retired id — the fabric would refuse it.
+
+    Drive it either as a daemon (`start()`/`close()`) or
+    deterministically from tests/benches: `step(now=...)` takes one
+    decision with an injectable clock and no thread."""
+
+    def __init__(self, fabric, provider, *,
+                 policy: AutoscalePolicy | None = None,
+                 id_prefix: str = "as"):
+        self.fabric = fabric
+        self.provider = provider
+        self.policy = policy if policy is not None else AutoscalePolicy()
+        self.id_prefix = id_prefix
+        self._lock = threading.Lock()
+        self._hot = 0            # guarded-by: _lock — high-water streak
+        self._cold = 0           # guarded-by: _lock — low-water streak
+        self._seq = 0            # guarded-by: _lock — fresh-id counter
+        self._cooldown_until = float("-inf")  # guarded-by: _lock
+        self._ticks = 0          # guarded-by: _lock
+        self._errors = 0         # guarded-by: _lock
+        self._scale_out = 0      # guarded-by: _lock
+        self._scale_in = 0       # guarded-by: _lock
+        self._rebalanced = 0     # guarded-by: _lock
+        self._log: list[tuple] = []  # guarded-by: _lock
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    # -- lifecycle ------------------------------------------------------ #
+
+    def start(self) -> "FabricAutoscaler":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True,
+                name="fabric-autoscaler")
+            self._thread.start()
+        return self
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+
+    def __enter__(self) -> "FabricAutoscaler":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.policy.interval):
+            try:
+                self.step()
+            except Exception:  # noqa: BLE001 — the loop must survive
+                with self._lock:
+                    self._errors += 1
+
+    # -- the decision tick ---------------------------------------------- #
+
+    def utilization(self) -> dict[str, float]:
+        """Per-alive-host utilization under the two-axis model."""
+        pol = self.policy
+        est = self.fabric.load
+        per = self.fabric.owner_census()
+        out: dict[str, float] = {}
+        for h in self.fabric._alive():
+            mem = est.sessions_capacity_util(
+                h, per.get(h, 0), pol.bytes_per_session, pol.host_bytes)
+            rate = est.drain_util(h, pol.drain_capacity_per_s)
+            out[h] = max(mem, rate)
+        return out
+
+    def step(self, now: float | None = None) -> dict:
+        """One decision tick. Returns {action, mean_util, hosts, ...}
+        (action ∈ 'none'/'cooldown'/'scale_out'/'scale_in'/'refused')
+        — the deterministic harness entry (tests/benches drive this
+        with an injected clock; the daemon loop calls it on a
+        timer)."""
+        pol = self.policy
+        t = time.monotonic() if now is None else float(now)
+        util = self.utilization()
+        n = len(util)
+        mean = (sum(util.values()) / n) if n else 0.0
+        action = "none"
+        detail = ""
+        with self._lock:
+            self._ticks += 1
+            if mean > pol.high_water:
+                self._hot += 1
+                self._cold = 0
+            elif mean < pol.low_water and n > 0 \
+                    and (mean * n) / max(1, n - 1) < pol.high_water:
+                # scale-in pre-check: the surviving fleet must absorb
+                # the departing host's share WITHOUT crossing the
+                # high-water mark, or we'd flap straight back out
+                self._cold += 1
+                self._hot = 0
+            else:
+                self._hot = 0
+                self._cold = 0
+            hot, cold = self._hot, self._cold
+            cooling = t < self._cooldown_until
+        if cooling:
+            action = "cooldown"
+        elif hot >= pol.sustain and n >= pol.min_hosts:
+            if n >= pol.max_hosts:
+                action, detail = "refused", "at max_hosts"
+            else:
+                action, detail = self._grow(t)
+        elif cold >= pol.sustain:
+            if n <= pol.min_hosts:
+                action, detail = "refused", "at min_hosts"
+            else:
+                action, detail = self._shrink(t, util)
+        # bounded skew correction rides every tick, resize or not —
+        # it moves sessions, never membership, so no cooldown gate
+        try:
+            moved = self.fabric.rebalance(
+                max_moves=pol.max_rebalance_moves,
+                ratio=pol.rebalance_ratio,
+                floor=pol.rebalance_floor)
+        except Exception:  # noqa: BLE001 — correction must not kill the tick
+            moved = []
+            with self._lock:
+                self._errors += 1
+        out = {"action": action, "detail": detail, "mean_util": mean,
+               "hosts": n, "rebalanced": len(moved)}
+        with self._lock:
+            if moved:
+                self._rebalanced += len(moved)
+            if action not in ("none", "cooldown"):
+                self._log.append((t, action, detail, round(mean, 4), n))
+                del self._log[:-32]
+        return out
+
+    def _fresh_id(self) -> str:
+        taken = self.fabric.taken_ids()
+        with self._lock:
+            while f"{self.id_prefix}{self._seq}" in taken:
+                self._seq += 1
+            hid = f"{self.id_prefix}{self._seq}"
+            self._seq += 1
+        return hid
+
+    def _grow(self, t: float) -> tuple[str, str]:
+        hid = self._fresh_id()
+        try:
+            self.fabric.add_host(self.provider(hid))
+        except Exception as e:  # noqa: BLE001 — provider/join failure is a counted refusal
+            with self._lock:
+                self._errors += 1
+            return "refused", f"add_host({hid}) failed: {e!r}"
+        with self._lock:
+            self._scale_out += 1
+            self._hot = 0
+            self._cooldown_until = t + self.policy.cooldown
+        bump("fabric_autoscale_out")
+        return "scale_out", hid
+
+    def _shrink(self, t: float, util: dict[str, float]) -> tuple[str, str]:
+        victim = min(sorted(util), key=lambda h: util[h])
+        try:
+            self.fabric.remove_host(victim, drain=True)
+        except Exception as e:  # noqa: BLE001 — an incomplete drain is a counted refusal; retried next tick
+            with self._lock:
+                self._errors += 1
+                self._cooldown_until = t + self.policy.cooldown
+            return "refused", f"remove_host({victim}) failed: {e!r}"
+        with self._lock:
+            self._scale_in += 1
+            self._cold = 0
+            self._cooldown_until = t + self.policy.cooldown
+        bump("fabric_autoscale_in")
+        return "scale_in", victim
+
+    # -- observability -------------------------------------------------- #
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "ticks": self._ticks,
+                "errors": self._errors,
+                "scale_out": self._scale_out,
+                "scale_in": self._scale_in,
+                "rebalanced": self._rebalanced,
+                "hot_streak": self._hot,
+                "cold_streak": self._cold,
+                "decisions_log": [
+                    {"t": t, "action": a, "detail": d, "mean_util": u,
+                     "hosts": n} for t, a, d, u, n in self._log[-16:]],
+            }

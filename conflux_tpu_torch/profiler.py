@@ -18,10 +18,9 @@ counted apart, in `FactorPlan.trace_counts`.
 The serving half: `serve_stats()` reads the `serve.*` regions as per-phase
 counters beside the live engines' counters (`engine_stats`), the
 resilience outcome counters, the QoS rows (`qos_stats`) and the tier
-layer's counters and gauges (`tier.tier_stats`); `StatsWindow` and
-`CounterWindow` give rolling deltas of them. The JAX package's
-`serve_stats` also carries a 'fabric' sub-dict: it comes with the port of
-`fabric.py`. Its XLA tools
+layer's counters and gauges (`tier.tier_stats`) and the serve fabrics'
+census (`fabric.fabric_stats`); `StatsWindow` and `CounterWindow` give
+rolling deltas of them. Its XLA tools
 (`phase_table`, `op_name_map`, the trace readers) read HLO and XLA traces
 and have no counterpart yet (ROADMAP, Slice 7 tooling).
 """
@@ -282,14 +281,16 @@ def serve_stats() -> dict:
     """Per-phase serving counters from the `serve.*` regions:
     {phase: {'count', 'wall_s'}} for factor / solve / update / refactor,
     the amortization ratios 'solves_per_factor' and
-    'updates_per_refactor', and four sub-dicts: 'engine' (the live
+    'updates_per_refactor', and five sub-dicts: 'engine' (the live
     engines' counters, :func:`engine_stats`; they live on the engines, so
     `clear()` leaves them), 'health' (the resilience outcome counters,
     global like the region tables, reset by `clear()`), 'qos'
     (:func:`qos_stats`) and 'tier' (`tier.tier_stats`: spill and revive
     counters with the fault-in p50/p95/p99, reset by `clear()`, and the
-    live ResidentSets' population and byte gauges, which survive it). The
-    JAX package's 'fabric' sub-dict comes with the port of `fabric.py`."""
+    live ResidentSets' population and byte gauges, which survive it), and
+    'fabric' (`fabric.fabric_stats`: the host census and fail-over gauges
+    of the live ServeFabric fronts, which survive `clear()`; the fabric's
+    event counters ride 'health')."""
     times, counts = _snapshot()
     out: dict = {}
     for ph in SERVE_PHASES:
@@ -306,6 +307,9 @@ def serve_stats() -> dict:
     out["health"] = resilience.health_stats()
     out["qos"] = qos_stats()
     out["tier"] = tier.tier_stats()
+    from conflux_tpu_torch import fabric
+
+    out["fabric"] = fabric.fabric_stats()
     return out
 
 

@@ -1193,3 +1193,96 @@ def test_tier_spill_revive_hammer_under_live_engine_traffic(cuda):
     assert worst < 1e-4, worst
     st = rs.stats()
     assert st["resident_high_water"] <= 4 and st["device_bytes_high_water"] <= 4 * per
+
+
+# --------------------------------------------------------------------------- #
+# the serve fabric on the card
+# --------------------------------------------------------------------------- #
+
+
+def _fabric_fleet(n_sessions=6, n=256, B=32):
+    from conflux_tpu_torch.serve import FactorPlan
+
+    plan = FactorPlan.create((B, n, n), torch.float32, v=128)
+    mats = []
+    for i in range(n_sessions):
+        rng = np.random.default_rng(400 + i)
+        mats.append((rng.standard_normal((B, n, n)) / np.sqrt(n)
+                     + 2.0 * np.eye(n)).astype(np.float32))
+    return plan, mats
+
+
+def test_local_fabric_failover_and_migration_bitwise_on_the_card(cuda, tmp_path):
+    """Three in-process hosts on the card: every answer bitwise the
+    direct solve, and bitwise again after a host is killed (its fleet
+    revived from its checkpoint on the survivors) and after a migration."""
+    import time
+
+    from conflux_tpu_torch import fabric
+
+    plan, mats = _fabric_fleet()
+    rng = np.random.default_rng(7)
+    fab = fabric.local_fabric(3, str(tmp_path), engine_kwargs={"max_batch_delay": 0.0},
+                              policy=fabric.FabricPolicy(heartbeat_interval=0.1,
+                                                         heartbeat_timeout=30.0))
+    try:
+        fab.start()
+        sids = [f"s{i}" for i in range(len(mats))]
+        rhs = {s: rng.standard_normal((32, 256, 2)).astype(np.float32) for s in sids}
+        ref = {}
+        for s, A in zip(sids, mats):
+            fab.open(s, plan, A)
+            ref[s] = np.asarray(fab.solve(s, rhs[s]))
+            direct = plan.factor(A).solve(torch.from_numpy(rhs[s]).to(cuda)).cpu().numpy()
+            assert np.array_equal(ref[s], direct), s
+        victim = fab.owner_of("s0")
+        owned = [s for s in sids if fab.owner_of(s) == victim]
+        fab._hosts[victim].kill()
+        t0 = time.perf_counter()
+        rec = None
+        while rec is None and time.perf_counter() - t0 < 60.0:
+            rec = next((r for r in fab.stats()["recoveries"] if r["host"] == victim), None)
+            time.sleep(0.02)
+        assert rec is not None and rec["adopted"] == len(owned) and rec["lost"] == 0
+        for s in sids:
+            assert np.array_equal(np.asarray(fab.solve(s, rhs[s])), ref[s]), s
+        mig = next(s for s in sids if s not in owned)
+        src = fab.owner_of(mig)
+        assert fab.migrate(mig) != src
+        assert np.array_equal(np.asarray(fab.solve(mig, rhs[mig])), ref[mig])
+    finally:
+        fab.close()
+
+
+def test_process_fabric_two_workers_on_the_card_answer_bitwise(cuda, tmp_path):
+    """Two worker processes on the one card over the shm wire answer
+    bitwise the direct solves of this process, and each worker's K3 and
+    K4 launches come back through the host `stats` op."""
+    from conflux_tpu_torch import fabric
+    from conflux_tpu_torch.engine import rendezvous
+    from conflux_tpu_torch.ops import _build
+
+    _build.load()  # the workers reuse this build
+    plan, mats = _fabric_fleet(n_sessions=4)
+    rng = np.random.default_rng(8)
+    sids, i = [], 0
+    while len({rendezvous(s, ["h0", "h1"]) for s in sids}) < 2 or len(sids) < 4:
+        sids = [f"w{j}" for j in range(i, i + 4)]
+        i += 1
+    fab = fabric.process_fabric(2, str(tmp_path), engine_kwargs={"max_batch_delay": 0.0},
+                                policy=fabric.FabricPolicy(heartbeat_timeout=60.0),
+                                start_timeout=300.0)
+    try:
+        fab.start()
+        for s, A in zip(sids, mats):
+            fab.open(s, plan, A)
+            b = rng.standard_normal((32, 256)).astype(np.float32)
+            got = np.asarray(fab.solve(s, b))
+            direct = plan.factor(A).solve(torch.from_numpy(b).to(cuda)).cpu().numpy()
+            assert np.array_equal(got, direct), s
+        for hid in ("h0", "h1"):
+            st = fab._hosts[hid].stats()
+            assert st["launches"]["batched_lu"] == len(st["sids"]) >= 1
+            assert st["launches"]["btrsm"] >= len(st["sids"])
+    finally:
+        fab.close()
