@@ -34,10 +34,15 @@ copy of `io.py`'s matrix files) and the adaptive controller
 fabric (`fabric.py`: `ServeFabric` over in-process `LocalHost`s or
 `ProcessHost` worker processes, with fail-over, migration, elastic
 membership and replicas; `wire.py`, the shared-memory payload rings; and
-`control.py`'s `HostLoadEstimator`, `AutoscalePolicy`, `FabricAutoscaler`).
+`control.py`'s `HostLoadEstimator`, `AutoscalePolicy`, `FabricAutoscaler`);
+and CONFLUX and CONFCHOX on a process grid (`parallel/mesh.py` on
+`torch.distributed`: `make_mesh`, `distribute_shards`,
+`initialize_multihost`; `lu/distributed.py`, `cholesky/distributed.py`,
+their grid solves and residuals, `solve_distributed`, the scatter half of
+`io.py`, `autotune.py`, and the miniapps' grid routes).
 """
 
-from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_grid
+from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_cholesky_grid, choose_grid
 
 
 def __getattr__(name):
@@ -126,6 +131,26 @@ def __getattr__(name):
         "FabricPolicy": ("conflux_tpu_torch.fabric", "FabricPolicy"),
         "LocalHost": ("conflux_tpu_torch.fabric", "LocalHost"),
         "ProcessHost": ("conflux_tpu_torch.fabric", "ProcessHost"),
+        "make_mesh": ("conflux_tpu_torch.parallel.mesh", "make_mesh"),
+        "distribute_shards": ("conflux_tpu_torch.parallel.mesh", "distribute_shards"),
+        "initialize_multihost": ("conflux_tpu_torch.parallel.mesh", "initialize_multihost"),
+        "run_threaded": ("conflux_tpu_torch.parallel.mesh", "run_threaded"),
+        "lu_factor_distributed": ("conflux_tpu_torch.lu.distributed", "lu_factor_distributed"),
+        "lu_factor_steps": ("conflux_tpu_torch.lu.distributed", "lu_factor_steps"),
+        "lu_distributed_host": ("conflux_tpu_torch.lu.distributed", "lu_distributed_host"),
+        "cholesky_factor_distributed": (
+            "conflux_tpu_torch.cholesky.distributed", "cholesky_factor_distributed"),
+        "cholesky_factor_steps": (
+            "conflux_tpu_torch.cholesky.distributed", "cholesky_factor_steps"),
+        "cholesky_distributed_host": (
+            "conflux_tpu_torch.cholesky.distributed", "cholesky_distributed_host"),
+        "lu_solve_distributed": ("conflux_tpu_torch.solvers", "lu_solve_distributed"),
+        "cholesky_solve_distributed": (
+            "conflux_tpu_torch.solvers", "cholesky_solve_distributed"),
+        "solve_distributed": ("conflux_tpu_torch.solvers", "solve_distributed"),
+        "lu_residual_distributed": ("conflux_tpu_torch.validation", "lu_residual_distributed"),
+        "cholesky_residual_distributed": (
+            "conflux_tpu_torch.validation", "cholesky_residual_distributed"),
     }
     if name in _lazy:
         import importlib
@@ -220,4 +245,20 @@ __all__ = [
     "FabricPolicy",
     "LocalHost",
     "ProcessHost",
+    "choose_cholesky_grid",
+    "make_mesh",
+    "distribute_shards",
+    "initialize_multihost",
+    "run_threaded",
+    "lu_factor_distributed",
+    "lu_factor_steps",
+    "lu_distributed_host",
+    "cholesky_factor_distributed",
+    "cholesky_factor_steps",
+    "cholesky_distributed_host",
+    "lu_solve_distributed",
+    "cholesky_solve_distributed",
+    "solve_distributed",
+    "lu_residual_distributed",
+    "cholesky_residual_distributed",
 ]

@@ -1,4 +1,5 @@
-"""Cholesky factorization — the CONFCHOX side (single device so far)."""
+"""Cholesky factorization — the CONFCHOX side: one device (`single`) and
+the process grid (`distributed`)."""
 
 from conflux_tpu_torch.cholesky.single import cholesky_blocked
 

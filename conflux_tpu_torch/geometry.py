@@ -3,15 +3,24 @@ geometry.
 
 The port's copy of the grid, LU-geometry and Cholesky-geometry parts of
 `conflux_tpu/geometry.py` (the reference's `lu_params.hpp:21-138` and
-`CholeskyProperties`). Pure host-side Python. Only the single-device routes
-are ported, so the block-cyclic scatter/gather helpers stay behind with the
-distributed programs that use them.
+`CholeskyProperties`) and its block-cyclic tile maps. Pure host-side
+Python: no communication happens here. The chosen (Px, Py, Pz) is the
+process grid of `parallel.mesh.Mesh`, axes ('x', 'y', 'z').
+
+Tile distribution is 2D block-cyclic over the (x, y) plane: tile (i, j) of
+the global tile grid lives on grid coordinate (i mod Px, j mod Py) at local
+tile slot (i // Px, j // Py). The z axis does not own distinct tiles: it
+carries 2.5D replicated partial sums of the trailing matrix. Scatter and
+gather run the numpy path of the JAX package's (its own path when its
+native extension is absent), so both packages give the same shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +92,77 @@ def choose_cholesky_grid(P: int) -> Grid3:
     return _best_grid(P, 1.0)
 
 
+# --------------------------------------------------------------------------- #
+# Block-cyclic index math
+# --------------------------------------------------------------------------- #
+
+
+def tile_owner(t: int, Pdim: int) -> int:
+    """Grid coordinate along one axis owning global tile index t."""
+    return t % Pdim
+
+
+def tile_local(t: int, Pdim: int) -> int:
+    """Local tile slot of global tile t on its owner."""
+    return t // Pdim
+
+
+def tile_global(p: int, lt: int, Pdim: int) -> int:
+    """Global tile index of local slot lt on grid coordinate p."""
+    return lt * Pdim + p
+
+
+def row_owner(r: int, v: int, Pdim: int) -> int:
+    """Grid x-coordinate owning global row r (tile size v)."""
+    return (r // v) % Pdim
+
+
+def row_local(r: int, v: int, Pdim: int) -> int:
+    """Local row index of global row r on its owner."""
+    return (r // v) // Pdim * v + r % v
+
+
+def row_global(p: int, lr: int, v: int, Pdim: int) -> int:
+    """Global row index of local row lr on grid coordinate p."""
+    return (lr // v * Pdim + p) * v + lr % v
+
+
+def local_row_indices(p: int, Ml: int, v: int, Pdim: int) -> np.ndarray:
+    """Global row indices (length Ml) owned by x-coordinate p, in local order."""
+    lr = np.arange(Ml)
+    return (lr // v * Pdim + p) * v + lr % v
+
+
+def first_local_tile(t: int, p: int, Pdim: int) -> int:
+    """Local tile slots on coordinate p whose global tile index is below t:
+    the local tiles of p are a prefix below t and a suffix from it on."""
+    return max(0, -(-(t - p) // Pdim))
+
+
+def ragged_segments(n_tiles: int, v: int, max_seg: int) -> list[tuple[int, int]]:
+    """Ceil-divide n_tiles tiles of width v into at most max_seg contiguous
+    (start, stop) element ranges, the last one ragged. The distributed
+    trailing updates cut their live block at these bounds."""
+    n = min(max_seg, n_tiles)
+    per = -(-n_tiles // n)
+    return [(g * per * v, min((g + 1) * per, n_tiles) * v)
+            for g in range(n) if g * per < n_tiles]
+
+
+def check_shards(shards, geom, what: str = "shards") -> None:
+    """Reject mis-shaped shards with a geometry-aware message: the full
+    (Px, Py, Ml, Nl) array, or one rank's (Ml, Nl) shard."""
+    shape = tuple(shards.shape) if hasattr(shards, "shape") else None
+    Ml, Nl = geom.Ml, geom.Nl
+    full = (geom.grid.Px, geom.grid.Py, Ml, Nl)
+    if shape not in (full, (Ml, Nl)):
+        raise ValueError(
+            f"{what} shape {shape} does not match the geometry's "
+            f"block-cyclic layout {full} or one rank's shard {(Ml, Nl)} "
+            f"(grid {geom.grid}, local {Ml}x{Nl}); build shards with "
+            "geom.scatter or distribute_shards")
+
+
 @dataclasses.dataclass(frozen=True)
 class LUGeometry:
     """All derived sizes for an LU problem (the reference's `lu_params`
@@ -137,6 +217,58 @@ class LUGeometry:
     def n_steps(self) -> int:
         """Number of supersteps = number of v-wide panels to factor."""
         return min(self.Mt, self.Nt)
+
+    # ---------------- host-side scatter/gather ---------------- #
+
+    def scatter(self, A: np.ndarray) -> np.ndarray:
+        """Distribute a global (M, N) matrix into per-rank block-cyclic
+        shards (Px, Py, Ml, Nl): shard [pi, pj] holds the tiles {(i, j) :
+        i mod Px == pi, j mod Py == pj} in local tile order. A smaller A is
+        padded, with ones on the padding diagonal (keeps the padded LU
+        well-posed). The z axis is not represented: layer 0 owns the data,
+        the other layers start at zero."""
+        M, N = self.M, self.N
+        if A.shape != (M, N):
+            padded = np.zeros((M, N), dtype=A.dtype)
+            padded[: A.shape[0], : A.shape[1]] = A
+            for d in range(min(A.shape[0], A.shape[1]), min(M, N)):
+                padded[d, d] = 1.0
+            A = padded
+        shards = self.scatter_blocks(A)
+        # a 1 x 1 grid's blocks are A itself: the shards never alias the input
+        return shards.copy() if np.shares_memory(shards, A) else np.ascontiguousarray(shards)
+
+    def scatter_blocks(self, A):
+        """Pure reshape/transpose core of :meth:`scatter` (tile index
+        i = lt*Px + px): works on numpy arrays and torch tensors alike; A
+        must already be (M, N)."""
+        Px, Py, v = self.grid.Px, self.grid.Py, self.v
+        # (M, N) -> (Mtl, Px, v, Ntl, Py, v) -> (Px, Py, Ml, Nl)
+        T = A.reshape(self.Mtl, Px, v, self.Ntl, Py, v)
+        return T.transpose(1, 4, 0, 2, 3, 5).reshape(Px, Py, self.Ml, self.Nl) \
+            if isinstance(A, np.ndarray) else \
+            T.permute(1, 4, 0, 2, 3, 5).reshape(Px, Py, self.Ml, self.Nl)
+
+    def local_block(self, A, px: int, py: int):
+        """Rank (px, py)'s (Ml, Nl) shard of an (M, N) matrix (numpy or
+        torch): :meth:`scatter_blocks` of one coordinate, without
+        materializing the others."""
+        Px, Py, v = self.grid.Px, self.grid.Py, self.v
+        T = A.reshape(self.Mtl, Px, v, self.Ntl, Py, v)[:, px, :, :, py, :]
+        return T.reshape(self.Ml, self.Nl)
+
+    def gather(self, shards: np.ndarray) -> np.ndarray:
+        """Inverse of :meth:`scatter`: (Px, Py, Ml, Nl) -> (M, N)."""
+        Px, Py, v = self.grid.Px, self.grid.Py, self.v
+        T = np.asarray(shards).reshape(Px, Py, self.Mtl, v, self.Ntl, v)
+        T = np.transpose(T, (2, 0, 3, 4, 1, 5))  # (Mtl, Px, v, Ntl, Py, v)
+        return np.ascontiguousarray(T.reshape(self.M, self.N))
+
+    def global_row_index(self) -> np.ndarray:
+        """(Px, Ml): global row index of each local row per x-coordinate
+        (the reference's `gri` tracking, `conflux_opt.hpp:427-440`)."""
+        return np.stack([local_row_indices(p, self.Ml, self.v, self.grid.Px)
+                         for p in range(self.grid.Px)])
 
 
 # --------------------------------------------------------------------------- #
@@ -196,3 +328,36 @@ class CholeskyGeometry:
     def Kappa(self) -> int:
         """Number of tile columns = supersteps (reference calls this Kappa)."""
         return self.N // self.v
+
+    @property
+    def Mtl(self) -> int:
+        return self.Kappa // self.grid.Px
+
+    @property
+    def Ntl(self) -> int:
+        return self.Kappa // self.grid.Py
+
+    @property
+    def Ml(self) -> int:
+        return self.Mtl * self.v
+
+    @property
+    def Nl(self) -> int:
+        return self.Ntl * self.v
+
+    @property
+    def nlayr(self) -> int:
+        return -(-self.v // self.grid.Pz)
+
+    def lu_geometry(self) -> LUGeometry:
+        """The square LU geometry with the same block-cyclic layout."""
+        return LUGeometry.create(self.N, self.N, self.v, self.grid)
+
+    def scatter(self, A: np.ndarray) -> np.ndarray:
+        return self.lu_geometry().scatter(A)
+
+    def local_block(self, A, px: int, py: int):
+        return self.lu_geometry().local_block(A, px, py)
+
+    def gather(self, shards: np.ndarray) -> np.ndarray:
+        return self.lu_geometry().gather(shards)

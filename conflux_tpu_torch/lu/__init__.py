@@ -1,4 +1,5 @@
-"""LU factorization with pivoting — the CONFLUX side (single device so far)."""
+"""LU factorization with pivoting — the CONFLUX side: one device
+(`single`) and the process grid (`distributed`)."""
 
 from conflux_tpu_torch.lu.single import lu_factor_blocked
 

@@ -510,7 +510,69 @@ def tournament_winners(panel: torch.Tensor, chunk: int | None = None,
         lu_top, top = lu_c[:, :v], perm_c[:, :v]
     win = torch.gather(cand, 1, top[:, :, None].expand(nch, v, v))
     wid = torch.gather(cid, 1, top)
+    return _elect_nominees(win, wid, lu_top, mp, use_pallas, tree)
 
+
+def tournament_winners_live(panel_live: torch.Tensor, m: int, chunk: int | None = None,
+                            use_pallas: bool = True, tree: str = "pairwise"):
+    """:func:`tournament_winners` of an (m, v) panel whose leading rows are
+    dead, given its live rows only: `panel_live` is rows [m - n, m) of the
+    panel, and the rows before them are zero and their chunks dead (the
+    distributed LU's LAPACK-order layout, where eliminated rows form a
+    tile-aligned prefix of every rank's local rows).
+
+    The chunks are cut where the whole panel's are (`chunk_layout(m, v,
+    chunk)`): a chunk is live where its last row is, a live chunk's dead
+    rows ride as zeros, and each dead chunk nominates its first v rows, all
+    zero, in identity order with a zero packed LU, as the JAX package's
+    `chunk_live` predicate makes it; the reduction then runs over every
+    chunk's nominees, the bracket of the whole panel. Only the live chunks
+    are factored: on the K2 kernel with `use_pallas` (float32, v a
+    multiple of 128; a chunk may be as tall as the kernel takes, where the
+    JAX kernel route stops at its VMEM's 4096 rows), else in one batched
+    library LU. Returns (lu00, gpiv), gpiv the winners' row ids in the
+    whole (m, v) panel (ids from m up name pad rows)."""
+    n_live, v = panel_live.shape
+    if m < v or n_live > m:
+        raise ValueError(f"tournament_winners_live needs m >= v and at most m live rows, "
+                         f"got m={m}, ({n_live}, {v})")
+    if tree not in ("pairwise", "flat"):
+        raise ValueError(f"unknown tree {tree!r} (pairwise|flat)")
+    if use_pallas and not (panel_live.dtype == torch.float32 and v % hopper_kernels._PANEL_W == 0):
+        raise ValueError(f"the K2 kernel takes float32 panels of width a multiple of "
+                         f"{hopper_kernels._PANEL_W}, got {panel_live.dtype} width {v}; "
+                         "use_pallas=False runs the library LU")
+    c, nch = chunk_layout(m, v, chunk)
+    mp = nch * c
+    r0 = m - n_live
+    fl = r0 // c if n_live else nch  # chunks before fl end before row r0: dead
+    dev = panel_live.device
+    nl = nch - fl
+    win = panel_live.new_zeros((nch, v, v))
+    wid = (torch.arange(nch, device=dev)[:, None] * c
+           + torch.arange(v, device=dev)[None, :])  # dead chunks: identity order
+    lu_top = panel_live.new_zeros((nch, v, v))
+    if nl:
+        cand = panel_live.new_zeros((nl * c, v))
+        cand[r0 - fl * c:r0 - fl * c + n_live] = panel_live
+        cand = cand.reshape(nl, c, v)
+        if use_pallas:
+            lu_l, top = _panel_lu_winners(cand)
+        else:
+            lu_c, perm_c = _library_lu(cand)
+            lu_l, top = lu_c[:, :v], perm_c[:, :v]
+        lu_top[fl:] = lu_l
+        win[fl:] = torch.gather(cand, 1, top[:, :, None].expand(nl, v, v))
+        wid[fl:] = fl * c + torch.arange(nl, device=dev)[:, None] * c + top
+    return _elect_nominees(win, wid, lu_top, mp, use_pallas, tree)
+
+
+def _elect_nominees(win: torch.Tensor, wid: torch.Tensor, lu_top: torch.Tensor, mp: int,
+                    use_pallas: bool, tree: str):
+    """The reduction of a tournament: (nch, v, v) nominee rows `win` with
+    their ids `wid` and their chunks' packed LUs `lu_top` -> (lu00, gpiv).
+    `mp` is the pad id of the tree's pad blocks."""
+    nch, v = win.shape[0], win.shape[-1]
     if nch == 1:  # single chunk: its local LU already decided everything
         return lu_top[0], wid[0]
 

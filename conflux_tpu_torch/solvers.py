@@ -13,8 +13,10 @@ systems where the classic loop stalls. `lu_solve_transposed`,
 getrs-T / det / gecon / getri roles on the same factors. `solve_updated`
 solves a drifted system (A + U V^H) x = b through the factors of A alone
 (the Woodbury correction, `update`), and `lstsq` is least squares through
-the QR route (`qr.single.tall_qr`). The distributed solvers are not
-ported yet.
+the QR route (`qr.single.tall_qr`). `lu_solve_distributed` and
+`cholesky_solve_distributed` solve on a process grid from the distributed
+factorizations' shards, and `solve_distributed` is the at-scale path:
+factor on the grid, solve there, refine (classic or GMRES-IR).
 """
 
 from __future__ import annotations
@@ -366,3 +368,220 @@ def inv_from_lu(LU: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     if LU.shape[0] != LU.shape[1]:
         raise ValueError(f"inverse needs square factors, got {tuple(LU.shape)}")
     return lu_solve(LU, perm, torch.eye(N, dtype=LU.dtype, device=LU.device))
+
+
+# --------------------------------------------------------------------------- #
+# On a process grid
+# --------------------------------------------------------------------------- #
+
+
+def _check_solve_rhs(geom, b) -> None:
+    """Both grid solves read b by padded global position: a shorter rhs is
+    refused (pad A and b with an identity extension first)."""
+    rows = b.shape[0] if b.dim() else 0
+    if rows != geom.N:
+        raise ValueError(
+            f"rhs has {rows} rows, the (padded) factorization needs {geom.N}; pad the "
+            "system identity-extended before factoring")
+
+
+def _grid_rhs(b, mesh, dtype) -> tuple[torch.Tensor, bool]:
+    b = torch.as_tensor(b)
+    b2, squeeze = _as_2d(b)
+    return b2.to(device=mesh.device, dtype=dtype), squeeze
+
+
+def _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl):
+    """Step k's diagonal row tile, shared by the grid solves: its (v, Nl)
+    local columns by a sum over x, and its (v, v) diagonal block by a sum
+    over y."""
+    li = (k // Px) * v
+    rows = (Aloc[li:li + v].clone() if mesh.x == k % Px
+            else Aloc.new_zeros((v, Nl)))
+    mesh.psum(rows, "x")
+    lj = (k // Py) * v
+    diag = rows[:, lj:lj + v].clone() if mesh.y == k % Py else Aloc.new_zeros((v, v))
+    return rows, mesh.psum(diag, "y")
+
+
+def _replicated(x: torch.Tensor, mesh) -> torch.Tensor:
+    return mesh.replicate(x.contiguous(), ("x", "y", "z"))
+
+
+def lu_solve_distributed(shard: torch.Tensor, perm: torch.Tensor, geom, mesh, b) -> torch.Tensor:
+    """Solve A x = b on the grid from `lu_factor_distributed`'s outputs,
+    every rank together (the reference has no distributed solve). The
+    factors are block-cyclic in pivoted row order, so the solve is block
+    forward and back substitution over tile steps: per step the diagonal
+    tile's v rows are summed over x, each rank dots them against its
+    already-solved column entries, and a sum over y completes the inner
+    products. b is (N,) or (N, nrhs) (getrs semantics); returns x of b's
+    shape on the mesh's device, identical on every rank."""
+    if geom.M != geom.N:
+        raise ValueError("distributed solve needs a square factorization")
+    _check_solve_rhs(geom, torch.as_tensor(b))
+    v, Px, Py, Nl, n = geom.v, geom.grid.Px, geom.grid.Py, geom.Nl, geom.n_steps
+    dtype = blas.compute_dtype(shard.dtype)
+    Aloc = shard.to(dtype)  # z-replicated factors, pivoted order
+    b2, squeeze = _grid_rhs(b, mesh, dtype)
+    bp = b2[perm.to(mesh.device).long()]  # rhs in pivoted row order
+    lc = torch.arange(Nl, device=mesh.device)
+    gcol = ((lc // v) * Py + mesh.y) * v + lc % v
+    yv = torch.zeros_like(bp)
+    for k in range(n):
+        rows, diag = _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
+        s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
+        mesh.psum(s, "y")
+        yv[k * v:(k + 1) * v] = blas.trsm_left_lower_unit(blas.unit_lower(diag),
+                                                          bp[k * v:(k + 1) * v] - s)
+    xv = torch.zeros_like(bp)
+    for k in range(n - 1, -1, -1):
+        rows, diag = _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
+        s = rows @ torch.where((gcol >= (k + 1) * v)[:, None], xv[gcol], 0)
+        mesh.psum(s, "y")
+        xv[k * v:(k + 1) * v] = blas.trsm_left_upper(torch.triu(diag),
+                                                     yv[k * v:(k + 1) * v] - s)
+    xv = _replicated(xv, mesh)
+    return xv[:, 0] if squeeze else xv
+
+
+def cholesky_solve_distributed(shard: torch.Tensor, geom, mesh, b) -> torch.Tensor:
+    """Solve A x = b on the grid from `cholesky_factor_distributed`'s shard
+    (lower triangle = L), every rank together: block forward substitution
+    with L, then block back substitution with L^H (potrs semantics; no
+    permutation). b is (N,) or (N, nrhs); returns x of b's shape,
+    identical on every rank."""
+    _check_solve_rhs(geom, torch.as_tensor(b))
+    v, Px, Py, Ml, Nl, n = geom.v, geom.grid.Px, geom.grid.Py, geom.Ml, geom.Nl, geom.Kappa
+    dtype = blas.compute_dtype(shard.dtype)
+    Aloc = shard.to(dtype)
+    b2, squeeze = _grid_rhs(b, mesh, dtype)
+    dev = mesh.device
+    lr = torch.arange(Ml, device=dev)
+    grow = ((lr // v) * Px + mesh.x) * v + lr % v
+    lc = torch.arange(Nl, device=dev)
+    gcol = ((lc // v) * Py + mesh.y) * v + lc % v
+    yv = torch.zeros_like(b2)
+    for k in range(n):
+        rows, diag = _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
+        s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
+        mesh.psum(s, "y")
+        yv[k * v:(k + 1) * v] = blas.trsm_left_lower(torch.tril(diag),
+                                                     b2[k * v:(k + 1) * v] - s)
+    xv = torch.zeros_like(b2)
+    for k in range(n - 1, -1, -1):
+        # column tile k of L: this rank's rows of those v columns
+        lj = (k // Py) * v
+        cols = (Aloc[:, lj:lj + v].clone(memory_format=torch.contiguous_format)
+                if mesh.y == k % Py else Aloc.new_zeros((Ml, v)))
+        mesh.psum(cols, "y")
+        ahead = torch.where((grow >= (k + 1) * v)[:, None], xv[grow], 0)
+        s = (cols.mH if cols.is_complex() else cols.mT) @ ahead
+        mesh.psum(s, "x")  # (v, nrhs)
+        ld = (k // Px) * v
+        diag = cols[ld:ld + v].clone() if mesh.x == k % Px else Aloc.new_zeros((v, v))
+        mesh.psum(diag, "x")
+        xv[k * v:(k + 1) * v] = blas.trsm_left_lower_t(torch.tril(diag),
+                                                       yv[k * v:(k + 1) * v] - s)
+    xv = _replicated(xv, mesh)
+    return xv[:, 0] if squeeze else xv
+
+
+def _scatter_local(A: torch.Tensor, geom, mesh, dtype) -> torch.Tensor:
+    """This rank's (Ml, Nl) block-cyclic shard of an (M, N) matrix on the
+    mesh's device, cast to `dtype` (the role of the JAX package's
+    `_build_scatter`: no host round trip, no other rank's shard)."""
+    blk = geom.local_block(A.to(device=mesh.device), mesh.x, mesh.y)
+    return blk.to(dtype).clone(memory_format=torch.contiguous_format)
+
+
+def _matvec_strips(A: torch.Tensor, x: torch.Tensor, rdtype: torch.dtype) -> torch.Tensor:
+    """A @ x accumulated in `rdtype`, casting A one row strip at a time
+    (no (N, N) copy in the residual dtype)."""
+    N = A.shape[0]
+    strip = max(1, min(4096, N))
+    xr = x.to(rdtype)
+    return torch.cat([A[i:i + strip].to(rdtype) @ xr for i in range(0, N, strip)])
+
+
+def _gmres_ops(geom, mesh, rdtype: torch.dtype):
+    """(matvec, precond) of GMRES-IR on the grid: the matrix and the
+    factors ride as fgmres's `args` (A, shard, perm)."""
+    def matvec(x, A, shard, perm):
+        return _matvec_strips(A, x, rdtype)
+
+    def precond(r, A, shard, perm):
+        return lu_solve_distributed(shard, perm, geom, mesh,
+                                    r.to(blas.compute_dtype(shard.dtype)))
+
+    return matvec, precond
+
+
+def solve_distributed(A, b, *, grid=None, v: int = 1024, mesh=None, refine: int = 0,
+                      factor_dtype=None, residual_dtype=torch.float64,
+                      panel_chunk: int | None = None, segs: tuple = (16, 16),
+                      tree: str = "pairwise", ir: str = "classic", tol: float = 1e-6,
+                      restart: int = 16, max_restarts: int = 12,
+                      backend: str | None = None, panel_algo: str | None = None,
+                      device=None):
+    """Factor + solve + iterative refinement on a process grid, every rank
+    together: the at-scale solve path. Each rank takes its shard of A (the
+    (N, N) original, on every rank), the factorization and the triangular
+    solves run on the grid, and each refinement sweep computes r = b - A x
+    in `residual_dtype` (float64 by default: the JAX package's default
+    when its x64 switch is on), strip-wise.
+
+    `ir="gmres"` runs GMRES-IR (FGMRES preconditioned by the grid solve,
+    `tol`/`restart`/`max_restarts`; `refine` is ignored there), which
+    converges where classic refinement diverges (cond(A) eps_factor ~ 1).
+    `factor_dtype` (bfloat16: the HPL-MxP fast factor), `panel_chunk`,
+    `segs`, `tree`, `backend` and `panel_algo` reach the factorization.
+    `grid` defaults to `choose_grid` over the world's ranks, `mesh` to
+    `make_mesh(grid, device=device)`. Returns x (N,) in the residual
+    dtype, identical on every rank."""
+    import warnings
+
+    from conflux_tpu_torch.geometry import LUGeometry, choose_grid
+    from conflux_tpu_torch.lu.distributed import lu_factor_distributed
+    from conflux_tpu_torch.parallel.mesh import make_mesh
+
+    A = torch.as_tensor(A)
+    N = A.shape[0]
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError("solve_distributed needs a square A")
+    if ir not in ("classic", "gmres"):
+        # before the O(N^3) factorization: a typo fails in microseconds
+        raise ValueError(f"unknown ir {ir!r} (classic|gmres)")
+    if grid is None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        grid = choose_grid(world, N, N)
+    geom = LUGeometry.create(N, N, v, grid)
+    if (geom.M, geom.N) != (N, N):
+        raise ValueError(
+            f"N={N} must be a multiple of v*Px and v*Py (got padding to "
+            f"{geom.M}x{geom.N}); pre-pad with an identity extension")
+    if mesh is None:
+        mesh = make_mesh(grid, device=device)
+    A = A.to(mesh.device)
+    fdtype = A.dtype if factor_dtype is None else factor_dtype
+    cdtype = blas.compute_dtype(A.dtype)
+    shard = _scatter_local(A, geom, mesh, fdtype)
+    out, perm = lu_factor_distributed(shard, geom, mesh, backend=backend,
+                                      panel_algo=panel_algo, panel_chunk=panel_chunk,
+                                      donate=True, segs=segs, tree=tree)
+    b = torch.as_tensor(b).to(mesh.device)
+    if ir == "gmres":
+        matvec, precond = _gmres_ops(geom, mesh, residual_dtype)
+        x, info = fgmres(matvec, precond, b.to(residual_dtype), args=(A, out, perm),
+                         tol=tol, restart=restart, max_restarts=max_restarts,
+                         rdtype=residual_dtype)
+        if info["residual"] > tol:
+            warnings.warn(
+                f"GMRES-IR stalled at residual {info['residual']:.3e} (> tol {tol:.1e}) "
+                f"after {info['restarts']} restarts; raise max_restarts/restart or "
+                "improve the factors", RuntimeWarning, stacklevel=2)
+        return x
+    return refine_classic(lambda r: lu_solve_distributed(out, perm, geom, mesh, r),
+                          A, b, refine, residual_dtype, cdtype)

@@ -84,12 +84,45 @@ def capacitance(base_apply, U, V):
     return Y, Cinv, norm1(C) * norm1(Cinv)
 
 
+# columns per batched product of the Woodbury correction: every call has
+# this batch count, so its kernel, and each column's bits, are the same at
+# any coalesced width
+_WOODBURY_COLS = 64
+
+
 def woodbury_apply(base_apply, Y, Cinv, V, b):
     """A1^{-1} b through the base factors and the capacitance state:
-    z - Y (Cinv (V^H z)) with z = A0^{-1} b; b is (..., N, nrhs)."""
+    z - Y (Cinv (V^H z)) with z = A0^{-1} b; b is (..., N, nrhs).
+
+    The correction is column-independent: each column of z rides as its
+    own (1, N) row through batched products of one shape and one batch
+    count (`_WOODBURY_COLS` columns a call, zero rows padding the last),
+    so a column's bits do not depend on how many columns share the solve
+    (a product over the whole width sums in a width-dependent order, and
+    the engine coalesces a session's requests into wider solves)."""
     z = base_apply(b)
-    w = torch.matmul(V.to(z.dtype).mH, z)
-    return z - torch.matmul(Y.to(z.dtype), torch.matmul(Cinv.to(z.dtype), w))
+    dt = z.dtype
+    lead, (N, n) = z.shape[:-2], z.shape[-2:]
+    k = Y.shape[-1]
+    S = int(np.prod(lead, dtype=np.int64))
+    rows = z.mT.reshape(S * n, 1, N)
+    Vs = V.to(dt).conj().expand(lead + (N, k)).reshape(S, N, k)
+    CinvT = Cinv.to(dt).mT.expand(lead + (k, k)).reshape(S, k, k)
+    YT = Y.to(dt).mT.expand(lead + (k, N)).reshape(S, k, N)
+    system = torch.arange(S * n, device=z.device) // n  # each column's system
+    W = _WOODBURY_COLS
+    corr = []
+    for c0 in range(0, S * n, W):
+        m = min(W, S * n - c0)
+        r, sysm = rows[c0:c0 + m], system[c0:c0 + m]
+        if m < W:
+            r = torch.cat([r, r.new_zeros((W - m, 1, N))])
+            sysm = torch.cat([sysm, sysm.new_zeros(W - m)])
+        w = torch.bmm(r, Vs[sysm])            # (V^H z)^T, (W, 1, k)
+        t = torch.bmm(w, CinvT[sysm])         # (Cinv w)^T
+        corr.append(torch.bmm(t, YT[sysm])[:m])   # (Y t)^T, (W, 1, N)
+    c = torch.cat(corr) if len(corr) > 1 else corr[0]
+    return z - c.reshape(lead + (n, N)).mT
 
 
 def updated_matvec(A0, U, V, x):

@@ -158,18 +158,38 @@ def test_miniapp_float64_runs_the_library_product(capsys):
     np.testing.assert_allclose(L.numpy(), Lj, rtol=1e-12, atol=1e-12)
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread for the grid routes' small problems,
+    which run beside other pytest workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.mark.parametrize("argv,name", [
     (["--grid", "2,2,1"], "grid"),
     (["--lookahead"], "--lookahead"),
     (["--segs", "8x8"], "--segs"),
     (["--auto"], "--auto"),
     (["--lookahead", "--auto"], "--lookahead"),
-    (["--dim", "16384", "--tile", "128"], "Kappa"),  # the distributed program's job
+    (["--dim", "520", "--tile", "8"], "Kappa"),  # 65 tile columns: the distributed program's job
 ])
-def test_miniapp_unported_routes_exit_naming_themselves(argv, name):
-    with pytest.raises(SystemExit, match="not ported yet") as e:
-        cholesky_miniapp.main(["--platform", "cpu", "--run", "0", *argv])
-    assert name in str(e.value)
+def test_miniapp_unported_routes_exit_naming_themselves(argv, name, capsys, one_thread):
+    """The routes that exited before the distributed program was ported
+    now run: a grid of several ranks and more than 64 tile columns on the
+    distributed program (its `_grid_` line names the grid), the
+    distributed knobs on the single route, where they do not apply (as in
+    the JAX miniapp); --auto names the measurement it applied, none."""
+    rc = cholesky_miniapp.main(["--platform", "cpu", "--run", "1", "--dim", "64", "--tile", "8",
+                                "--dtype", "float64", *argv])
+    assert rc == 0
+    out = capsys.readouterr().out
+    want = {"grid": "_grid_ 2x2x1", "Kappa": "_grid_ 1x1x1"}.get(name, "_result_ cholesky")
+    assert want in out and ("_grid_" in out) == (name in ("grid", "Kappa")), out
+    if "--auto" in argv:
+        assert "_auto_provenance_ library defaults" in out
 
 
 def test_miniapp_without_card_raises(monkeypatch):

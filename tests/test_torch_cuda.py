@@ -1286,3 +1286,102 @@ def test_process_fabric_two_workers_on_the_card_answer_bitwise(cuda, tmp_path):
             assert st["launches"]["btrsm"] >= len(st["sids"])
     finally:
         fab.close()
+
+
+# --------------------------------------------------------------------------- #
+# the distributed factorizations on the card
+# --------------------------------------------------------------------------- #
+
+
+def _grid_factor(kind, device, gridspec=(1, 1, 1), transport=None, N=1024, v=128):
+    """(gathered factors, perm) of a distributed LU or Cholesky on the
+    kernel routes over a threaded world on `device` (the kernels on the
+    card, their plain versions on the CPU), on the same operands."""
+    from conflux_tpu_torch.cholesky.distributed import cholesky_factor_distributed
+    from conflux_tpu_torch.geometry import CholeskyGeometry, Grid3, LUGeometry
+    from conflux_tpu_torch.lu.distributed import lu_factor_distributed
+    from conflux_tpu_torch.parallel.mesh import distribute_shards, gather_shards, run_threaded
+    from conflux_tpu_torch.validation import make_spd_matrix
+
+    grid = Grid3(*gridspec)
+    if kind == "lu":
+        geom = LUGeometry.create(N, N, v, grid)
+        A = make_test_matrix(N, N, seed=7, dtype=np.float32)
+    else:
+        geom = CholeskyGeometry.create(N, v, grid)
+        A = make_spd_matrix(N, dtype=np.float32).numpy()
+    S = geom.scatter(A)
+
+    def fn(mesh):
+        shard = distribute_shards(S, mesh)
+        if kind == "lu":
+            out, perm = lu_factor_distributed(shard, geom, mesh)
+        else:
+            out, perm = cholesky_factor_distributed(shard, geom, mesh), None
+        return gather_shards(out, mesh).cpu().numpy(), perm
+
+    full, perm = run_threaded(grid, fn, device=device, transport=transport, timeout=600.0)[0]
+    return A, geom.gather(full), None if perm is None else perm.cpu().numpy()
+
+
+@pytest.mark.parametrize("kind", ["lu", "cholesky"])
+def test_distributed_factor_on_the_card_matches_its_plain_version_run(cuda, kind):
+    """1x1x1 at N=1024, v=128: K1 and K2 on the card against the same code
+    on the CPU (the plain versions), on the same operands: the same pivots,
+    factors within the float32 bar, and the launches counted."""
+    from conflux_tpu_torch.validation import cholesky_residual
+
+    before = dict(hk.LAUNCHES)
+    A, got, perm = _grid_factor(kind, "cuda")
+    assert hk.LAUNCHES["gemm"] > before["gemm"]
+    if kind == "lu":
+        assert hk.LAUNCHES["lu_block"] > before["lu_block"]
+    _, want, perm_cpu = _grid_factor(kind, "cpu")
+    bar = residual_bound(1024, np.float32)
+    if kind == "lu":
+        from conflux_tpu_torch.validation import lu_residual
+
+        np.testing.assert_array_equal(perm, perm_cpu)
+        assert lu_residual(A.astype(np.float64), got, perm) < bar
+    else:
+        got, want = np.tril(got), np.tril(want)
+        assert cholesky_residual(A.astype(np.float64), got) < bar
+    assert np.abs(got - want).max() <= bar * np.abs(want).max()
+
+
+def test_two_ranks_on_one_card_over_the_staged_transport(cuda):
+    """A threaded 2x1x1 world on cuda:0 ("staged": gloo on host copies of
+    the messages): the pivots of the CPU world, the residual within the
+    bar."""
+    from conflux_tpu_torch.validation import lu_residual
+
+    A, got, perm = _grid_factor("lu", "cuda", (2, 1, 1), "staged", N=512)
+    _, _want, perm_cpu = _grid_factor("lu", "cpu", (2, 1, 1), "gloo", N=512)
+    np.testing.assert_array_equal(perm, perm_cpu)
+    assert lu_residual(A.astype(np.float64), got, perm) < residual_bound(512, np.float32)
+
+
+def test_drifted_engine_answers_bitwise_alone_and_coalesced_on_the_card(cuda):
+    """The Woodbury correction runs each column alone: a drifted session's
+    answers are bitwise the same alone and coalesced (2 and 16 requests
+    of width 2 into one solve)."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.engine import ServeEngine
+
+    serve.clear_plans()
+    N, k = 1024, 16
+    rng = np.random.default_rng(5)
+    A = (rng.standard_normal((N, N)) / np.sqrt(N) + 2.0 * np.eye(N)).astype(np.float32)
+    session = serve.FactorPlan.create((N, N), torch.float32, v=256).factor(A)
+    session.update((rng.standard_normal((N, k)) / N).astype(np.float32),
+                   (rng.standard_normal((N, k)) / N).astype(np.float32))
+    reqs = [rng.standard_normal((N, 2)).astype(np.float32) for _ in range(16)]
+    with ServeEngine(max_batch_delay=0.0) as eng:
+        alone = [eng.solve(session, b, timeout=120) for b in reqs]
+    for burst in (2, 16):
+        with ServeEngine(max_batch_delay=0.5, max_coalesce_width=2 * burst) as eng:
+            got = [f.result(timeout=120) for f in [eng.submit(session, b)
+                                                   for b in reqs[:burst]]]
+            assert eng.stats()["batches"] < burst
+        for x, ref in zip(got, alone):
+            np.testing.assert_array_equal(x, ref)

@@ -1,8 +1,8 @@
 """The port's public names against the JAX package's.
 
 `conflux_tpu_torch.__all__` must cover `conflux_tpu.__all__`, less the
-names whose modules are not ported yet (the distributed factorizations,
-the mesh and the persistent cache). Each slice that ports one of them
+names whose modules are not ported yet (the distributed QR family, the
+serving mesh lane and the persistent cache). Each slice that ports one of them
 takes it off `NOT_PORTED`. Both lists are read with `ast`, so neither
 package's heavy modules are imported for the comparison.
 """
@@ -16,21 +16,12 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 NOT_PORTED = frozenset({
-    # mesh, multi-host and cache
-    "batch_mesh", "make_mesh", "distribute_shards", "initialize_multihost",
-    "enable_persistent_cache",
-    # distributed LU
-    "lu_factor_distributed", "lu_factor_steps", "lu_distributed_host",
-    "lu_solve_distributed",
-    # distributed Cholesky
-    "cholesky_factor_distributed", "cholesky_factor_steps",
-    "cholesky_distributed_host", "cholesky_solve_distributed",
-    "cholesky_qr2_distributed", "choose_cholesky_grid",
-    # distributed QR
+    # the serving mesh lane and the persistent cache
+    "batch_mesh", "enable_persistent_cache",
+    # distributed QR and least squares
+    "cholesky_qr2_distributed",
     "qr_factor_distributed", "qr_factor_steps", "qr_distributed_host",
-    "qr_lstsq_distributed", "tsqr_distributed",
-    # distributed solvers
-    "lstsq_distributed", "solve_distributed",
+    "qr_lstsq_distributed", "tsqr_distributed", "lstsq_distributed",
 })
 
 

@@ -15,6 +15,16 @@ from conflux_tpu_torch.validation import residual_bound
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread for the grid routes' small problems,
+    which run beside other pytest workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def test_miniapp_result_line_validate_refine(capsys):
     rc = conflux_miniapp.main(["--platform", "cpu", "-N", "256", "-b", "128",
                                "-r", "1", "--validate", "--refine", "2"])
@@ -36,11 +46,25 @@ def test_miniapp_result_line_validate_refine(capsys):
     ["--lookahead"],
     ["--tree", "flat"],
     ["--update", "x"],
-    ["-N", "16384", "-b", "128"],  # 128 steps: the distributed program's job
+    ["-N", "520", "-b", "8"],  # 65 steps: the distributed program's job
 ])
-def test_miniapp_unported_routes_exit(argv):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        conflux_miniapp.main(["--platform", "cpu", "-r", "0", *argv])
+def test_miniapp_unported_routes_exit(argv, capsys, one_thread):
+    """The routes that exited before the distributed program was ported
+    now run: a grid of several ranks and more than 64 supersteps on the
+    distributed program (its `_grid_` line), the distributed knobs on the
+    single route, where they do not apply (as in the JAX miniapp); only a
+    value outside a flag's choices still exits (argparse)."""
+    base = ["--platform", "cpu", "-r", "0", "-N", "64", "-b", "8", "--dtype", "float64"]
+    if "x" in argv:
+        with pytest.raises(SystemExit) as e:
+            conflux_miniapp.main([*base, *argv])
+        assert e.value.code == 2
+        return
+    assert conflux_miniapp.main([*base, *argv]) == 0
+    out = capsys.readouterr().out
+    grid = "2,2,1" in argv or "520" in argv
+    want = "_grid_ 2x2x1" if "2,2,1" in argv else "_grid_ 1x1x1" if grid else "_route_ "
+    assert want in out and ("_grid_" in out) == grid, out
 
 
 def test_miniapp_float64_runs_the_library_route(capsys):
