@@ -124,11 +124,14 @@ Phases, each of which must pass or the script exits non-zero:
      cond-1e6 systems (the bf16 rung trips, the ladder climbs, the rung
      sticks);
  23. the QR miniapp's `main(argv)`: --full -M 32768 --cols 32768 -b 1024
-     --validate, and tall mode at -M 1048576 --cols 256, --algo tsqr and
-     cholesky, --validate (orthogonality and reconstruction at most
-     `residual_bound(N, f32)`), ms and TFLOP/s at the LAPACK count
-     2MN^2 - 2N^3/3; no kernel launches; the tree's chunk round
-     (8, 4096, 1024) timed on torch's library QR;
+     --validate, through `qr_factor_distributed` on 1x1x1 (only K1
+     launches, as many as `qr.distributed.gemm_launches` predicts, the
+     first call at each shape held against its plain version, all TMA),
+     and tall mode at -M 1048576 --cols 256, --algo tsqr and cholesky,
+     --validate, which launch no kernel (orthogonality and reconstruction
+     at most `residual_bound(N, f32)`), ms and TFLOP/s at the LAPACK count
+     2MN^2 - 2N^3/3; the tree's chunk round (8, 4096, 1024) timed on
+     torch's library QR;
  24. kind="qr" plans at (16384, 1024) f32 and f64 (factor, the factor
      lane's checked program, 16 solve and 16 checked rounds against
      `torch.linalg.lstsq`, the verdict tripping on a corrupted R) and
@@ -220,7 +223,24 @@ Phases, each of which must pass or the script exits non-zero:
      "staged" transport (gloo through host copies, the bytes printed): LU
      at 2x2x1 (gather) and 3x1x1 (butterfly) and Cholesky at 2x2x1, N=8192,
      v=256, within the residual bar, and at N=2048, v=128 the card's
-     pivots equal to the CPU threaded world's.
+     pivots equal to the CPU threaded world's;
+ 35. distributed QR at full width: `qr_factor_distributed` on a
+     world-size-1 1x1x1 mesh at M = N = 32768, v = 1024, f32 (warm-up with
+     each K1 shape held against its plain version and the launches
+     against `gemm_launches`, 2 timed runs, ms and TFLOP/s beside the card
+     and its power limit, `qr_residual_distributed` within the bar); at
+     N=16384 lookahead and `qr_factor_steps` in two halves bitwise the
+     plain run; `tsqr_distributed` and `cholesky_qr2_distributed` at
+     (1048576, 256), `lstsq_distributed` and `qr_lstsq_distributed` at
+     (32768, 1024) f32 and f64 within 1e-4 and 1e-9 of
+     `torch.linalg.lstsq`; the native host scatter/gather of the N=32768
+     matrix bitwise the numpy path, both host times;
+ 36. several ranks on the one card over "staged" (correctness, not
+     scaling): `tsqr_distributed` at Px = 4 (gather, butterfly) and 3
+     (butterfly) on (262144, 256), R bitwise on every rank;
+     `qr_factor_distributed` at 2x2x1 and 2x1x2, N=8192, v=256, and the
+     QR miniapp's --full --p_grid 2,2,1 route, within the bar; at N=2048
+     R allclose the CPU threaded world's; the staged bytes.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round (phase 29 reads the counts
@@ -269,6 +289,9 @@ BF16_FACTOR_BAR = 1e-2  # LU residual of bf16-stored factors (the port's bf16 te
 # square root once, in the same order: bit for bit
 K5_TOL = 0.0
 K5_WA_TOL = 1e-5      # relative Frobenius of the probe rows wA
+
+
+CARD = ""  # "name, power limit" of the card, as nvidia-smi prints them (phase 1)
 
 
 def fail(msg: str) -> None:
@@ -336,6 +359,8 @@ def phase_device() -> dict:
     print(f"[device] {device['kind']} x{device['count']}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)  # name, power limit
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
     return device
 
 
@@ -2134,20 +2159,41 @@ def _qr_flops(M: int, N: int) -> float:
     return 2.0 * M * N * N - 2.0 * N ** 3 / 3
 
 
-def phase_qr() -> None:
+def phase_qr() -> dict:
     """(23) The QR miniapp's `main(argv)`: --full at N=32768 f32 -b 1024
-    --validate, and tall mode at M=1048576, 256 columns, --algo tsqr and
-    cholesky, each --validate; no kernel launches (the JAX package runs no
-    Pallas kernel for QR either)."""
+    --validate, through `qr.distributed.qr_factor_distributed` on 1x1x1
+    (its trailing update on K1: only K1 launches, in the count
+    `gemm_launches` predicts for the warm-up and the timed run, the first
+    call at each of the path's shapes held against the plain version, every
+    launch the TMA instance), and tall mode at M=1048576, 256 columns,
+    --algo tsqr and cholesky, each --validate, which launch no kernel (the
+    JAX package runs no Pallas kernel there either). Returns the --full
+    run's launches."""
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+    from conflux_tpu_torch.qr.distributed import gemm_launches
     from conflux_tpu_torch.validation import residual_bound
 
     runs = (["--full", "-M", "32768", "--cols", "32768", "-b", "1024"],
             ["-M", "1048576", "--cols", "256", "--algo", "tsqr"],
             ["-M", "1048576", "--cols", "256", "--algo", "cholesky"])
+    full_counts: dict = {}
     for argv in runs:
-        lines, counts = run_miniapp([*argv, "--validate", "-r", "1"], app="qr_miniapp",
-                                    kernels=())
-        check(all(c == 0 for c in counts.values()), f"qr {argv}: kernels launched {counts}")
+        if "--full" in argv:
+            with _held_to_plain("qr 23", ("gemm",)):
+                lines, counts = run_miniapp([*argv, "--validate", "-r", "1"], app="qr_miniapp",
+                                            kernels=("gemm",))
+            want = 2 * gemm_launches(LUGeometry.create(32768, 32768, 1024, Grid3(1, 1, 1)))
+            others = {k: n for k, n in counts.items() if not k.startswith("gemm") and n}
+            print(f"[qr]   --full K1 launches {counts['gemm']}, predicted {want} (warm-up + 1 "
+                  f"timed factorization); other kernels {others or 'none'}", flush=True)
+            check(counts["gemm"] == want and not others,
+                  f"qr --full: launches {counts}, K1 predicted {want}")
+            _only_tma(counts, "qr")
+            full_counts = counts
+        else:
+            lines, counts = run_miniapp([*argv, "--validate", "-r", "1"], app="qr_miniapp",
+                                        kernels=())
+            check(all(c == 0 for c in counts.values()), f"qr {argv}: kernels launched {counts}")
         f = _field(lines, "_result_").split()[1].split(",")
         ms = float(f[8])
         M, N = int(argv[argv.index("-M") + 1]), int(argv[argv.index("--cols") + 1])
@@ -2156,11 +2202,17 @@ def phase_qr() -> None:
         rec = float(res.split("reconstruction=")[1])
         bar = residual_bound(N, torch.float32)
         print(f"[qr] {f[0]} M={M} N={N}: {ms:.1f} ms = "
-              f"{_qr_flops(M, N) / ms / 1e9:.1f} TFLOP/s at 2MN^2 - 2N^3/3 flops; orth "
-              f"{orth:.3e}, reconstruction {rec:.3e} (bar {bar:.3e})", flush=True)
+              f"{_qr_flops(M, N) / ms / 1e9:.1f} TFLOP/s at 2MN^2 - 2N^3/3 flops ({CARD}); "
+              f"orth {orth:.3e}, reconstruction {rec:.3e} (bar {bar:.3e})", flush=True)
+        if "--full" in argv:
+            print(f"[qr]   --full on qr_factor_distributed: {ms:.1f} ms, beside the "
+                  "11224.0 ms the route's earlier single-device stand-in "
+                  "qr_factor_blocked(reproject=True) took (NVIDIA H100 80GB HBM3, 700.00 W)",
+                  flush=True)
         check(orth <= bar and rec <= bar, f"qr {argv} residuals")
         torch.cuda.empty_cache()
     _qr_chunk_round()
+    return full_counts
 
 
 def _qr_chunk_round() -> None:
@@ -3729,6 +3781,317 @@ def phase_dist_ranks() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------- #
+# 35-36: distributed QR and least squares on the process grid
+# --------------------------------------------------------------------------- #
+
+
+def _rel_max(x: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((x.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def phase_dist_qr() -> dict:
+    """(35) `qr_factor_distributed` at full width on a world-size-1 1x1x1
+    mesh: M = N = 32768, v = 1024, f32, randn from a seeded generator. The
+    warm-up holds the first K1 call at each of the path's shapes against
+    its plain version and counts K1 against `gemm_launches`; then 2 timed
+    runs (ms, TFLOP/s at 2MN^2 - 2N^3/3), `qr_residual_distributed` within
+    residual_bound(N, f32); at N=16384 lookahead bitwise the plain loop and
+    `qr_factor_steps` in two halves bitwise the uninterrupted run. Tall:
+    `tsqr_distributed` and `cholesky_qr2_distributed` at Px = 1 on
+    (1048576, 256), `lstsq_distributed` and `qr_lstsq_distributed` at
+    (32768, 1024) f32 and f64 against `torch.linalg.lstsq` (1e-4, 1e-9,
+    phase 24's bars). Native `LUGeometry.scatter`/`gather` of the N=32768
+    f32 matrix bitwise the numpy path, both host times. Returns the
+    launches."""
+    import numpy as np
+
+    from conflux_tpu_torch import native, solvers
+    from conflux_tpu_torch.cli.qr_miniapp import _tall_residuals
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+    from conflux_tpu_torch.parallel.mesh import make_mesh
+    from conflux_tpu_torch.qr.distributed import (
+        cholesky_qr2_distributed,
+        gemm_launches,
+        qr_factor_distributed,
+        qr_factor_steps,
+        tsqr_distributed,
+    )
+    from conflux_tpu_torch.validation import qr_residual_distributed, residual_bound
+
+    t_phase = time.perf_counter()
+    grid = Grid3(1, 1, 1)
+    mesh = make_mesh(grid)
+    gen = torch.Generator(device="cuda")
+
+    def randn(*shape, seed, dtype=torch.float32):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    N, v = 32768, 1024
+    geom = LUGeometry.create(N, N, v, grid)
+    A = randn(N, N, seed=35)
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    with _held_to_plain("qr 35", ("gemm",)):
+        Q, R = qr_factor_distributed(A, geom, mesh)
+        torch.cuda.synchronize()
+    warm = dict(hk.LAUNCHES)
+    want = gemm_launches(geom)
+    print(f"[qr 35] warm-up K1 launches {warm['gemm']} ({warm['gemm_tma']} TMA), predicted "
+          f"{want} a factorization", flush=True)
+    check(warm["gemm"] == want, f"qr 35: K1 launched {warm['gemm']} times, not {want}")
+    del Q, R
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Q, R = qr_factor_distributed(A, geom, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(hk.LAUNCHES)
+    check(counts["gemm"] == 3 * want, f"qr 35: K1 {counts['gemm']} over 3 runs, not {3 * want}")
+    _only_tma(counts, "qr 35")
+    ms = sum(times) / len(times)
+    print(f"[qr 35] qr_factor_distributed M=N=32768 v=1024 f32 on 1x1x1: "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms, mean {ms:.1f} ms = "
+          f"{_qr_flops(N, N) / ms / 1e9:.2f} TFLOP/s at 2MN^2 - 2N^3/3 ({CARD})", flush=True)
+    t0 = time.perf_counter()
+    rec, orth = qr_residual_distributed(A, Q, R, geom, mesh)
+    bar = residual_bound(N, torch.float32)
+    print(f"[qr 35]   qr_residual_distributed: reconstruction {rec:.3e}, orth {orth:.3e} "
+          f"<= {bar:.3e} ({(time.perf_counter() - t0) * 1e3:.1f} ms, {CARD})", flush=True)
+    check(rec <= bar and orth <= bar, f"qr 35: residuals {rec:.3e} {orth:.3e} > {bar:.3e}")
+    del A, Q, R
+    torch.cuda.empty_cache()
+
+    # lookahead and resume, bitwise within the port, at N=16384
+    Nh = 16384
+    gh = LUGeometry.create(Nh, Nh, v, grid)
+    Ah = randn(Nh, Nh, seed=36)
+    hk.reset_launches()
+    Qa, Ra = qr_factor_distributed(Ah, gh, mesh)
+    Qb, Rb = qr_factor_distributed(Ah, gh, mesh, lookahead=True)
+    la_same = torch.equal(Qa, Qb) and torch.equal(Ra, Rb)
+    la_diff = 0.0 if la_same else max(_rel_max(Qb, Qa), _rel_max(Rb, Ra))
+    del Qb, Rb
+    half = gh.Nt // 2
+    Qs, Rs = qr_factor_steps(Ah, gh, mesh, 0, half)
+    Qs, Rs = qr_factor_steps(Qs, gh, mesh, half, gh.Nt, R=Rs, donate=True)
+    torch.cuda.synchronize()
+    steps_same = torch.equal(Qs, Qa) and torch.equal(Rs, Ra)
+    c16 = dict(hk.LAUNCHES)
+    want16 = 2 * gemm_launches(gh) + gemm_launches(gh, 8, 0, half) + gemm_launches(gh, 8, half)
+    print(f"[qr 35]   N=16384: lookahead bitwise the plain loop {la_same} (max rel diff "
+          f"{la_diff:.2e}); qr_factor_steps [0, {half}) + [{half}, {gh.Nt}) bitwise {steps_same};"
+          f" K1 {c16['gemm']} launches, predicted {want16}", flush=True)
+    check(la_same, "qr 35: lookahead is not bitwise the plain loop")
+    check(steps_same, "qr 35: the resumed factorization is not bitwise the uninterrupted one")
+    check(c16["gemm"] == want16, f"qr 35: N=16384 K1 {c16['gemm']}, not {want16}")
+    counts["gemm"] += c16["gemm"]
+    counts["gemm_tma"] += c16["gemm_tma"]
+    del Ah, Qa, Ra, Qs, Rs
+    torch.cuda.empty_cache()
+
+    # tall-skinny at Px = 1, and the least-squares solves
+    hk.reset_launches()
+    T = randn(1048576, 256, seed=37)
+    bar_t = residual_bound(256, torch.float32)
+    for name, fn in (("tsqr_distributed", tsqr_distributed),
+                     ("cholesky_qr2_distributed", cholesky_qr2_distributed)):
+        Qt, Rt = fn(T, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Qt, Rt = fn(T, mesh)
+        torch.cuda.synchronize()
+        tms = (time.perf_counter() - t0) * 1e3
+        rec_t, orth_t = _tall_residuals(T, Qt, Rt, mesh)
+        print(f"[qr 35]   {name} (1048576, 256) Px=1: {tms:.1f} ms ({CARD}), "
+              f"reconstruction {rec_t:.3e}, orth {orth_t:.3e} <= {bar_t:.3e}", flush=True)
+        check(rec_t <= bar_t and orth_t <= bar_t, f"qr 35: {name} residuals")
+    del T, Qt, Rt
+    lg = LUGeometry.create(32768, 1024, 1024, grid)
+    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-9)):
+        G = randn(32768, 1024, seed=38, dtype=dt)
+        b = randn(32768, 2, seed=39, dtype=dt)
+        ref = torch.linalg.lstsq(G, b).solution
+        x = solvers.lstsq_distributed(G, mesh, b)
+        Qg, Rg = qr_factor_distributed(G, lg, mesh, backend="xla" if dt == torch.float64
+                                       else "kernel")
+        y = solvers.qr_lstsq_distributed(Qg, Rg, lg, mesh, b)
+        ex, ey = _rel_max(x, ref), _rel_max(y, ref)
+        print(f"[qr 35]   lstsq_distributed / qr_lstsq_distributed (32768, 1024) "
+              f"{str(dt)[6:]}: max rel to torch.linalg.lstsq {ex:.2e} / {ey:.2e} <= {tol:g}",
+              flush=True)
+        check(ex <= tol and ey <= tol, f"qr 35: least squares {dt} off torch.linalg.lstsq")
+    del G, b, Qg, Rg
+    c_tall = dict(hk.LAUNCHES)
+    counts["gemm"] += c_tall["gemm"]
+    counts["gemm_tma"] += c_tall["gemm_tma"]
+    torch.cuda.empty_cache()
+
+    # the native host scatter/gather of the N=32768 f32 matrix
+    H = randn(N, N, seed=40).cpu().numpy()
+    native.load()  # the build (at first use) is not timed
+    t0 = time.perf_counter()
+    S_fast = geom.scatter(H)
+    t_sc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    G_fast = geom.gather(S_fast)
+    t_ga = time.perf_counter() - t0
+    check(native.scatter(H[:8, :8], 8, 1, 1) is not None, "qr 35: the native path did not run")
+    fast_s, fast_g = native.scatter, native.gather
+    native.scatter = native.gather = lambda *a: None
+    try:
+        t0 = time.perf_counter()
+        S_slow = geom.scatter(H)
+        t_sc2 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        G_slow = geom.gather(S_slow)
+        t_ga2 = time.perf_counter() - t0
+    finally:
+        native.scatter, native.gather = fast_s, fast_g
+    same = np.array_equal(S_fast, S_slow) and np.array_equal(G_fast, G_slow) \
+        and np.array_equal(G_fast, H)
+    print(f"[qr 35]   LUGeometry.scatter/gather of (32768, 32768) f32 on the host: native "
+          f"{t_sc * 1e3:.1f} / {t_ga * 1e3:.1f} ms ({native.nthreads()} OpenMP threads; build "
+          f"{native.build_seconds} s), numpy "
+          f"{t_sc2 * 1e3:.1f} / {t_ga2 * 1e3:.1f} ms; bitwise {same}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(same, "qr 35: native scatter/gather differ from the numpy path")
+    return counts
+
+
+def phase_dist_qr_ranks() -> dict:
+    """(36) Several ranks on the one card over "staged", as phase 34: a
+    test of correctness, not of scaling. `tsqr_distributed` at Px = 4
+    (gather, butterfly) and Px = 3 (butterfly) on (262144, 256): R bitwise
+    on every rank and within the bar, butterfly allclose gather;
+    `qr_factor_distributed` at 2x2x1 and 2x1x2, N=8192, v=256 (K1 counted
+    against `gemm_launches`), the QR miniapp's --full --p_grid 2,2,1 route,
+    all within residual_bound(N, f32); at N=2048, v=128, 2x2x1, R allclose
+    the same code's on the CPU's threaded world. Returns the launches."""
+    import numpy as np
+
+    from conflux_tpu_torch.cli.qr_miniapp import _tall_residuals
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+    from conflux_tpu_torch.parallel.mesh import gather_shards, run_threaded
+    from conflux_tpu_torch.qr.distributed import (
+        gemm_launches,
+        qr_factor_distributed,
+        r_geometry,
+        tsqr_distributed,
+    )
+    from conflux_tpu_torch.validation import qr_residual_distributed, residual_bound
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    # tall-skinny over x
+    M, n = 262144, 256
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    T = torch.randn((M, n), generator=gen, device="cuda").cpu()
+    bar_t = residual_bound(n, torch.float32)
+    Rs = {}
+    for Px, tree in ((4, "gather"), (4, "butterfly"), (3, "butterfly")):
+        Ml = -(-M // Px)
+        Tp = torch.zeros((Px * Ml, n))
+        Tp[:M] = T
+
+        def fn(mesh):
+            a = Tp[mesh.x * Ml:(mesh.x + 1) * Ml].to(mesh.device)
+            mesh.barrier()
+            t0 = time.perf_counter()
+            Q, R = tsqr_distributed(a, mesh, tree=tree)
+            torch.cuda.synchronize()
+            mesh.barrier()
+            dt = (time.perf_counter() - t0) * 1e3
+            return R.cpu(), _tall_residuals(a, Q, R, mesh), dt, dict(mesh.stats)
+
+        res = run_threaded(Grid3(Px, 1, 1), fn, device="cuda", transport="staged",
+                           timeout=900.0)
+        same = all(torch.equal(r[0], res[0][0]) for r in res)
+        rec, orth = res[0][1]
+        Rs[(Px, tree)] = res[0][0]
+        print(f"[ranks 36] tsqr_distributed ({M}, {n}) Px={Px} {tree}: {res[0][2]:.1f} ms (a "
+              f"correctness test: the ranks share one card and one host; {CARD}), R bitwise on "
+              f"every rank {same}, reconstruction {rec:.3e}, orth {orth:.3e} <= {bar_t:.3e}; "
+              f"staged {sum(r[3]['staged_bytes'] for r in res)} bytes", flush=True)
+        check(same and rec <= bar_t and orth <= bar_t, f"ranks 36: tsqr Px={Px} {tree}")
+    diff = _rel_max(Rs[(4, "butterfly")], Rs[(4, "gather")])
+    print(f"[ranks 36]   Px=4 butterfly against gather: max rel {diff:.2e} <= {bar_t:.3e}",
+          flush=True)
+    check(diff <= bar_t, "ranks 36: butterfly and gather disagree")
+
+    def qr_world(gridspec, N, v, device, transport):
+        grid = Grid3(*gridspec)
+        geom = LUGeometry.create(N, N, v, grid)
+        g = torch.Generator(device="cpu").manual_seed(N)
+        A = torch.randn((N, N), generator=g)
+
+        def fn(mesh):
+            shard = geom.local_block(A, mesh.x, mesh.y).to(mesh.device).contiguous()
+            mesh.barrier()
+            t0 = time.perf_counter()
+            Q, R = qr_factor_distributed(shard, geom, mesh)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize()
+            mesh.barrier()
+            dt = (time.perf_counter() - t0) * 1e3
+            res = qr_residual_distributed(shard, Q, R, geom, mesh)
+            return gather_shards(R, mesh).cpu(), res, dt, dict(mesh.stats)
+
+        out = run_threaded(grid, fn, device=device, transport=transport, timeout=900.0)
+        same = all(torch.equal(r[0], out[0][0]) for r in out)
+        R = np.triu(r_geometry(geom).gather(out[0][0].numpy())[:N, :N])
+        return out, same, R, geom
+
+    bar = residual_bound(8192, torch.float32)
+    for gridspec in ((2, 2, 1), (2, 1, 2)):
+        hk.reset_launches()
+        out, same, _R, geom = qr_world(gridspec, 8192, 256, "cuda", "staged")
+        c = dict(hk.LAUNCHES)
+        add(c)
+        rec, orth = out[0][1]
+        want = gemm_launches(geom)
+        print(f"[ranks 36] qr_factor_distributed {Grid3(*gridspec)} N=8192 v=256: "
+              f"{max(r[2] for r in out):.1f} ms (a correctness test; {CARD}), reconstruction "
+              f"{rec:.3e}, orth {orth:.3e} <= {bar:.3e}, R identical on every rank {same}; K1 "
+              f"{c['gemm']} launches, predicted {want}; staged "
+              f"{sum(r[3]['staged_bytes'] for r in out)} bytes over "
+              f"{sum(r[3]['collectives'] for r in out)} collectives", flush=True)
+        check(same and rec <= bar and orth <= bar and c["gemm"] == want,
+              f"ranks 36: qr {gridspec} failed")
+    lines, c_app = run_miniapp(["--full", "-M", "8192", "--cols", "8192", "-b", "256",
+                                "--p_grid", "2,2,1", "-r", "1", "--validate"],
+                               app="qr_miniapp", kernels=("gemm",))
+    add(c_app)
+    check(_field(lines, "_grid_").startswith("_grid_ 2x2x1 ranks=4 world=threads "
+                                             "transport=staged"), "ranks 36: miniapp world")
+    resl = _field(lines, "_residual_")
+    orth_a = float(resl.split("orth=")[1].split()[0])
+    rec_a = float(resl.split("reconstruction=")[1])
+    check(orth_a <= bar and rec_a <= bar, f"ranks 36: miniapp residuals {resl}")
+    hk.reset_launches()
+    card, same_c, Rc, _g = qr_world((2, 2, 1), 2048, 128, "cuda", "staged")
+    add(dict(hk.LAUNCHES))
+    cpu, _same, Rh, _g = qr_world((2, 2, 1), 2048, 128, "cpu", "gloo")
+    bar2 = residual_bound(2048, torch.float32)
+    d = float(np.abs(Rc - Rh).max() / np.abs(Rh).max())
+    print(f"[ranks 36] 2x2x1 N=2048 v=128: R on the card against the CPU threaded world's "
+          f"max rel {d:.2e} <= {bar2:.3e}; phase {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}", flush=True)
+    check(same_c and d <= bar2, "ranks 36: the card's R differs from the CPU world's")
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -3779,7 +4142,7 @@ def main() -> int:
     phase_solvers()
     cw = phase_woodbury()
     cl = phase_ladder()
-    phase_qr()
+    c23 = phase_qr()
     phase_qr_lane()
     c25 = phase_engine_solve()
     c26 = phase_engine_factor()
@@ -3791,7 +4154,9 @@ def main() -> int:
     c32 = phase_dist_lu(kernel_ms)
     c33 = phase_dist_chol()
     c34 = phase_dist_ranks()
-    late = (c28, c29, c30, c31, c32, c33, c34)
+    c35 = phase_dist_qr()
+    c36 = phase_dist_qr_ranks()
+    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36)
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"] + sum(c.get("gemm", 0) for c in late)
     k2["launches"] += cf["lu_block"] + cl["lu_block"] + sum(c.get("lu_block", 0) for c in late)
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]

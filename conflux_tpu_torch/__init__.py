@@ -17,8 +17,7 @@ the JAX package's library routes (backend "xla", panel algos "partial",
 batched entries (`batched.py`); the single-device solver API (`solve`,
 `fgmres`, `lu_solve_transposed`, `slogdet_from_lu`, `cond_estimate_1`,
 `inv_from_lu`, `solve_updated`, `lstsq`); the QR family on one device
-(`qr/`: `tall_qr`, `qr_factor_blocked`, `cholesky_qr2`, and the
-`qr_miniapp` CLI at 1x1x1); and the serving core (`FactorPlan` ->
+(`qr/`: `tall_qr`, `qr_factor_blocked`, `cholesky_qr2`); and the serving core (`FactorPlan` ->
 `SolveSession`, `serve.py`) for LU, SPD and QR plans, through the
 batched factor kernels or the batched blocked factor and the blocked
 triangular-solve kernel, with Woodbury drift updates (`update.py`), the
@@ -39,7 +38,12 @@ and CONFLUX and CONFCHOX on a process grid (`parallel/mesh.py` on
 `torch.distributed`: `make_mesh`, `distribute_shards`,
 `initialize_multihost`; `lu/distributed.py`, `cholesky/distributed.py`,
 their grid solves and residuals, `solve_distributed`, the scatter half of
-`io.py`, `autotune.py`, and the miniapps' grid routes).
+`io.py`, `autotune.py`, and the miniapps' grid routes); distributed QR
+and least squares on the grid (`qr/distributed.py`: `tsqr_distributed`,
+`cholesky_qr2_distributed`, `qr_factor_distributed`, `qr_factor_steps`;
+`lstsq_distributed`, `qr_lstsq_distributed`, `qr_residual_distributed`,
+and the QR miniapp's grid route); and the host layout layer (`layout.py`,
+the COSTA role, and `native/`, the C++ scatter/gather built at first use).
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_cholesky_grid, choose_grid
@@ -151,6 +155,15 @@ def __getattr__(name):
         "lu_residual_distributed": ("conflux_tpu_torch.validation", "lu_residual_distributed"),
         "cholesky_residual_distributed": (
             "conflux_tpu_torch.validation", "cholesky_residual_distributed"),
+        "tsqr_distributed": ("conflux_tpu_torch.qr.distributed", "tsqr_distributed"),
+        "cholesky_qr2_distributed": (
+            "conflux_tpu_torch.qr.distributed", "cholesky_qr2_distributed"),
+        "qr_distributed_host": ("conflux_tpu_torch.qr.distributed", "qr_distributed_host"),
+        "qr_factor_distributed": ("conflux_tpu_torch.qr.distributed", "qr_factor_distributed"),
+        "qr_factor_steps": ("conflux_tpu_torch.qr.distributed", "qr_factor_steps"),
+        "lstsq_distributed": ("conflux_tpu_torch.solvers", "lstsq_distributed"),
+        "qr_lstsq_distributed": ("conflux_tpu_torch.solvers", "qr_lstsq_distributed"),
+        "qr_residual_distributed": ("conflux_tpu_torch.validation", "qr_residual_distributed"),
     }
     if name in _lazy:
         import importlib
@@ -261,4 +274,12 @@ __all__ = [
     "solve_distributed",
     "lu_residual_distributed",
     "cholesky_residual_distributed",
+    "tsqr_distributed",
+    "cholesky_qr2_distributed",
+    "qr_distributed_host",
+    "qr_factor_distributed",
+    "qr_factor_steps",
+    "lstsq_distributed",
+    "qr_lstsq_distributed",
+    "qr_residual_distributed",
 ]

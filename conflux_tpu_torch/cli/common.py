@@ -24,7 +24,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
         "panel algo 'kernel'); float64 runs the JAX package's default "
         "library route (backend 'xla', panel algo 'auto'), as K1 and K2 "
         "have no float64 instance. QR miniapp: the library QR in the dtype "
-        "(bfloat16 computes in float32)")
+        "(bfloat16 computes in float32); --full's trailing GEMMs run K1 at "
+        "float32 and bfloat16 and the library product at float64")
     p.add_argument("--profile", action="store_true", help="print region timings")
 
 
@@ -96,6 +97,17 @@ def result_line(algo: str, N: int, P: int, grid, exp_type: str,
     n_base = N // math.isqrt(P) if exp_type == "weak" else N
     return (f"_result_ {algo},conflux_tpu_torch,{N},{n_base},{P},"
             f"{grid},time,{exp_type},{ms:.3f},{v},{dtype}")
+
+
+def positive_int(text: str) -> int:
+    """argparse type for counts that must be >= 1."""
+    try:
+        n = int(text)
+    except ValueError:
+        n = 0
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"expected a positive integer, got {text!r}")
+    return n
 
 
 def segs_arg(text: str) -> tuple[int, int]:

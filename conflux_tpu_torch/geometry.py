@@ -11,8 +11,9 @@ Tile distribution is 2D block-cyclic over the (x, y) plane: tile (i, j) of
 the global tile grid lives on grid coordinate (i mod Px, j mod Py) at local
 tile slot (i // Px, j // Py). The z axis does not own distinct tiles: it
 carries 2.5D replicated partial sums of the trailing matrix. Scatter and
-gather run the numpy path of the JAX package's (its own path when its
-native extension is absent), so both packages give the same shards.
+gather run the port's native tile copies (`conflux_tpu_torch.native`,
+float32 and float64 on the tile grid) and the JAX package's numpy path
+otherwise; both give the JAX package's shards bit for bit.
 """
 
 from __future__ import annotations
@@ -234,6 +235,11 @@ class LUGeometry:
             for d in range(min(A.shape[0], A.shape[1]), min(M, N)):
                 padded[d, d] = 1.0
             A = padded
+        from conflux_tpu_torch import native
+
+        fast = native.scatter(A, self.v, self.grid.Px, self.grid.Py)
+        if fast is not None:
+            return fast
         shards = self.scatter_blocks(A)
         # a 1 x 1 grid's blocks are A itself: the shards never alias the input
         return shards.copy() if np.shares_memory(shards, A) else np.ascontiguousarray(shards)
@@ -259,8 +265,14 @@ class LUGeometry:
 
     def gather(self, shards: np.ndarray) -> np.ndarray:
         """Inverse of :meth:`scatter`: (Px, Py, Ml, Nl) -> (M, N)."""
+        from conflux_tpu_torch import native
+
         Px, Py, v = self.grid.Px, self.grid.Py, self.v
-        T = np.asarray(shards).reshape(Px, Py, self.Mtl, v, self.Ntl, v)
+        shards = np.asarray(shards)
+        fast = native.gather(shards, v, Px, Py)
+        if fast is not None:
+            return fast
+        T = shards.reshape(Px, Py, self.Mtl, v, self.Ntl, v)
         T = np.transpose(T, (2, 0, 3, 4, 1, 5))  # (Mtl, Px, v, Ntl, Py, v)
         return np.ascontiguousarray(T.reshape(self.M, self.N))
 

@@ -9,9 +9,10 @@ other's files. The tier layer's spill and checkpoint records
 (`load_and_scatter`, `load_scattered`, `save_scattered`: the reference's
 `CholeskyIO.cpp:185-501` file parse, tile scatter and dumps) and the
 deterministic SPD generators (`generate_spd_local`, `_shards`, `_tiles`,
-`_file`: `CholeskyIO.cpp:100-172`) run the JAX package's numpy path, its
-own when its native extension is absent, so both give the same shards and
-files.
+`_file`: `CholeskyIO.cpp:100-172`) give the JAX package's shards and
+files bit for bit: the file scatter and gather stream through the port's
+native mmap tile copies (`conflux_tpu_torch.native`, float32 and float64),
+other dtypes through an `np.memmap` one tile strip at a time.
 """
 
 from __future__ import annotations
@@ -187,6 +188,11 @@ def load_scattered(path: str, geom) -> np.ndarray:
     if (M, N) != (gM, gN):
         raise ValueError(f"file is {M}x{N}, geometry needs {gM}x{gN}")
     Px, Py, v = geom.grid.Px, geom.grid.Py, geom.v
+    from conflux_tpu_torch import native
+
+    fast = native.file_scatter(path, _HEADER_BYTES, gM, gN, v, Px, Py, dtype)
+    if fast is not None:
+        return fast
     A = np.memmap(path, dtype=dtype, mode="r", offset=_HEADER_BYTES, shape=(gM, gN))
     Ml, Nl, Ntl = gM // Px, gN // Py, gN // (v * Py)
     shards = np.empty((Px, Py, Ml, Nl), dtype=dtype)
@@ -210,6 +216,11 @@ def save_scattered(path: str, shards, geom) -> None:
                          f"({Px}, {Py}, {gM // Px}, {gN // Py})")
     with open(path, "wb") as f:
         _write_header(f, gM, gN, shards.dtype)
+    from conflux_tpu_torch import native
+
+    if native.file_gather(path, shards, _HEADER_BYTES, v, Px, Py):
+        return
+    with open(path, "r+b") as f:  # grow to full size for the memmap
         f.truncate(_HEADER_BYTES + gM * gN * shards.dtype.itemsize)
     A = np.memmap(path, dtype=shards.dtype, mode="r+", offset=_HEADER_BYTES, shape=(gM, gN))
     Ntl = gN // (v * Py)

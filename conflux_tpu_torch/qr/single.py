@@ -25,9 +25,23 @@ which makes thin Q and R unique.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from conflux_tpu_torch.ops import blas
+
+# cuSOLVER's geqrf returned CUSOLVER_STATUS_INTERNAL_ERROR when four rank
+# threads sharing one card called it at once (a threaded world's tall
+# QR); on the card the library QR calls of a process take turns
+_GEQRF_LOCK = threading.Lock()
+
+
+def _library_r(a: torch.Tensor) -> torch.Tensor:
+    """R of the library QR of a (batch of) tall matrix."""
+    with _GEQRF_LOCK if a.is_cuda else contextlib.nullcontext():
+        return torch.linalg.qr(a, mode="r")[1]
 
 
 def _tree_r(panel: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -41,12 +55,12 @@ def _tree_r(panel: torch.Tensor, chunk: int) -> torch.Tensor:
         if nch * ch != m:
             panel = torch.nn.functional.pad(panel, (0, 0, 0, nch * ch - m))
         if nch == 1:
-            return torch.linalg.qr(panel, mode="r")[1][:n]
-        rs = torch.linalg.qr(panel.reshape(nch, ch, n), mode="r")[1][:, :n]
+            return _library_r(panel)[:n]
+        rs = _library_r(panel.reshape(nch, ch, n))[:, :n]
         panel = rs.reshape(nch * n, n)
         m = nch * n
         if m <= ch:
-            return torch.linalg.qr(panel, mode="r")[1][:n]
+            return _library_r(panel)[:n]
 
 
 def _positive_diag(Q: torch.Tensor, R: torch.Tensor):

@@ -487,6 +487,82 @@ def cholesky_solve_distributed(shard: torch.Tensor, geom, mesh, b) -> torch.Tens
     return xv[:, 0] if squeeze else xv
 
 
+def lstsq_distributed(shards, mesh, b, algo: str = "tsqr", chunk: int | None = None,
+                      passes: int = 2) -> torch.Tensor:
+    """Least squares min_x ||A x - b|| on x-sharded rows, every rank
+    together. `shards` is this rank's (Ml, n) row block or the full
+    (Px, Ml, n) array (the `qr.distributed` tall layout); b is (M,) or
+    (M, k) with M = Px Ml, the whole right-hand side on every rank. TSQR
+    (or CholeskyQR2) gives (Q_shard, R); c = Q^H b is one (n, k) sum over
+    x, the only communication beyond the factorization's; then
+    x = R^{-1} c, identical on every rank."""
+    from conflux_tpu_torch.qr.distributed import (
+        _row_shard,
+        cholesky_qr2_distributed,
+        tsqr_distributed,
+    )
+
+    A = _row_shard(shards, mesh)
+    Ml = A.shape[0]
+    Px = mesh.grid.Px
+    cdtype = blas.compute_dtype(A.dtype)
+    b2, squeeze = _grid_rhs(b, mesh, cdtype)
+    if b2.shape[0] != Px * Ml:
+        # before the factorization: the error should be free
+        raise ValueError(f"b has {b2.shape[0]} rows, shards hold {Px * Ml}")
+    if algo == "tsqr":
+        Q, R = tsqr_distributed(A, mesh, chunk=chunk, passes=passes)
+    elif algo == "cholesky":
+        Q, R = cholesky_qr2_distributed(A, mesh, passes=passes)
+    else:
+        raise ValueError(f"unknown algo {algo!r} (tsqr|cholesky)")
+    bl = b2[mesh.x * Ml:(mesh.x + 1) * Ml]
+    c = mesh.psum(torch.matmul(Q.to(cdtype).mH, bl).contiguous(), "x")
+    x = blas.trsm_left_upper(R.to(cdtype), c)
+    return x[:, 0] if squeeze else x
+
+
+def qr_lstsq_distributed(Q_shard, R_shard, geom, mesh, b) -> torch.Tensor:
+    """Least squares min_x ||A x - b|| on the grid from the block-cyclic
+    QR factors (`qr.distributed.qr_factor_distributed`'s outputs), every
+    rank together: the general-matrix counterpart of
+    :func:`lstsq_distributed`. c = Q^H b is one (Nl, k) partial per rank
+    summed over x, assembled over y; then R x = c is block back
+    substitution over R's own geometry (the grid solves' diagonal-tile
+    machinery on the upper factor). b is (M,) or (M, k) at the padded
+    geometry's M; x comes back (N,) or (N, k), identical on every rank."""
+    from conflux_tpu_torch.qr.distributed import _rank_shard, r_geometry
+
+    b = torch.as_tensor(b)
+    rows = b.shape[0] if b.dim() else 0
+    if rows != geom.M:
+        raise ValueError(f"rhs has {rows} rows, the (padded) factorization needs {geom.M}")
+    Q_shard = _rank_shard(Q_shard, geom, mesh, "Q_shards")
+    R_shard = _rank_shard(R_shard, r_geometry(geom), mesh, "R_shards")
+    v, Px, Py, Ml, Nl = geom.v, geom.grid.Px, geom.grid.Py, geom.Ml, geom.Nl
+    dtype = blas.compute_dtype(Q_shard.dtype)
+    Qloc, Rloc = Q_shard.to(dtype), R_shard.to(dtype)
+    b2, squeeze = _grid_rhs(b, mesh, dtype)
+    dev = mesh.device
+    lr = torch.arange(Ml, device=dev)
+    grow = ((lr // v) * Px + mesh.x) * v + lr % v
+    lc = torch.arange(Nl, device=dev)
+    gcol = ((lc // v) * Py + mesh.y) * v + lc % v
+    part = mesh.psum(torch.matmul(Qloc.mH, b2[grow]).contiguous(), "x")  # (Nl, k)
+    cv = torch.zeros((geom.N, b2.shape[1]), dtype=dtype, device=dev)
+    cv[gcol] = part
+    mesh.psum(cv, "y")  # each y owns disjoint global columns
+    xv = torch.zeros_like(cv)
+    for k in range(geom.Nt - 1, -1, -1):
+        rows, diag = _diag_tile_rows(Rloc, k, mesh, v, Px, Py, Nl)
+        s = rows @ torch.where((gcol >= (k + 1) * v)[:, None], xv[gcol], 0)
+        mesh.psum(s, "y")
+        xv[k * v:(k + 1) * v] = blas.trsm_left_upper(torch.triu(diag),
+                                                     cv[k * v:(k + 1) * v] - s)
+    xv = _replicated(xv, mesh)
+    return xv[:, 0] if squeeze else xv
+
+
 def _scatter_local(A: torch.Tensor, geom, mesh, dtype) -> torch.Tensor:
     """This rank's (Ml, Nl) block-cyclic shard of an (M, N) matrix on the
     mesh's device, cast to `dtype` (the role of the JAX package's

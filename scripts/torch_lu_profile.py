@@ -3,6 +3,7 @@ serving run, goes on the card.
 
     python scripts/torch_lu_profile.py [-N 32768] [-b 1024] [--out FILE.json]
     python scripts/torch_lu_profile.py --serve a|b|c|d [--out FILE.json]
+    python scripts/torch_lu_profile.py --qr [-N 32768] [-b 1024] [--out FILE.json]
 
 Runs the work once as a warm-up, once timed with the host clock (tracing
 off), and once under `torch.profiler` (CPU and CUDA activity). The work is
@@ -11,7 +12,9 @@ configuration of `chip_smoke.py`: (a) a (32, 256, 256) f32 plan factored
 once and served 16 rounds of `solve` and 16 of `solve_checked`, one
 right-hand side per system; (b) 32 (1024, 1024) f32 systems through the
 factor lane's checked bucket `_factor_health_fn(32)`; (c) and (d) the same
-with SPD plans (kind="chol") on SPD systems. Prints the device time of
+with SPD plans (kind="chol") on SPD systems; with --qr, one
+`qr.distributed.qr_factor_distributed` on a world-size-1 1x1x1 mesh of an
+(N, N) standard normal f32 matrix. Prints the device time of
 every kernel name over the traced run, the time and launches of each
 kernel of this repository (K1 `gemm`, both instances, and `gemm_tma`,
 its TMA instance; K2 `lu_block`, K3 `btrsm`, K4 `batched_lu`, K5
@@ -87,6 +90,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="also write the record as JSON here")
     p.add_argument("--serve", choices=("a", "b", "c", "d"), default=None,
                    help="profile serving configuration a, b, c or d instead")
+    p.add_argument("--qr", action="store_true",
+                   help="profile the distributed QR (qr_factor_distributed on 1x1x1) instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_lu_profile needs an NVIDIA card")
@@ -100,7 +105,20 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    if args.serve is None:
+    if args.qr:
+        from conflux_tpu_torch.geometry import Grid3, LUGeometry
+        from conflux_tpu_torch.parallel.mesh import make_mesh
+        from conflux_tpu_torch.qr.distributed import qr_factor_distributed
+
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        A = torch.randn((args.N, args.N), generator=gen, device="cuda")
+        geom = LUGeometry.create(args.N, args.N, args.block_size, Grid3(1, 1, 1))
+        mesh = make_mesh(Grid3(1, 1, 1))
+
+        def work():
+            qr_factor_distributed(A, geom, mesh)
+        label = f"qr_factor_distributed N={args.N} v={args.block_size}"
+    elif args.serve is None:
         A = from_numpy(make_test_matrix(args.N, args.N, seed=args.seed,
                                         dtype="float32"), "cuda")
 

@@ -1361,6 +1361,101 @@ def test_two_ranks_on_one_card_over_the_staged_transport(cuda):
     assert lu_residual(A.astype(np.float64), got, perm) < residual_bound(512, np.float32)
 
 
+def _grid_qr(device, gridspec=(1, 1, 1), transport=None, N=1024, v=128,
+             dtype=torch.float32):
+    """(A, Q, R) of the block-cyclic QR on the kernel route over a threaded
+    world on `device` (K1 on the card, its plain version on the CPU)."""
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+    from conflux_tpu_torch.parallel.mesh import distribute_shards, gather_shards, run_threaded
+    from conflux_tpu_torch.qr.distributed import qr_factor_distributed, r_geometry
+
+    grid = Grid3(*gridspec)
+    geom = LUGeometry.create(N, N, v, grid)
+    A = make_test_matrix(N, N, seed=9, dtype=np.float32)
+    S = geom.scatter(A)
+
+    def fn(mesh):
+        Q, R = qr_factor_distributed(distribute_shards(S, mesh).to(dtype), geom, mesh)
+        return (gather_shards(Q.float(), mesh).cpu().numpy(),
+                gather_shards(R.float(), mesh).cpu().numpy())
+
+    Qs, Rs = run_threaded(grid, fn, device=device, transport=transport, timeout=600.0)[0]
+    return A, geom.gather(Qs), np.triu(r_geometry(geom).gather(Rs)[:N, :N])
+
+
+def test_distributed_qr_on_the_card_matches_its_plain_version_run(cuda):
+    """1x1x1 at N=1024, v=128: the trailing update on K1 (the launches the
+    code predicts) against the same code on the CPU, where K1's plain
+    version runs, on the same operands: Q and R within the float32 bar."""
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+    from conflux_tpu_torch.qr.distributed import gemm_launches
+
+    before = hk.LAUNCHES["gemm"]
+    A, Q, R = _grid_qr("cuda")
+    assert hk.LAUNCHES["gemm"] - before == gemm_launches(
+        LUGeometry.create(1024, 1024, 128, Grid3(1, 1, 1)))
+    _, Qc, Rc = _grid_qr("cpu")
+    bar = residual_bound(1024, np.float32)
+    A64 = A.astype(np.float64)
+    assert np.linalg.norm(Q @ R - A64) / np.linalg.norm(A64) < bar
+    assert np.linalg.norm(Q.T.astype(np.float64) @ Q - np.eye(1024)) / 32 < bar
+    assert np.abs(Q - Qc).max() <= bar and np.abs(R - Rc).max() <= bar * np.abs(Rc).max()
+
+
+def test_distributed_qr_bf16_shards_on_the_card(cuda):
+    """bfloat16 shards: panels in float32, the trailing update on K1's
+    bfloat16 instance; reconstruction and orthogonality within the bf16
+    bar (tests/test_qr.py's), as the same code on the CPU."""
+    before = hk.LAUNCHES["gemm"]
+    A, Q, R = _grid_qr("cuda", N=512, v=64, dtype=torch.bfloat16)
+    assert hk.LAUNCHES["gemm"] > before
+    A64 = A.astype(np.float64)
+    bar = 0.5 * 2.0 ** -7 * np.sqrt(512)
+    for Qx, Rx in ((Q, R), _grid_qr("cpu", N=512, v=64, dtype=torch.bfloat16)[1:]):
+        assert np.linalg.norm(Qx @ Rx - A64) / np.linalg.norm(A64) < bar
+        assert np.linalg.norm(Qx.T.astype(np.float64) @ Qx - np.eye(512)) / np.sqrt(512) < bar
+
+
+def test_tsqr_two_ranks_on_one_card_bitwise_r(cuda):
+    """A threaded 2x1x1 tsqr_distributed on cuda:0 over "staged": R bitwise
+    on both ranks, Q R = A within the float32 bar, both trees."""
+    from conflux_tpu_torch.geometry import Grid3
+    from conflux_tpu_torch.parallel.mesh import run_threaded
+    from conflux_tpu_torch.qr.distributed import tsqr_distributed
+
+    A = make_test_matrix(8192, 64, seed=3, dtype=np.float32)
+    for tree in ("gather", "butterfly"):
+        def fn(mesh):
+            Q, R = tsqr_distributed(A.reshape(2, 4096, 64), mesh, tree=tree)
+            return mesh.all_gather(Q, "x").cpu().numpy().reshape(8192, 64), R.cpu().numpy()
+
+        (Q, R), (Q1, R1) = run_threaded(Grid3(2, 1, 1), fn, device="cuda", transport="staged",
+                                        timeout=600.0)
+        np.testing.assert_array_equal(R, R1)
+        A64 = A.astype(np.float64)
+        assert np.linalg.norm(Q @ R - A64) / np.linalg.norm(A64) < residual_bound(64, np.float32)
+
+
+def test_native_scatter_is_bitwise_numpy_on_the_cards_machine(monkeypatch):
+    """The native host library built on this machine (its own CPU: the
+    build is keyed by it) against the numpy path, f32 and f64."""
+    from conflux_tpu_torch import native
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+
+    for dtype in (np.float32, np.float64):
+        geom = LUGeometry.create(1024, 768, 64, Grid3(2, 3, 1))
+        A = np.random.default_rng(0).standard_normal((1024, 768)).astype(dtype)
+        fast = geom.scatter(A)
+        assert native.scatter(A, 64, 2, 3) is not None
+        back = geom.gather(fast)
+        with monkeypatch.context() as m:
+            m.setattr(native, "scatter", lambda *a: None)
+            m.setattr(native, "gather", lambda *a: None)
+            np.testing.assert_array_equal(fast, geom.scatter(A))
+            np.testing.assert_array_equal(back, geom.gather(fast))
+        np.testing.assert_array_equal(back, A)
+
+
 def test_drifted_engine_answers_bitwise_alone_and_coalesced_on_the_card(cuda):
     """The Woodbury correction runs each column alone: a drifted session's
     answers are bitwise the same alone and coalesced (2 and 16 requests

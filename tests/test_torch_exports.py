@@ -1,9 +1,9 @@
 """The port's public names against the JAX package's.
 
 `conflux_tpu_torch.__all__` must cover `conflux_tpu.__all__`, less the
-names whose modules are not ported yet (the distributed QR family, the
-serving mesh lane and the persistent cache). Each slice that ports one of them
-takes it off `NOT_PORTED`. Both lists are read with `ast`, so neither
+names whose modules are not ported yet (the serving mesh lane and the
+persistent cache). Each slice that ports one of them takes it off
+`NOT_PORTED`. Both lists are read with `ast`, so neither
 package's heavy modules are imported for the comparison.
 """
 
@@ -18,10 +18,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOT_PORTED = frozenset({
     # the serving mesh lane and the persistent cache
     "batch_mesh", "enable_persistent_cache",
-    # distributed QR and least squares
-    "cholesky_qr2_distributed",
-    "qr_factor_distributed", "qr_factor_steps", "qr_distributed_host",
-    "qr_lstsq_distributed", "tsqr_distributed", "lstsq_distributed",
 })
 
 

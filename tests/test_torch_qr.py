@@ -190,12 +190,25 @@ def test_qr_miniapp_one_device_routes(capsys, argv, algo, n_field, tile):
     assert orth <= bound and rec <= bound
 
 
+# the first five routes exited "not ported yet" until the distributed QR
+# route came; they run now, under their old ids
 @pytest.mark.parametrize("argv,msg", [
-    (["--p_grid", "2,1,1"], "not ported yet"), (["--tree", "butterfly"], "not ported yet"),
-    (["--full", "--lookahead", "-M", "64", "--cols", "64"], "not ported yet"),
-    (["--csegs", "4"], "not ported yet"), (["--auto"], "not ported yet"),
+    (["--p_grid", "2,1,1"], None), (["--tree", "butterfly"], None),
+    (["--full", "--lookahead", "-M", "64", "--cols", "64"], None),
+    (["--csegs", "4"], None), (["--auto"], None),
     (["-M", "8", "--cols", "16"], "M >= n"), (["--lookahead"], "--full"),
-])
+], ids=[f"argv{i}-{m}" for i, m in enumerate(["not ported yet"] * 5 + ["M >= n", "--full"])])
 def test_qr_miniapp_exits_naming_the_route(argv, msg):
+    """The five routes of the distributed program run (exit code 0); the
+    two real refusals, M < n and --lookahead without --full, exit naming
+    the rule."""
+    if msg is None:
+        prev = torch.get_num_threads()
+        torch.set_num_threads(1)  # beside other pytest workers: no oversubscription
+        try:
+            assert qr_miniapp.main(["--platform", "cpu", "-r", "0", *argv]) == 0
+        finally:
+            torch.set_num_threads(prev)
+        return
     with pytest.raises(SystemExit, match=msg):
         qr_miniapp.main(["--platform", "cpu", "-r", "0", *argv])

@@ -10,6 +10,7 @@ anywhere.
     python torch_multihost_worker.py chol GRID
     python torch_multihost_worker.py survive|die
     python torch_multihost_worker.py resume PHASE CKPT_DIR
+    python torch_multihost_worker.py qr
 """
 
 import os
@@ -124,6 +125,28 @@ elif mode == "resume":
         res = lu_residual_distributed(shard, out, perm, geom, mesh)
         print(f"rank {rank}: phase2 residual={res:.3e}", flush=True)
         assert res < 1e-4, res
+elif mode == "qr":
+    import torch
+
+    from conflux_tpu_torch.qr.distributed import tsqr_distributed
+
+    Px, Ml, n = 2, 32, 12
+    mesh = make_mesh(Grid3(Px, 1, 1), device="cpu", timeout=120.0)
+
+    def local_rows(px):
+        # a deterministic tall block from global row indices: no rank ever
+        # holds the (M, n) matrix
+        gi = px * Ml + np.arange(Ml)
+        blk = np.cos(0.23 * gi[:, None] + 0.71 * np.arange(n)[None, :]).astype(np.float32)
+        return blk + (gi[:, None] == np.arange(n)[None, :])
+
+    a = torch.from_numpy(local_rows(mesh.x))
+    Q, R = tsqr_distributed(a, mesh)
+    rec = float((Q @ R - a).abs().max())
+    gram = mesh.psum((Q.mT @ Q).contiguous(), "x")
+    orth = float((gram - torch.eye(n)).abs().max())
+    print(f"rank {rank}: qr rec={rec:.3e} orth={orth:.3e}", flush=True)
+    assert rec < 1e-5 and orth < 1e-5, (rec, orth)
 else:
     raise SystemExit(f"unknown mode {mode!r}")
 
