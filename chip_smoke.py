@@ -240,7 +240,29 @@ Phases, each of which must pass or the script exits non-zero:
      (butterfly) on (262144, 256), R bitwise on every rank;
      `qr_factor_distributed` at 2x2x1 and 2x1x2, N=8192, v=256, and the
      QR miniapp's --full --p_grid 2,2,1 route, within the bar; at N=2048
-     R allclose the CPU threaded world's; the staged bytes.
+     R allclose the CPU threaded world's; the staged bytes;
+ 37. the serving mesh lane on the one card, `batch_mesh(["cuda:0",
+     "cuda:0"])` (two shards of one card: correctness, not scaling): (a)
+     BENCH_MESH.json's (32, 256, 256) f32 plan, v=128: K4 once per shard
+     (held against its plain version), the mesh plan bitwise the
+     one-device plan, an engine's 128 requests of widths 1,1,2,4 after
+     prewarm bitwise the bare loop with K3 twice a batch (held), no build
+     after prewarm, `mesh_plan_unsupported` 0, solves/s beside the bare
+     loop and the one-device plan's engine; an SPD mesh plan through K5
+     (held); (b) the large-N session (2, 4096, 4096) f32: a checked
+     engine factor (K4 once per shard, held), solves bitwise the bare
+     session, spill and revive through host and disk and
+     checkpoint()/restore() bitwise, K4 per shard beside
+     `torch.linalg.lu_factor` of (1, 4096, 4096), a NaN rhs refused at
+     admission and a deadline evicting a mesh request mid-window;
+ 38. two lanes on the one card, `ServeEngine(devices=["cuda:0",
+     "cuda:0"])`: BENCH_FLEET.json's trace ((32, 256, 256) plan, 128
+     requests of widths 1,1,2,4 over 4 sessions pinned two to a lane, 32
+     pooled cold starts, max_factor_batch 8) bitwise the one-lane
+     engine's, every pooled session bitwise `plan.factor`'s, K3 once per
+     batch and K4 once per factor batch (held), per-lane telemetry; a kill
+     on lane 0's dispatcher fails only its request and the lane revives;
+     solves/s and sessions/s for two lanes and one.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round (phase 29 reads the counts
@@ -1592,16 +1614,33 @@ def _held_to_plain(tag: str, kernels: tuple = ("gemm", "lu_block")):
     probe is keyed apart, its dtype marked "probe", and an SPD round, back
     through L^T, marked "L^T"; a round whose rhs is
     not finite or all zero, an injected fault or a warm-up, is not
-    compared). One line a kernel
+    compared); K4 (`batched_lu`) by equal pivots and its factors within
+    K4_TOL max_abs (probe rows K4_WA_TOL), K5 (`batched_chol`) within
+    K5_TOL (probe rows K5_WA_TOL). One line a kernel
     after the block; fails the phase on any disagreement, or if a kernel of
     `kernels` never ran. Yields the K3 records, {(T dtype, b shape): (x
     rel_fro, stats error, max_abs)}."""
     from conflux_tpu_torch.ops import hopper_kernels as hk
 
     gemm, lu_block, btrsm_pair = hk.gemm, hk.lu_block, hk.btrsm_pair
+    batched_lu, batched_chol = hk.batched_lu, hk.batched_chol
     k1: dict = {}  # shape -> (rel_fro, tol, instance)
     k2: dict = {}  # shape -> (pivots and alive equal, max_abs, allclose)
     k3: dict = {}  # (T dtype, b shape) -> (rel_fro, stats error, max_abs)
+    k45: dict = {}  # (name, dtype, shape) -> (agrees, max_abs)
+
+    def held_factor(name, kernel, plain, tol, wa_tol):
+        def held(A, w=None):
+            got = kernel(A, w)
+            key = (name, str(A.dtype).removeprefix("torch."), tuple(A.shape))
+            if key not in k45 and bool(torch.isfinite(A).all()):
+                want = plain(A, w)
+                same = name != "batched_lu" or torch.equal(got[1], want[1])
+                err = float((got[0] - want[0]).abs().max())
+                wa_ok = got[-1] is None or rel_fro(got[-1], want[-1]) <= wa_tol
+                k45[key] = (same and err <= tol[A.dtype] and wa_ok, err)
+            return got
+        return held
 
     def held_gemm(a, b, c=None, alpha=1.0, beta=1.0, out=None):
         key = (str(a.dtype).removeprefix("torch."), tuple(a.shape), tuple(b.shape))
@@ -1638,11 +1677,25 @@ def _held_to_plain(tag: str, kernels: tuple = ("gemm", "lu_block")):
         return got
 
     hk.gemm, hk.lu_block, hk.btrsm_pair = held_gemm, held_lu_block, held_btrsm_pair
+    hk.batched_lu = held_factor("batched_lu", batched_lu, hk.batched_lu_plain, K4_TOL,
+                                K4_WA_TOL)
+    hk.batched_chol = held_factor("batched_chol", batched_chol, hk.batched_chol_plain,
+                                  {torch.float32: K5_TOL, torch.float64: K5_TOL}, K5_WA_TOL)
     try:
         yield k3
     finally:
         hk.gemm, hk.lu_block, hk.btrsm_pair = gemm, lu_block, btrsm_pair
+        hk.batched_lu, hk.batched_chol = batched_lu, batched_chol
     ok = True
+    for name, label in (("batched_lu", "K4"), ("batched_chol", "K5")):
+        if name in kernels:
+            recs = {k: v for k, v in k45.items() if k[0] == name}
+            good = all(r[0] for r in recs.values())
+            print(f"[{tag}] {label} on the path's own operands at {len(recs)} shapes "
+                  f"({', '.join(f'{d} {sh}' for _n, d, sh in recs)}): pivots equal and within "
+                  f"its bound {good}, worst max_abs "
+                  f"{max((r[1] for r in recs.values()), default=float('nan')):.2e}", flush=True)
+            ok = ok and good and len(recs) > 0
     if "gemm" in kernels:
         k1_ok = all(err <= tol for err, tol, _i in k1.values())
         print(f"[{tag}] K1 on the path's own operands at {len(k1)} shapes "
@@ -4092,6 +4145,406 @@ def phase_dist_qr_ranks() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------- #
+# 37-38: the serving mesh lane and several lanes, on the one card
+# --------------------------------------------------------------------------- #
+
+
+def _bitwise(xs, ys) -> int:
+    return sum(int(x.shape == y.shape and bool((x == y).all())) for x, y in zip(xs, ys))
+
+
+def phase_mesh() -> dict:
+    """(37) The mesh lane on one card: `batch_mesh(["cuda:0", "cuda:0"])`,
+    two shards of one card (a correctness path, not a scaling result).
+    (a) BENCH_MESH.json's shape: a (32, 256, 256) f32 plan, v=128; the
+    bare `plan.factor` launches K4 once per shard (held against its plain
+    version at the shard's (16, 256, 256)), its factors and solves are
+    compared with the one-device plan's; an engine after prewarm serves
+    128 requests of widths 1,1,2,4, every answer bitwise the bare loop's
+    (12 alone first), K3 twice a batch (each first round at each shape
+    held), max |A x - b| < SOLVE_TOL, no build and no program after
+    prewarm, `mesh_plan_unsupported` 0; solves/s beside the bare loop's
+    and the one-device plan's engine; an SPD mesh plan's factor through
+    K5 (held) beside the one-device plan's. (b) The large-N mesh session
+    at full width, (2, 4096, 4096) f32 over the two shards: a checked
+    engine factor (`_mesh_factor_health_fn`, K4 once per shard, held),
+    solves bitwise the bare session's, spill and revive through a
+    ResidentSet (host, then disk) bitwise, checkpoint()/restore()
+    bitwise, K4's time per shard beside `torch.linalg.lu_factor` of
+    (1, 4096, 4096), a poisoned RHS refused at admission and a deadline
+    that evicts a mesh request mid-window. Returns the launches."""
+    from conflux_tpu_torch import profiler, resilience, serve
+    from conflux_tpu_torch.batched import batch_mesh, gather_batch
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+    from conflux_tpu_torch.resilience import DeadlineExceeded, HealthPolicy, RhsNonFinite
+    from conflux_tpu_torch.tier import ResidentSet
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    unsup0 = resilience.health_stats().get("mesh_plan_unsupported", 0)
+    mesh = batch_mesh(["cuda:0", "cuda:0"])
+    B, n, R = 32, 256, 128
+    serve.clear_plans()
+    mplan = serve.FactorPlan.create((B, n, n), torch.float32, v=128, mesh=mesh)
+    oplan = serve.FactorPlan.create((B, n, n), torch.float32, v=128)
+    A = _systems(B, n, 370)
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    with _held_to_plain("mesh 37", ("batched_lu",)):
+        bare = mplan.factor(A)
+        torch.cuda.synchronize()
+    c = dict(hk.LAUNCHES)
+    _add_counts(total, c)
+    one = oplan.factor(A)
+    fac_same = all(torch.equal(gather_batch(f), g) for f, g in zip(bare.factors, one.factors))
+    trace = _engine_trace([bare], R, ENGINE_WIDTHS, 37)
+    direct = _direct(trace)
+    one_x = _direct([(one, b) for _s, b in trace])
+    one_same = _bitwise(direct, one_x)
+    print(f"[mesh 37] (a) {mesh} over ({B}, {n}, {n}) f32 (two shards of one card: a "
+          f"correctness path, not a scaling result; {CARD}): bare plan.factor launched K4 "
+          f"{c['batched_lu']} times; factors bitwise the one-device plan's {fac_same}, the "
+          f"bare loop's {R} answers bitwise the one-device plan's {one_same}/{R}", flush=True)
+    check(c["batched_lu"] == 2 and c["btrsm"] == 0, f"mesh 37: bare factor launches {c}")
+    check(fac_same and one_same == R, "mesh 37: the mesh plan differs from the one-device plan")
+    with ServeEngine(max_batch_delay=0.002, max_coalesce_width=32) as eng:
+        eng.prewarm(mplan, factor_batches=(1,))
+        hk.reset_launches()
+        es = eng.factor(mplan, A.cpu().numpy(), timeout=600)
+        torch.cuda.synchronize()
+        cf = dict(hk.LAUNCHES)
+        _add_counts(total, cf)
+        es_same = all(all(torch.equal(x, y) for x, y in zip(f.shards, g.shards))
+                      for f, g in zip(es.factors, bare.factors))
+        eng.prewarm(es, widths=(1, 2, 4, 8, 16, 32))
+        builds0, made0 = profiler.compile_count(), _programs(mplan)
+        etrace = [(es, b) for _s, b in trace]
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        with _held_to_plain("mesh 37", ("btrsm",)):
+            solo = [eng.submit(s, b).result(600) for s, b in etrace[:12]]
+            xs, _sec = _engine_leg(eng, etrace)
+            torch.cuda.synchronize()
+        counts = dict(hk.LAUNCHES)
+        _add_counts(total, counts)
+        st = eng.stats()
+        builds = profiler.compile_count() - builds0
+        made = _programs(mplan) - made0
+        bitwise = _bitwise(xs, direct)
+        solo_ok = _bitwise(solo, direct[:12]) == 12
+        worst = _max_resid([(one, b) for _s, b in trace], xs)
+        batches = st["batches"]
+    print(f"[mesh 37] (a) engine: factor launched K4 {cf['batched_lu']} times (one sharded "
+          f"dispatch, factor bucket hits {st['factor_bucket_hits']}), session bitwise the bare "
+          f"factor {es_same}; 12 requests alone, then {R}: {batches} batches (coalesced mean "
+          f"{st['coalesced_mean']:.2f}), launches {counts}; bitwise the bare loop {bitwise}/{R}; "
+          f"max |A x - b| {worst:.3e} (bar {SOLVE_TOL:g}); after prewarm {builds} kernel "
+          f"builds, {made} programs made", flush=True)
+    check(cf["batched_lu"] == 2 and st["factor_bucket_hits"] == {1: 1} and es_same,
+          f"mesh 37: engine factor {cf}, {st['factor_bucket_hits']}, bitwise {es_same}")
+    check(bitwise == R and solo_ok, f"mesh 37: engine answers bitwise {bitwise}/{R}")
+    check(worst < SOLVE_TOL, f"mesh 37: max |A x - b| {worst:.3e}")
+    check(builds == 0 and made == 0, f"mesh 37: {builds} builds, {made} programs after prewarm")
+    check(counts["btrsm"] == 2 * batches and counts["batched_lu"] == 0,
+          f"mesh 37: K3 {counts['btrsm']} != 2 x {batches} batches: {counts}")
+    # solves/s: the mesh lane, the bare loop, the one-device plan's engine
+    rates = {}
+    with ServeEngine(max_batch_delay=0.002, max_coalesce_width=32) as eng:
+        eng.prewarm(es, widths=(1, 2, 4, 8, 16, 32))
+        eng.prewarm(one, widths=(1, 2, 4, 8, 16, 32))
+        otrace = [(one, b) for _s, b in trace]
+        legs = {"mesh": [], "one": [], "bare": []}
+        for _ in range(5):
+            legs["mesh"].append(_engine_leg(eng, etrace)[1])
+            legs["one"].append(_engine_leg(eng, otrace)[1])
+            legs["bare"].append(_sequential_leg(trace))
+        rates = {k: R / _median(v) for k, v in legs.items()}
+    print(f"[mesh 37] (a) {rates['mesh']:.1f} solves/s through the mesh lane, "
+          f"{rates['one']:.1f} through the engine on the one-device plan "
+          f"({rates['mesh'] / rates['one']:.2f}x), {rates['bare']:.1f} the bare mesh loop "
+          f"(session.solve + copy to the host); median of 5 interleaved legs, host clock, "
+          f"{CARD}", flush=True)
+    # an SPD mesh plan: K5 once per shard, held, against the one-device plan
+    S = _spd_systems(B, n, 371)
+    splan = serve.FactorPlan.create((B, n, n), torch.float32, v=128, kind="chol", mesh=mesh)
+    sone = serve.FactorPlan.create((B, n, n), torch.float32, v=128, kind="chol")
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    with _held_to_plain("mesh 37 spd", ("batched_chol", "btrsm")):
+        ss = splan.factor(S)
+        xsp = ss.solve(trace[0][1])
+        torch.cuda.synchronize()
+    c5 = dict(hk.LAUNCHES)
+    _add_counts(total, c5)
+    so = sone.factor(S)
+    spd_same = (all(torch.equal(gather_batch(f), g) for f, g in zip(ss.factors, so.factors))
+                and torch.equal(xsp, so.solve(trace[0][1])))
+    print(f"[mesh 37] (a) SPD mesh plan: launches {c5}; factors and a solve bitwise the "
+          f"one-device plan's {spd_same}", flush=True)
+    check(c5["batched_chol"] == 2 and c5["btrsm"] == 2 and spd_same,
+          f"mesh 37: SPD mesh plan {c5}, bitwise {spd_same}")
+    del bare, one, es, ss, so, S, A
+    torch.cuda.empty_cache()
+
+    # (b) the large-N mesh session at full width
+    N = 4096
+    eplan = serve.FactorPlan.create((2, N, N), torch.float32, v=128, mesh=mesh)
+    Ae = _systems(2, N, 372)
+    Ah = Ae.cpu().numpy()
+    gen = torch.Generator().manual_seed(373)
+    bes = [torch.randn((2, N, w), generator=gen).numpy() for w in (1, 2, 1, 4)]
+    with ServeEngine(max_batch_delay=0.002, health=HealthPolicy()) as eng:
+        eng.prewarm(eplan, factor_batches=(1,))
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        with _held_to_plain("mesh 37 large-N", ("batched_lu", "btrsm")):
+            es = eng.factor(eplan, Ah, timeout=900)
+            torch.cuda.synchronize()
+            ce = dict(hk.LAUNCHES)
+            oracle = eplan.factor(Ae)
+            xo = [oracle.solve(b).cpu().numpy() for b in bes]
+            eng.prewarm(es, widths=(1, 2, 4))
+            xe = [eng.solve(es, b, timeout=600) for b in bes]
+            torch.cuda.synchronize()
+        _add_counts(total, dict(hk.LAUNCHES))
+        same_f = all(all(torch.equal(x, y) for x, y in zip(f.shards, g.shards))
+                     for f, g in zip(es.factors, oracle.factors))
+        same_x = _bitwise(xe, xo)
+        res = max(float((Ae.double() @ torch.from_numpy(x).cuda().double()
+                         - torch.from_numpy(b).cuda().double()).abs().max())
+                  for x, b in zip(xe, bes))
+        rs = ResidentSet(disk_dir=tempfile.mkdtemp(prefix="mesh37-"))
+        rs.adopt(es)
+        rs.spill(es)
+        host_tier = es.tier
+        x_host = eng.solve(es, bes[1], timeout=600)
+        rs.spill(es)
+        rs.demote(es)
+        disk_tier = es.tier
+        x_disk = eng.solve(es, bes[1], timeout=600)
+        tiered = (host_tier == "host" and disk_tier == "disk"
+                  and bool((x_host == xo[1]).all()) and bool((x_disk == xo[1]).all()))
+        with tempfile.TemporaryDirectory(prefix="mesh37ck-") as d:
+            eng.checkpoint(d, sessions=[es], names=["m"])
+            serve.clear_plans()
+            with ServeEngine(max_batch_delay=0.002) as eng2:
+                (back,) = eng2.restore(d)
+                x_back = eng2.solve(back, bes[3], timeout=600)
+        restored = bool((x_back == xo[3]).all())
+        # a poisoned rhs is refused at admission (the submit guard reads the
+        # first elements); one poisoned past them fails alone at staging
+        bad = bes[0].copy()
+        bad[0, 17, 0] = float("nan")
+        try:
+            eng.submit(es, bad)
+            refused = False
+        except RhsNonFinite:
+            refused = True
+        late = bes[0].copy()
+        late[1, 17, 0] = float("nan")
+        f_bad, f_good = eng.submit(es, late), eng.submit(es, bes[1])
+        try:
+            f_bad.result(600)
+        except RhsNonFinite:
+            refused = refused and bool((f_good.result(600) == xo[1]).all())
+        else:
+            refused = False
+    print(f"[mesh 37] (b) ({2}, {N}, {N}) f32 over two shards ({CARD}): checked engine factor "
+          f"launched K4 {ce['batched_lu']} times ({_geometry('batched_lu', Ae[:1])} per shard), "
+          f"factors bitwise the bare plan.factor's {same_f}; 4 solves (widths 1,2,1,4) bitwise "
+          f"the bare session's {same_x}/4, max |A x - b| {res:.3e}; spill to host and disk and "
+          f"revive bitwise {tiered}; checkpoint()/restore() bitwise {restored}; NaN rhs refused "
+          f"at admission, and one past the submit guard's sample failed alone at staging "
+          f"{refused}", flush=True)
+    check(ce["batched_lu"] == 2 and same_f and same_x == 4 and tiered and restored and refused,
+          "mesh 37: the large-N mesh session failed a check")
+    check(res < 1e-3, f"mesh 37: large-N max |A x - b| {res:.3e}")
+    # a deadline evicts a mesh request mid-window
+    h0 = resilience.health_stats().get("evictions", 0)
+    eng = ServeEngine(max_batch_delay=60.0)
+    try:
+        t0 = time.perf_counter()
+        fut = eng.submit(oracle, bes[0], deadline=0.1)
+        try:
+            fut.result(60)
+            evicted = False
+        except DeadlineExceeded:
+            evicted = time.perf_counter() - t0 < 30
+    finally:
+        eng.close(timeout=600)
+    evictions = resilience.health_stats().get("evictions", 0) - h0
+    check(evicted and evictions == 1, f"mesh 37: deadline eviction {evicted}, {evictions}")
+    # K4's instance at (1, 4096, 4096), one shard, beside the library LU
+    A1 = Ae[:1].contiguous()
+    k4_ms = time_ms(lambda: hk.batched_lu(A1), 3)
+    lib_ms = time_ms(lambda: torch.linalg.lu_factor(A1), 3)
+    r = _lu_bound(1, N, 4)
+    unsup = resilience.health_stats().get("mesh_plan_unsupported", 0) - unsup0
+    print(f"[mesh 37] (b) K4 per shard at (1, {N}, {N}) f32 ({_geometry('batched_lu', A1)}): "
+          f"{k4_ms:.3f} ms, torch.linalg.lu_factor {lib_ms:.3f} ms, bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']}); deadline evicted mid-window {evicted}; "
+          f"mesh_plan_unsupported {unsup}; phase {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{total} ({CARD})", flush=True)
+    check(unsup == 0, f"mesh 37: mesh_plan_unsupported {unsup}")
+    del es, oracle, back, Ae, A1
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_lanes() -> dict:
+    """(38) Two lanes on one card, `ServeEngine(devices=["cuda:0",
+    "cuda:0"])` (two streams; a correctness path, not a scaling result),
+    on BENCH_FLEET.json's trace: a (32, 256, 256) f32 plan, v=128, 128
+    requests of widths 1,1,2,4 over 4 sessions (two pinned to each lane
+    by sid), then a churn of 32 pooled cold starts, max_factor_batch 8.
+    Every answer bitwise the one-lane engine's, every pooled session
+    bitwise `plan.factor`'s; per-lane telemetry (both lanes serve); K3
+    once per batch and K4 once per factor batch, the first call at each
+    shape held against the plain versions; no build and no program after
+    prewarm. An injected kill on lane 0's dispatcher fails only that
+    lane's request; the lane revives and serves bitwise. Solves/s and
+    sessions/s for two lanes and for one (host clock). Returns the
+    launches."""
+    import numpy as np
+
+    from conflux_tpu_torch import profiler, serve
+    from conflux_tpu_torch.engine import EngineClosed, ServeEngine, rendezvous
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+    from conflux_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    B, n, R, S, churn = 32, 256, 128, 4, 32
+    serve.clear_plans()
+    plan = serve.FactorPlan.create((B, n, n), torch.float32, v=128)
+    rng = np.random.default_rng(38)
+    A = (rng.standard_normal((S, B, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)).astype(np.float32)
+    Ach = (rng.standard_normal((churn, B, n, n)) / np.sqrt(n)
+           + 2.0 * np.eye(n)).astype(np.float32)
+    widths = ENGINE_WIDTHS
+    reqs = [(i % S, rng.standard_normal((B, n, widths[i % 4])).astype(np.float32))
+            for i in range(R)]
+    two = ["cuda:0", "cuda:0"]
+    # sids that pin two sessions to each lane of the two-lane engine
+    keys = ServeEngine._lane_keys([torch.device("cuda", 0)] * 2)
+    sids, i = [], 0
+    while len(sids) < S:
+        sid = f"fleet-{i}"
+        i += 1
+        if rendezvous(sid, keys) == keys[len(sids) % 2]:
+            sids.append(sid)
+    sessions = [plan.factor(A[s], sid=sids[s]) for s in range(S)]
+
+    def make(devices):
+        return ServeEngine(max_batch_delay=0.002, max_pending=4 * (R + churn),
+                           max_coalesce_width=32, max_factor_batch=8, devices=devices)
+
+    out = {}
+    for devices in (["cuda:0"], two):
+        eng = make(devices)
+        try:
+            eng.prewarm(sessions[0], widths=(1, 2, 4, 8, 16, 32),
+                        factor_batches=(1, 2, 4, 8))
+            builds0, made0 = profiler.compile_count(), _programs(plan)
+            torch.cuda.synchronize()
+            hk.reset_launches()
+            with _held_to_plain(f"lanes 38 ({len(devices)})", ("btrsm", "batched_lu")):
+                futs = [eng.submit(sessions[s], b) for s, b in reqs]
+                xs = [f.result(600) for f in futs]
+                cfut = [eng.submit_factor(plan, Ach[i]) for i in range(churn)]
+                opened = [f.result(600) for f in cfut]
+                torch.cuda.synchronize()
+            counts = dict(hk.LAUNCHES)
+            _add_counts(total, counts)
+            st = eng.stats()
+            builds = profiler.compile_count() - builds0
+            made = _programs(plan) - made0
+            out[len(devices)] = (xs, opened, counts, st, builds, made)
+        finally:
+            eng.close(timeout=600)
+    xs1, op1, _c1, _st1, _b1, _m1 = out[1]
+    xs2, op2, c2, st2, b2, m2 = out[2]
+    same = _bitwise(xs2, xs1)
+    refs = [plan.factor(Ach[i]) for i in range(churn)]
+    pooled = sum(int(all(torch.equal(a, b) for a, b in zip(s.factors, r.factors)))
+                 for s, r in zip(op2, refs))
+    rows = st2["lanes"]
+    lane_pins = sorted({s._lane_key for s in sessions})
+    print(f"[lanes 38] two lanes on {two} ({CARD}; a correctness path, not a scaling "
+          f"result): {R} requests over {S} sessions (pins {lane_pins}) bitwise the one-lane "
+          f"engine's {same}/{R}; {churn} pooled cold starts all resolved, bitwise plan.factor's "
+          f"{pooled}/{churn}; per lane batches {[r['batches'] for r in rows]}, factor batches "
+          f"{[r['factor_batches'] for r in rows]}, occupancy "
+          f"{[round(r['occupancy'], 3) for r in rows]}; launches {c2} (batches "
+          f"{st2['batches']}, factor batches {st2['factor_batches']}); after prewarm {b2} "
+          f"builds, {m2} programs", flush=True)
+    check(same == R and pooled == churn, f"lanes 38: bitwise {same}/{R}, pooled {pooled}")
+    check(all(r["batches"] >= 1 for r in rows) and len(lane_pins) == 2,
+          f"lanes 38: a lane never served: {rows}")
+    check(c2["btrsm"] == st2["batches"] and c2["batched_lu"] == st2["factor_batches"],
+          f"lanes 38: launches {c2} against batches {st2['batches']}, "
+          f"{st2['factor_batches']}")
+    check(b2 == 0 and m2 == 0, f"lanes 38: {b2} builds, {m2} programs after prewarm")
+    # an injected kill on lane 0's dispatcher: its request fails alone
+    faults = FaultPlan([FaultSpec("dispatch", "kill", count=1)])
+    eng = ServeEngine(max_batch_delay=0.0, devices=two, watchdog_interval=0.05,
+                      fault_plan=faults)
+    try:
+        s0 = next(s for s in sessions if eng._lane_for(s).index == 0)
+        s1 = next(s for s in sessions if eng._lane_for(s).index == 1)
+        b = reqs[0][1]
+        want0, want1 = s0.solve(b).cpu().numpy(), s1.solve(b).cpu().numpy()
+        try:
+            eng.submit(s0, b).result(60)
+            killed = False
+        except EngineClosed:
+            killed = True
+        other = bool((eng.solve(s1, b, timeout=600) == want1).all())
+        t0 = time.time()
+        while time.time() - t0 < 30 and not (eng.lanes[0].revives >= 1
+                                              and eng.lanes[0]._dispatcher.is_alive()):
+            time.sleep(0.02)
+        revived = bool((eng.solve(s0, b, timeout=600) == want0).all())
+        revives = eng.lanes[0].revives
+    finally:
+        eng.close(timeout=600)
+    print(f"[lanes 38] kill on lane 0's dispatcher: its request failed {killed}, lane 1 "
+          f"served bitwise {other}, lane 0 revived ({revives}) and served bitwise {revived}",
+          flush=True)
+    check(killed and other and revived and revives >= 1, "lanes 38: the lane fault domain")
+    # solves/s and sessions/s, two lanes and one, interleaved legs
+    rates = {1: ([], []), 2: ([], [])}
+    engs = {1: make(["cuda:0"]), 2: make(two)}
+    try:
+        for k, e in engs.items():
+            e.prewarm(sessions[0], widths=(1, 2, 4, 8, 16, 32), factor_batches=(1, 2, 4, 8))
+        for _ in range(3):
+            for k, e in engs.items():
+                t0 = time.perf_counter()
+                for f in [e.submit(sessions[s], b) for s, b in reqs]:
+                    f.result(600)
+                rates[k][0].append(B * sum(b.shape[-1] for _s, b in reqs)
+                                   / (time.perf_counter() - t0))
+                t0 = time.perf_counter()
+                for f in [e.submit_factor(plan, Ach[i]) for i in range(churn)]:
+                    f.result(600)
+                rates[k][1].append(churn / (time.perf_counter() - t0))
+    finally:
+        for e in engs.values():
+            e.close(timeout=600)
+    s1_, f1_ = _median(rates[1][0]), _median(rates[1][1])
+    s2_, f2_ = _median(rates[2][0]), _median(rates[2][1])
+    print(f"[lanes 38] two lanes {s2_:.1f} solves/s, {f2_:.2f} sessions/s; one lane "
+          f"{s1_:.1f} solves/s, {f1_:.2f} sessions/s ({s2_ / s1_:.2f}x, {f2_ / f1_:.2f}x; "
+          f"solves = systems x columns; median of 3 interleaved legs, host clock, {CARD}); "
+          f"phase {time.perf_counter() - t_phase:.1f} s, launches {total}", flush=True)
+    del sessions, refs, op2, out
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -4156,7 +4609,9 @@ def main() -> int:
     c34 = phase_dist_ranks()
     c35 = phase_dist_qr()
     c36 = phase_dist_qr_ranks()
-    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36)
+    c37 = phase_mesh()
+    c38 = phase_lanes()
+    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38)
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"] + sum(c.get("gemm", 0) for c in late)
     k2["launches"] += cf["lu_block"] + cl["lu_block"] + sum(c.get("lu_block", 0) for c in late)
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]

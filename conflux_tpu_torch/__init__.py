@@ -43,7 +43,11 @@ and least squares on the grid (`qr/distributed.py`: `tsqr_distributed`,
 `cholesky_qr2_distributed`, `qr_factor_distributed`, `qr_factor_steps`;
 `lstsq_distributed`, `qr_lstsq_distributed`, `qr_residual_distributed`,
 and the QR miniapp's grid route); and the host layout layer (`layout.py`,
-the COSTA role, and `native/`, the C++ scatter/gather built at first use).
+the COSTA role, and `native/`, the C++ scatter/gather built at first use);
+and the serving mesh lane and several lanes (`batch_mesh`, mesh plans
+through `batched`, `serve`, `tier` and the engine; `ServeEngine(lanes=,
+devices=)`), and the persistent build cache (`cache.py`:
+`enable_persistent_cache`).
 """
 
 from conflux_tpu_torch.geometry import Grid3, LUGeometry, choose_cholesky_grid, choose_grid
@@ -123,6 +127,8 @@ def __getattr__(name):
         "HostUnavailable": ("conflux_tpu_torch.resilience", "HostUnavailable"),
         "FleetDegraded": ("conflux_tpu_torch.resilience", "FleetDegraded"),
         "FairShareLedger": ("conflux_tpu_torch.qos", "FairShareLedger"),
+        "batch_mesh": ("conflux_tpu_torch.batched", "batch_mesh"),
+        "enable_persistent_cache": ("conflux_tpu_torch.cache", "enable_persistent_cache"),
         "stack_trees": ("conflux_tpu_torch.batched", "stack_trees"),
         "unstack_tree": ("conflux_tpu_torch.batched", "unstack_tree"),
         "write_slot_tree": ("conflux_tpu_torch.batched", "write_slot_tree"),
@@ -246,6 +252,8 @@ __all__ = [
     "HostUnavailable",
     "FleetDegraded",
     "FairShareLedger",
+    "batch_mesh",
+    "enable_persistent_cache",
     "stack_trees",
     "unstack_tree",
     "write_slot_tree",

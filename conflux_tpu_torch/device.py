@@ -53,8 +53,12 @@ def _cuda_leaves(tree):
     elif isinstance(tree, (tuple, list)):
         for v in tree:
             yield from _cuda_leaves(v)
-    elif isinstance(tree, torch.Tensor) and tree.device.type == "cuda":
-        yield tree
+    elif isinstance(tree, torch.Tensor):
+        if tree.device.type == "cuda":
+            yield tree
+    elif getattr(tree, "shards", None) is not None:
+        # a mesh session's batch-sharded leaf (`batched.Sharded`)
+        yield from _cuda_leaves(tree.shards)
 
 
 def order_after_default(device) -> None:

@@ -1,6 +1,6 @@
-"""Async serve engine on one card: request coalescing, double-buffered
-dispatch, plan prewarming, admission control, QoS and the serve-path
-resilience layer (the port of `conflux_tpu/engine.py`, one lane).
+"""Async serve engine: request coalescing, double-buffered dispatch, plan
+prewarming, admission control, QoS, the serve-path resilience layer, lanes
+and the mesh lane (the port of `conflux_tpu/engine.py`).
 
 A `SolveSession` makes one session fast, but every call is synchronous and
 per request: a fleet of sessions under open-loop traffic would launch one
@@ -86,10 +86,33 @@ on them completes.
   thread, through :meth:`ServeEngine.set_knobs` only, and grows a bucket
   cap only onto buckets `prewarm` has made ready.
 
-Not ported yet, each raising NotImplementedError naming what it waits
-for: ``lanes`` other than 1 or ``devices=`` naming more than one device
-(several cards, the serving mesh lane). Mesh plans do not exist in the
-port yet.
+- **Lanes** (``lanes=n | "auto"``, ``devices=[...]``): several
+  lanes (:class:`DeviceLane`) behind one admission front, each with its own
+  dispatcher and drain threads, queues, CUDA stream and carry-over. A
+  device may repeat in ``devices=`` (two lanes on one card, or on the
+  CPU), so lanes are told apart by their key, not their device: the
+  device's (type, index) when every lane has a device of its own, else
+  (type, lane index); on the CPU lane i's key is ("cpu", i), the key the
+  JAX package gives its i-th CPU device, so a sid lands on the same lane
+  index in both. Sessions pin to a lane by rendezvous hashing of their
+  sid over the lane keys (``placement``); a pin to one of several lanes
+  of a shared device is kept on the session (`_lane_key`), and
+  ``session.device`` stays the torch device. Cold starts without a sid or
+  device load-balance through a shared pool that every lane's dispatch
+  round draws from (one wake in flight at a time). A lane is a fault
+  domain: a dead lane worker fails only that lane's live requests, and
+  the lane revives up to ``max_lane_revives`` times (a one-lane engine
+  still trips whole). ``max_lane_pending`` slices the pending bound per
+  lane.
+
+- **The mesh lane**: a session of a mesh plan (`batched.batch_mesh`)
+  rides the first live lane, one request per whole (B, N, N) batch: its
+  RHS columns coalesce as on the batched lane, its factor requests never
+  stack (one sharded factor a dispatch, K4 or K5 once per shard), and its
+  sessions stay unpinned. Each shard runs on its device's current stream
+  (the lane's stream on the lane's card); on a mesh over several cards
+  the first shard device's stream waits on the others by event before
+  the answer copy (that path needs several cards and is unverified).
 
 Sessions mutate under ``update`` and refactor; the engine calls
 ``session.solve`` / ``solve_checked`` under the session's lock. Do not
@@ -123,28 +146,20 @@ import torch
 
 from conflux_tpu_torch import profiler, resilience, serve
 from conflux_tpu_torch import qos as qos_mod
-from conflux_tpu_torch.batched import stack_trees, unstack_tree
-from conflux_tpu_torch.device import hand_to_default, order_after_default, resolve_device
+from conflux_tpu_torch.batched import _shard_batch, put_tree, stack_trees, unstack_tree
+from conflux_tpu_torch.device import (hand_to_default, order_after_default, resolve_device,
+                                       same_device)
 from conflux_tpu_torch.gang import SessionGang
 from conflux_tpu_torch.resilience import (
     DeadlineExceeded,
     HealthPolicy,
+    MeshPlanUnsupported,
     RhsNonFinite,
     SessionQuarantined,
     SolveUnhealthy,
 )
 from conflux_tpu_torch.serve import FactorPlan, SolveSession
 from conflux_tpu_torch.update import rank_bucket, zero_update_state
-
-_SLICES = {
-    "lanes": ("more than one lane (several cards and the serving mesh lane, "
-              "ROADMAP Slice 7 item 14)"),
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{_SLICES[what]} is not ported yet")
-
 
 def _devkey(device):
     """Hashable identity of a torch device (None: none given), the key of
@@ -258,6 +273,7 @@ class _FactorRequest:
     carried: bool = False
     lane: Any = None
     lane_slot: bool = False
+    pool: bool = False    # queued in the shared cold-start pool (no lane yet)
     sid: Any = None       # stable session id for the opened session
     qos: Any = None
     cost: float = 1.0
@@ -313,6 +329,7 @@ class _FactorBatch:
     event: Any
     solo: bool = False    # a solo re-dispatch: no second retry
     tier: Any = None      # served tier the batch factored at
+    mesh: bool = False    # a mesh-lane factor: one (B, N, N) request, no stack
 
 
 def _host_array(x) -> np.ndarray:
@@ -355,6 +372,13 @@ def _torch_dtype_of(np_dtype) -> torch.dtype:
 
 
 _STOP = object()
+_WAKE = object()  # a nudge to draw the shared cold-start pool
+
+
+def _mesh_order_after_default(mesh) -> None:
+    """:func:`device.order_after_default` on every card of a mesh."""
+    for d in {(d.type, d.index or 0): d for d in mesh.devices}.values():
+        order_after_default(d)
 
 
 def _percentile(sorted_vals, pct: float) -> float:
@@ -378,10 +402,12 @@ class DeviceLane:
     worker thread) and are read without a lock.
     """
 
-    def __init__(self, eng: "ServeEngine", index: int, device: torch.device):
+    def __init__(self, eng: "ServeEngine", index: int, device: torch.device, key=None):
         self.eng = eng
         self.index = index
         self.device = device
+        # the placement identity (`ServeEngine._lane_keys`)
+        self.key = _devkey(device) if key is None else key
         self.cuda = device.type == "cuda"
         # the dispatcher's stream: every staged copy, kernel and answer
         # copy of a dispatch is queued here
@@ -412,6 +438,8 @@ class DeviceLane:
         self.dead = False
         # (thread name, exc) post-mortem, write-once by the dying worker
         self._dead: tuple | None = None
+        # serializes concurrent trips (the dying thread and the watchdog)
+        self._trip_lock = threading.Lock()
         self._dispatcher: threading.Thread | None = None
         self._drainer: threading.Thread | None = None
 
@@ -444,13 +472,39 @@ class DeviceLane:
                 d = min(d, self._collect_delay(r))
         return d
 
+    def _tname(self, role: str) -> str:
+        """Worker thread name: the one-lane names on a one-lane engine,
+        lane-suffixed on several lanes."""
+        if len(self.eng._lanes) == 1:
+            return f"serve-engine-{role}"
+        return f"serve-engine-{role}-L{self.index}"
+
     def start(self) -> None:
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
-                                            name="serve-engine-dispatch", daemon=True)
+                                            name=self._tname("dispatch"), daemon=True)
         self._drainer = threading.Thread(target=self._drain_loop,
-                                         name="serve-engine-drain", daemon=True)
+                                         name=self._tname("drain"), daemon=True)
         self._dispatcher.start()
         self._drainer.start()
+
+    def revive(self, exclude=None) -> None:
+        """Respawn this lane's dead worker threads (the per-lane watchdog's
+        recovery). The queues and carry survive; requests the trip failed
+        are out of the engine's `_live` set, so a late re-dispatch of one
+        resolves nothing. `exclude` is the dying thread (alive while it
+        runs its own post-mortem): it is replaced too."""
+        self._dead = None
+        if (self._dispatcher is None or not self._dispatcher.is_alive()
+                or self._dispatcher is exclude):
+            self._dispatcher = threading.Thread(target=self._dispatch_loop,
+                                                name=self._tname("dispatch"), daemon=True)
+            self._dispatcher.start()
+        if (self._drainer is None or not self._drainer.is_alive()
+                or self._drainer is exclude):
+            self._drainer = threading.Thread(target=self._drain_loop,
+                                             name=self._tname("drain"), daemon=True)
+            self._drainer.start()
+        self.revives += 1
 
     # ------------------------------------------------------------------ #
     # host staging and copies
@@ -475,6 +529,15 @@ class DeviceLane:
         if device.type == "cpu":
             return host
         return host.to(device, non_blocking=True)
+
+    def _stage_to(self, session, host: torch.Tensor):
+        """A staged host RHS where the session's dispatch reads it: on its
+        device, or split over a mesh session's shards (each shard's copy
+        non-blocking from pinned memory)."""
+        mesh = session.plan.mesh
+        if mesh is not None:
+            return _shard_batch((host,), mesh, non_blocking=True)[0]
+        return self._h2d(host, session.device)
 
     def _d2h(self, x):
         """Queue the copy of a device tensor (or tuple of them) to fresh
@@ -570,7 +633,7 @@ class DeviceLane:
                 collect = False
             elif first is None:
                 collect = False
-            else:
+            elif first is not _WAKE:
                 batch.append(first)
             if collect:
                 deadline = time.perf_counter() + self._carry_delay(batch)
@@ -593,6 +656,8 @@ class DeviceLane:
                     if r is _STOP:
                         stop = True
                         break
+                    if r is _WAKE:
+                        continue  # pooled work is drawn at dispatch time
                     batch.append(r)
                     if r.qos is not None:
                         # a latency-class arrival pulls the window in
@@ -602,7 +667,7 @@ class DeviceLane:
                         break
             if batch:
                 batch = self._prune_expired(batch)
-            if batch:
+            if batch or eng._pool_pending():
                 try:
                     resilience.maybe_fault(eng._faults, "dispatch")
                     t0 = time.perf_counter()
@@ -611,8 +676,11 @@ class DeviceLane:
                     self.busy_dispatch_s += time.perf_counter() - t0
                 except Exception as e:  # noqa: BLE001 - the engine survives
                     eng._fail(batch, e)
-        # close-time drain: the carry is answered, not dropped
-        tail = self._prune_expired(carry)
+        # close-time drain: the carry and any still-pooled cold starts are
+        # answered, not dropped (each pooled request is drawn once)
+        tail = self._prune_expired(carry) + eng._pool_draw(None)
+        for r in tail:
+            r.lane = self
         if tail:
             self._dispatch(tail, may_defer=False)
         self._outq.put(_STOP)
@@ -624,9 +692,16 @@ class DeviceLane:
         traffic already queued) each session's small remainder chunk rides
         the next window once instead of costing a dispatch of its own.
         Factor requests group per plan and coalesce into stacked factor
-        dispatches."""
+        dispatches; on several lanes each round also draws up to one batch
+        bucket from the shared cold-start pool (the work-stealing half of
+        the factor lane's load balancing)."""
         eng = self.eng
         freqs = [r for r in batch if isinstance(r, _FactorRequest)]
+        if len(eng._lanes) > 1:
+            drawn = eng._pool_draw(eng.max_factor_batch)
+            for r in drawn:
+                r.lane = self  # this lane's fault domain from here on
+            freqs += drawn
         deferred: list = []
         if freqs:
             deferred += self._dispatch_factors(freqs, may_defer)
@@ -661,7 +736,8 @@ class DeviceLane:
                 continue
             if eng.stack_sessions:
                 eng._note_exclusion("kind" if plan.key.kind == "qr"
-                                    else "precision" if tiered else "batched")
+                                    else "precision" if tiered
+                                    else "mesh" if plan.mesh is not None else "batched")
             elif not plan.batched:
                 # stacking off: count the opportunity the window left
                 opportunity[id(plan)] = opportunity.get(id(plan), 0) + 1
@@ -677,6 +753,13 @@ class DeviceLane:
                 deferred += self._dispatch_session(*entries[0], may_defer)
             else:
                 self._dispatch_gang(plan, entries)
+        if len(eng._lanes) > 1 and eng._pool_pending() and not self.dead:
+            # backlog left after this round's draw: keep draining it here
+            # (consecutive buckets on one card run back to back); lanes
+            # serving their own traffic still draw every round
+            with eng._lock:
+                eng._pool_waked = True
+            self._inq.put(_WAKE)
         return deferred
 
     # hot-path
@@ -793,7 +876,17 @@ class DeviceLane:
         with session._lock:
             # a caller's update or refactor queued on the default stream
             # comes first; under the lock, so no mutation slips between
-            order_after_default(session.device)
+            if session.plan.mesh is not None:
+                _mesh_order_after_default(session.plan.mesh)
+            else:
+                order_after_default(session.device)
+            prev = session._served_by
+            if self.cuda and prev is not None and prev != self.stream:
+                # the session moved lanes (its lane died, or a mesh
+                # session's first live lane changed): what the last lane
+                # queued on its stream for it (a probe row) comes first
+                torch.cuda.current_stream(self.device).wait_stream(prev)
+            session._served_by = self.stream
             session._lane_reads_base()
             keep = (session._factors, session._A, session._A0, session._probe,
                     session._upd)
@@ -823,7 +916,7 @@ class DeviceLane:
                     return
                 host, buf, spec = self._stage(reqs)
             self._revive_for(session, reqs)
-            bd = self._h2d(host, session.device)
+            bd = self._stage_to(session, host)
             x, verdict, keep = self._solve_session(session, bd, reqs[0].precision)
             xh, vh = self._d2h(x), self._d2h(verdict)
             item = _SolveBatch(spec, xh, vh, self._fence(x.device), buf, (keep, x, bd, host))
@@ -876,7 +969,9 @@ class DeviceLane:
         deferred: list = []
         for plan, key in order:
             greqs = groups[key]
-            cap = eng.max_factor_batch
+            # mesh plans never slot-stack (their batch axis is the
+            # parallelism): each request is its own sharded factor
+            cap = 1 if plan.mesh is not None else eng.max_factor_batch
             chunks = [greqs[i:i + cap] for i in range(0, len(greqs), cap)]
             last = chunks[-1]
             if may_defer and len(last) <= cap // 2 and not any(r.carried for r in last):
@@ -925,10 +1020,16 @@ class DeviceLane:
         """Stage a factor chunk on the host: every request's matrix into
         one (bucket,) + shape buffer of the plan's dtype; pad slots carry
         identity matrices (well-conditioned by construction, never a copy
-        of a request that might itself be poisoned)."""
+        of a request that might itself be poisoned). A mesh plan's one
+        request stages as its own (B, N, N) batch."""
+        dtype = serve._torch_dtype(plan.key.dtype)
+        if plan.mesh is not None:
+            # the mesh lane's one request is the whole batch: no stack axis
+            host, _ = self._host_buffer(plan.key.shape, dtype)
+            host.copy_(torch.from_numpy(np.ascontiguousarray(reqs[0].A)))
+            return host
         bb = rank_bucket(len(reqs))
-        host, _ = self._host_buffer((bb,) + plan.key.shape,
-                                    serve._torch_dtype(plan.key.dtype))
+        host, _ = self._host_buffer((bb,) + plan.key.shape, dtype)
         for i, r in enumerate(reqs):
             host[i].copy_(torch.from_numpy(np.ascontiguousarray(r.A)))
         if bb != len(reqs):
@@ -952,6 +1053,7 @@ class DeviceLane:
         reqs = self._admit_stage_factor(reqs)
         if not reqs:
             return None
+        mesh = plan.mesh
         try:
             if (eng.health is not None and eng.health.check_rhs and eng._tick_staging()
                     and not all(resilience.rhs_finite(r.A) for r in reqs)):
@@ -963,25 +1065,36 @@ class DeviceLane:
             host = self._stage_factor(plan, reqs)
             tier = reqs[0].precision
             checked = tier is None and eng.health is not None and eng.health.check_output
-            Ad = self._h2d(host, self.device)
             with profiler.region("serve.factor"):
-                if tier is not None:
+                if mesh is not None:
+                    # the mesh lane: the request's own (B, N, N) batch,
+                    # sharded; one K4/K5 launch per shard
+                    Ad = _shard_batch((host,), mesh, non_blocking=True)[0]
+                    if checked:
+                        F, wA, verdict = plan._mesh_factor_health_fn()(Ad)
+                    else:
+                        F = plan._factor_once(Ad)
+                        wA = verdict = None
+                elif tier is not None:
                     # tier cold starts ride the unchecked tier family: the
                     # opened session's first checked solve carries the
                     # ladder's verdict
+                    Ad = self._h2d(host, self.device)
                     F = plan._tier_stacked_factor_fn(tier, host.shape[0])(Ad)
                     wA = verdict = None
                 elif checked:
+                    Ad = self._h2d(host, self.device)
                     F, wA, verdict = plan._factor_health_fn(host.shape[0])(Ad)
                 else:
+                    Ad = self._h2d(host, self.device)
                     F = plan._stacked_factor_fn(host.shape[0])(Ad)
                     wA = verdict = None
             vh = self._d2h(verdict)
-            event = self._fence(self.device)
+            event = self._fence(self.device if mesh is None else mesh.devices[0])
         except Exception as e:  # noqa: BLE001 - the engine must survive
             self._redispatch_factor_survivors(reqs, e, solo)
             return None
-        bb = host.shape[0]
+        bb = 1 if mesh is not None else host.shape[0]
         with eng._lock:
             eng._factor_batches += 1
             eng._factor_coalesced += len(reqs)
@@ -991,7 +1104,8 @@ class DeviceLane:
             eng._active_plans[id(plan)] = weakref.ref(plan)
             self.factor_batches += 1
             self.factor_coalesced += len(reqs)
-        return _FactorBatch(plan, reqs, F, wA, vh, Ad, event, solo, tier)
+        return _FactorBatch(plan, reqs, F, wA, vh, Ad, event, solo, tier,
+                            mesh=mesh is not None)
 
     # futures-owner
     def _redispatch_factor_survivors(self, reqs, exc, solo: bool = False) -> None:
@@ -1327,7 +1441,9 @@ class DeviceLane:
         and (checked) probe row are views of the stacked device tensors
         (`batched.unstack_tree`, no copies), and each request gets an
         independent session constructed as `plan.factor` constructs it
-        (same keep-A rule, same policy), pinned to this lane's device."""
+        (same keep-A rule, same policy), pinned to this lane's device (and,
+        on several lanes, to this lane). A mesh batch opens one unpinned
+        session on the dispatched tree itself."""
         eng = self.eng
         now = time.perf_counter()
         owned = eng._take([r for _i, r in entries])
@@ -1346,19 +1462,25 @@ class DeviceLane:
         # the stacks were made on the lane stream and now belong to
         # callers, who use them on the default stream
         hand_to_default((fb.factors, fb.A, fb.wA))
-        trees = unstack_tree(fb.factors, len(fb.reqs))
+        # the mesh lane: the dispatched tree is the session state (no slot
+        # axis), and the session stays unpinned (its state spans the mesh)
+        trees = [fb.factors] if fb.mesh else unstack_tree(fb.factors, len(fb.reqs))
+        pin = None if fb.mesh or len(eng._lanes) == 1 else self.key
         for i, r in entries:
             if r not in owned:
                 continue
-            A_i = fb.A[i]
+            A_i = fb.A if fb.mesh else fb.A[i]
             # tier sessions keep A: their solves always sweep against it
             keep_A = A_i if (plan.key.refine or fb.tier is not None) else None
             session = SolveSession(plan, trees[i], keep_A, A_i, r.policy,
-                                   device=self.device, sid=r.sid, served_tier=fb.tier)
+                                   device=None if fb.mesh else self.device, sid=r.sid,
+                                   served_tier=fb.tier)
+            session._lane_key = pin
             if fb.wA is not None:
                 # the probe row came out of the checked factor dispatch
-                session._probe = (tuple(p[i] for p in fb.wA)
-                                  if isinstance(fb.wA, tuple) else fb.wA[i])
+                session._probe = (fb.wA if fb.mesh else
+                                  tuple(p[i] for p in fb.wA) if isinstance(fb.wA, tuple)
+                                  else fb.wA[i])
             r.future.set_result(session)
 
     # futures-owner
@@ -1465,6 +1587,10 @@ class ServeEngine:
     stack_sessions / max_stack: gang-resident cross-session stacking for
         single-system plans (`max_stack` caps a gang's membership); both
         are live knobs (`set_knobs`).
+    max_lane_pending: on several lanes, a per-lane slice of the pending
+        bound: one lane's backlog sheds its own overflow (counted in its
+        `stats()['lanes']` row) instead of filling `max_pending` for every
+        lane. None keeps the one global bound.
     latency_window: how many completed-request latencies the percentile
         window keeps.
     health: a :class:`~conflux_tpu_torch.resilience.HealthPolicy` switches
@@ -1477,11 +1603,19 @@ class ServeEngine:
         watches thread liveness only, so a kernel build on first use
         (a minute on the card) never trips it.
     device: the card the lane serves (default: the card; "cpu" runs the
-        kernels' plain versions, as the tests do). `devices=` with one
-        device is the same.
-    persistent_cache: kept for the JAX package's signature; the port has
-        no XLA cache to switch on, and its kernel build directory
-        (`ops/_build.py`) already persists between processes.
+        kernels' plain versions, as the tests do).
+    lanes / devices: `lanes=n` serves n lanes on cuda:0..n-1 (more than
+        `torch.cuda.device_count()` raises); with `device="cpu"` it is n
+        lanes on the CPU (torch has one CPU device, which repeats).
+        `lanes="auto"` is one lane per card (none raises). `devices=`
+        names each lane's device; a device named twice is two lanes on
+        it. One lane is the one-lane engine as before.
+    max_lane_revives: how many times the watchdog revives a dead lane of a
+        several-lane engine before marking it dead (admission then routes
+        around it; every lane dead trips the engine).
+    persistent_cache: point the kernel build cache at its directory
+        (`cache.enable_persistent_cache`: `$CONFLUX_TPU_CACHE_DIR`, else
+        the in-tree build directories, which persist between processes).
     residency: a :class:`~conflux_tpu_torch.tier.ResidentSet` managing the
         served fleet's tiers. The engine then faults spilled sessions back
         in before dispatching to them (deadline-aware) and lends its
@@ -1496,8 +1630,6 @@ class ServeEngine:
         attached last and started on its own thread; it writes only
         through :meth:`set_knobs` and stops first in :meth:`close`. None
         leaves every knob as constructed.
-    lanes other than 1, devices= of several devices: not ported yet
-        (NotImplementedError naming the slice).
     """
 
     def __init__(self, *, max_batch_delay: float = 0.002,
@@ -1505,33 +1637,32 @@ class ServeEngine:
                  max_coalesce_width: int = 32,
                  max_factor_batch: int = 32,
                  stack_sessions: bool = False, max_stack: int = 8,
+                 max_lane_pending: int | None = None,
                  latency_window: int = 8192,
                  persistent_cache: bool = True,
                  health: HealthPolicy | None = None,
                  fault_plan=None,
                  watchdog_interval: float = 0.2,
                  residency=None, revive_wait: float = 30.0, controller=None,
-                 lanes: int | str = 1, devices=None, device=None):
+                 lanes: int | str = 1, devices=None, max_lane_revives: int = 8,
+                 device=None):
         if on_full not in ("reject", "block"):
             raise ValueError(f"unknown on_full {on_full!r} (reject|block)")
         if max_pending < 1 or max_coalesce_width < 1 or max_stack < 1 \
                 or max_factor_batch < 1:
             raise ValueError("max_pending, max_coalesce_width, max_stack and "
                              "max_factor_batch must be >= 1")
-        if lanes != 1:
-            raise _not_ported("lanes")
-        if devices is not None:
-            devs = list(devices)
-            if not devs:
-                raise ValueError("devices must name at least one device")
-            if len(devs) > 1:
-                raise _not_ported("lanes")
-            if device is not None and torch.device(device) != torch.device(devs[0]):
-                raise ValueError("device= and devices= name different devices")
-            device = devs[0]
-        dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        devs = self._lane_devices(lanes, devices, device)
+        if max_lane_revives < 0:
+            raise ValueError("max_lane_revives must be >= 0")
+        if max_lane_pending is not None and max_lane_pending < 1:
+            raise ValueError("max_lane_pending must be >= 1 (or None)")
+        self.max_lane_revives = int(max_lane_revives)
+        self.max_lane_pending = None if max_lane_pending is None else int(max_lane_pending)
+        if persistent_cache:
+            from conflux_tpu_torch import cache
+
+            cache.enable_persistent_cache()
         self.max_batch_delay = float(max_batch_delay)
         self.max_pending = int(max_pending)
         self.on_full = on_full
@@ -1547,7 +1678,22 @@ class ServeEngine:
         if residency is not None and residency.engine is None:
             # lend the factor lane to the manager's stale-drift revivals
             residency.engine = self
-        self._lanes: tuple = (DeviceLane(self, 0, dev),)
+        # per-device lanes (each its own queues, threads, stream and carry),
+        # told apart by key: a device may repeat
+        keys = self._lane_keys(devs)
+        self._lanes: tuple = tuple(DeviceLane(self, i, d, k)
+                                   for i, (d, k) in enumerate(zip(devs, keys)))
+        self._lane_by_key: dict = {ln.key: ln for ln in self._lanes}
+        # the shared cold-start pool (several lanes): factor requests with
+        # no placement queue here and every lane's dispatch round draws
+        # from it. Mutation under _lock; emptiness checks are racy by
+        # design (a missed draw is picked up by the next wake)
+        self._factor_pool: deque = deque()
+        # one wake in flight at a time, so a burst coalesces into full
+        # buckets on one lane instead of slivers on every lane; cleared at
+        # the next draw
+        self._pool_waked = False        # guarded-by: _lock
+        self._sid_seq = 0               # guarded-by: _lock
         # the admission lock: every counter and the live set below are
         # guarded by it; it is never held across a device dispatch
         self._lock = threading.Lock()
@@ -1634,6 +1780,54 @@ class ServeEngine:
             controller.start()
             self._controller = controller
 
+    @staticmethod
+    def _lane_devices(lanes, devices, device) -> list:
+        """The lane devices of a constructor call (see the class doc)."""
+        if devices is not None:
+            devs = list(devices)
+            if not devs:
+                raise ValueError("devices must name at least one device")
+            if device is not None and not same_device(device, devs[0]):
+                raise ValueError("device= and devices= name different devices")
+            out = [resolve_device(d) for d in devs]
+        else:
+            if lanes == "auto":
+                n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+                if n < 1:
+                    raise ValueError("lanes='auto' is one lane per card, and "
+                                     "torch.cuda.device_count()=0: pass lanes=n with "
+                                     "device='cpu', or devices=[...]")
+                if device is not None and torch.device(device).type != "cuda":
+                    raise ValueError("lanes='auto' is one lane per card: device= "
+                                     f"{device} is not a card")
+                out = [torch.device("cuda", i) for i in range(n)]
+            else:
+                n = int(lanes)
+                if n < 1:
+                    raise ValueError("lanes must be >= 1 or 'auto'")
+                dev = resolve_device(device)
+                if n == 1 or dev.type == "cpu":
+                    out = [dev] * n
+                else:
+                    have = torch.cuda.device_count()
+                    if n > have:
+                        raise ValueError(f"lanes={n} exceeds torch.cuda.device_count()="
+                                         f"{have}")
+                    out = [torch.device("cuda", i) for i in range(n)]
+        return [torch.device("cuda", torch.cuda.current_device())
+                if d.type == "cuda" and d.index is None else d for d in out]
+
+    @staticmethod
+    def _lane_keys(devs) -> list:
+        """Each lane's placement identity: its device's (type, index) when
+        every lane has a device of its own, else (type, lane index), so
+        lanes sharing a device stay apart ("cpu", i) for lane i on the
+        CPU, the key the JAX package's i-th CPU device gets."""
+        keys = [_devkey(d) for d in devs]
+        if len(set(keys)) == len(keys):
+            return keys
+        return [(d.type, i) for i, d in enumerate(devs)]
+
     # ------------------------------------------------------------------ #
     # client surface
     # ------------------------------------------------------------------ #
@@ -1694,13 +1888,19 @@ class ServeEngine:
             raise TypeError(f"qos must be a conflux_tpu_torch.qos.QosClass (or None), got "
                             f"{type(qos).__name__}")
         precision = serve.check_precision_request(precision)
+        if precision is not None and session.plan.mesh is not None:
+            raise MeshPlanUnsupported(
+                "mesh-sharded plans serve their native precision only: per-request "
+                "precision= does not compose with the mesh lane", surface="submit")
         now = time.perf_counter()
         req = _Request(session, b2, int(b2.shape[-1]), squeeze, Future(), now,
                        None if deadline is None else now + deadline,
                        qos=qos, precision=precision)
         if qos is not None:
             req.cost = qos_mod.request_cost(session.plan.key.shape, width=req.width)
-        req.lane = self._lanes[0]
+        # the owning lane, resolved before admission (placement may move a
+        # session not yet placed: device work, never under the lock)
+        req.lane = self._lane_for(session)
         return req
 
     # hot-path (batched admission: one lock round trip per frame)
@@ -1799,10 +1999,33 @@ class ServeEngine:
                 self._not_full.wait()
             if self._closed:
                 raise EngineClosed("engine closed while blocked")
+        lane = req.lane
+        slice_cap = self.max_lane_pending
+        take_slot = slice_cap is not None and lane is not None and len(self._lanes) > 1
+        if take_slot and lane.pending >= slice_cap:
+            # the per-lane slice: a hot lane sheds its own overflow
+            if self.on_full == "reject":
+                self._sheds += 1
+                self._consec_sheds += 1
+                lane.sheds += 1
+                hint, why = self._shed_hint_locked()
+                raise EngineSaturated(
+                    f"lane {lane.index} holds {lane.pending} pending >= "
+                    f"max_lane_pending={slice_cap} (per-lane slice; other lanes keep "
+                    f"admitting; {why})", retry_after=hint, **self._qos_shed_attr(req))
+            if not wait:
+                return False
+            while lane.pending >= slice_cap and not self._closed:
+                self._not_full.wait()
+            if self._closed:
+                raise EngineClosed("engine closed while blocked")
         # weighted fair-share admission runs last, so a throttle has
         # committed nothing to roll back
         if req.qos is not None:
             self._qos_admit_locked(req)
+        if take_slot:
+            req.lane_slot = True
+            lane.pending += 1
         self._consec_sheds = 0
         self._pending += 1
         self._requests += 1
@@ -1877,27 +2100,139 @@ class ServeEngine:
             self._stack_exclusions[reason] = self._stack_exclusions.get(reason, 0) + 1
 
     def _route(self, req) -> None:
-        """Hand an admitted request to its lane's queue."""
+        """Hand an admitted request to its lane's queue (a pooled cold
+        start to the shared pool, with a wake). A request that lands on a
+        lane found dead meanwhile is failed here: either the lane's trip
+        saw it in `_live`, or this sees `dead` (resolution ownership makes
+        a double sweep harmless)."""
+        if isinstance(req, _FactorRequest) and req.pool:
+            with self._lock:
+                self._factor_pool.append(req)
+            self._wake_lane()
+            return
         lane = req.lane
         d = lane._inq.qsize() + 1
         if d > lane.queue_hw:
             lane.queue_hw = d
         lane._inq.put(req)
+        if lane.dead:
+            with self._lock:
+                leftover = [r for r in self._live if getattr(r, "lane", None) is lane]
+            self._fail(leftover, EngineClosed(
+                f"lane {lane.index} is dead (its worker threads spent their revival "
+                "budget): request failed by the admission front"))
+
+    def _first_live(self):
+        for ln in self._lanes:
+            if not ln.dead:
+                return ln
+        return self._lanes[0]
+
+    def _sid_lane(self, sid, lanes):
+        """The lane of `lanes` that rendezvous hashing gives `sid` (over
+        the lane keys)."""
+        return rendezvous(sid, lanes, key=lambda ln: ln.key)
+
+    # hot-path (placement: at most one state move per session)
+    def _lane_for(self, session):
+        """The lane that owns `session`, pinning it on first contact.
+        Deterministic: a session pinned to a lane of this engine keeps it;
+        a session on a device picks among that device's lanes by its sid;
+        a session on no device is placed by its sid over the live lanes
+        and moved there (a session without a sid gets one, stable for its
+        lifetime). A mesh session rides the first live lane, unpinned. A
+        pinned lane that is dead, or a device no lane serves, is served by
+        the first live lane (the answers follow the state, not the
+        thread)."""
+        lanes = self._lanes
+        if len(lanes) == 1:
+            return lanes[0]
+        if session.plan.mesh is not None:
+            return self._first_live()
+        lane = self._lane_by_key.get(session._lane_key)
+        if lane is None:
+            with session._lock:
+                lane = self._lane_by_key.get(session._lane_key)
+                if lane is None:
+                    dev = session.device
+                    mine = (lanes if dev is None else
+                            [ln for ln in lanes if same_device(ln.device, dev)])
+                    if not mine:
+                        return self._first_live()
+                    if dev is None:
+                        mine = [ln for ln in lanes if not ln.dead] or lanes
+                    if len(mine) == 1:
+                        lane = mine[0]
+                    else:
+                        if session.sid is None:
+                            session.sid = self._auto_sid()
+                        lane = self._sid_lane(session.sid, mine)
+                    if dev is None:
+                        session.to_device(lane.device)
+                    session._lane_key = lane.key
+        if lane.dead:
+            return self._first_live()
+        return lane
+
+    def _auto_sid(self) -> str:
+        with self._lock:
+            self._sid_seq += 1
+            return f"auto-{self._sid_seq}"
 
     @property
     def lanes(self) -> tuple:
-        """The engine's :class:`DeviceLane`s (one)."""
+        """The engine's :class:`DeviceLane`s, in lane order."""
         return self._lanes
 
     @property
     def devices(self) -> tuple:
-        """The lane devices."""
+        """The lane devices, in lane order (a device may repeat)."""
         return tuple(ln.device for ln in self._lanes)
 
     def placement(self, sid):
-        """The device `place_session` pins `sid` to on this engine's device
-        list."""
-        return place_session(sid, [ln.device for ln in self._lanes])
+        """The device a session with this `sid` is placed on: the device of
+        the lane that rendezvous hashing over the lane keys picks (the JAX
+        package's `place_session` over its lane devices)."""
+        return self.placement_lane(sid).device
+
+    def placement_lane(self, sid) -> "DeviceLane":
+        """The lane a session with this `sid` and no device is pinned to."""
+        return self._sid_lane(sid, self._lanes)
+
+    def _pool_pending(self) -> bool:
+        # conflint: disable=CFX-LOCK racy emptiness check by design (see __init__)
+        return bool(self._factor_pool)
+
+    def _pool_draw(self, n) -> list:
+        """Pop up to `n` pooled cold starts (None: all). Lane dispatchers
+        call this every round, so a lane with a free round takes work;
+        drawing clears the wake-in-flight flag."""
+        if not self._factor_pool:
+            return []
+        out: list = []
+        with self._lock:
+            while self._factor_pool and (n is None or len(out) < n):
+                out.append(self._factor_pool.popleft())
+            self._pool_waked = False
+        return out
+
+    def _wake_lane(self, force: bool = False) -> None:
+        """Nudge the least-loaded live lane (queue depth, ties to the lowest
+        index) to draw the pool. At most one wake rides between draws;
+        `force` bypasses that (a lane's death re-arms the pool)."""
+        with self._lock:
+            if self._pool_waked and not force:
+                return
+            self._pool_waked = True
+        best, best_load = None, None
+        for ln in self._lanes:
+            if ln.dead:
+                continue
+            load = ln._inq.qsize()
+            if best is None or load < best_load:
+                best, best_load = ln, load
+        if best is not None:
+            best._inq.put(_WAKE)
 
     # hot-path (admission: host work only)
     def submit_factor(self, plan, A, *, policy=None, deadline: float | None = None,
@@ -1917,9 +2252,16 @@ class ServeEngine:
         factorization carries a per-slot post-factor verdict: a sick slot
         re-dispatches solo and fails alone with structured evidence
         (:class:`SolveUnhealthy`). `sid=` names the opened session;
-        `device=` must be the lane's device. `qos=` classifies the cold
-        start as on :meth:`submit`; `precision=` opens the session at a
-        served tier ('auto': the cheapest rung)."""
+        `device=` must be a lane's device. On several lanes the cold start
+        load-balances: without `sid`/`device` it joins the shared pool and
+        whichever lane has a free dispatch round takes it; `sid=` pins the
+        session by rendezvous hashing, `device=` to that device's lane.
+        A mesh plan's request is its whole (B, N, N) batch, one sharded
+        factor through the first live lane (no stacking); the session is
+        unpinned, and `device=` outside the mesh raises
+        :class:`MeshPlanUnsupported`. `qos=` classifies the cold start as
+        on :meth:`submit`; `precision=` opens the session at a served tier
+        ('auto': the cheapest rung; refused for mesh plans)."""
         # conflint: disable=CFX-LOCK benign racy fast-fail; _admit re-checks locked
         if self._closed:
             raise EngineClosed("submit_factor() on a closed ServeEngine")
@@ -1929,11 +2271,8 @@ class ServeEngine:
         if not isinstance(plan, FactorPlan):
             raise TypeError(f"submit_factor takes a FactorPlan, got {type(plan).__name__} "
                             "(submit() serves sessions)")
-        lane = self._lanes[0]
-        if device is not None and _devkey(device) != _devkey(lane.device):
-            raise ValueError(f"device {device} is not this engine's lane device "
-                             f"{lane.device}: open the session with plan.factor, or build "
-                             "the engine on that device")
+        if plan.mesh is not None:
+            plan._check_mesh_pin(device, "factor_lane")
         A2 = _host_array(A)
         if tuple(A2.shape) != plan.key.shape:
             raise ValueError(f"A shape {A2.shape} does not match the plan's {plan.key.shape}")
@@ -1953,14 +2292,48 @@ class ServeEngine:
             # a cold start has no verdict history: 'auto' opens on the
             # cheapest rung and the first checked solve escalates
             precision = serve.PRECISION_TIERS[0]
+        if precision is not None and plan.mesh is not None:
+            raise MeshPlanUnsupported(
+                "precision= tiers are not served for mesh-sharded plans",
+                surface="factor_lane")
         now = time.perf_counter()
         req = _FactorRequest(plan, A2, policy, Future(), now,
                              None if deadline is None else now + deadline,
                              sid=sid, qos=qos, precision=precision)
         if qos is not None:
             req.cost = qos_mod.request_cost(plan.key.shape, factor=True)
-        req.lane = lane
+        self._place_factor(req, plan, sid, device)
         return self._admit(req)
+
+    def _place_factor(self, req, plan, sid, device) -> None:
+        """The cold start's lane: the mesh lane rides the first live lane;
+        on several lanes `device=` picks that device's lane (by `sid` among
+        several), `sid=` pins by rendezvous hashing, and otherwise the
+        request joins the shared pool."""
+        lanes = self._lanes
+        if plan.mesh is not None:
+            req.lane = self._first_live()
+            return
+        if device is not None:
+            mine = [ln for ln in lanes if same_device(ln.device, device)]
+            if not mine:
+                raise ValueError(f"device {device} is not one of this engine's lane "
+                                 "devices: open the session with plan.factor, or build the "
+                                 "engine with devices= naming it")
+            if len(mine) == 1:
+                req.lane = mine[0]
+            elif sid is not None:
+                req.lane = self._sid_lane(sid, mine)
+            elif len(mine) == len(lanes):
+                req.pool = True
+            else:
+                req.lane = min(mine, key=lambda ln: ln._inq.qsize())
+        elif len(lanes) == 1:
+            req.lane = lanes[0]
+        elif sid is not None:
+            req.lane = self._sid_lane(sid, lanes)
+        else:
+            req.pool = True
 
     def factor(self, plan, A, timeout: float | None = None, *, policy=None,
                deadline: float | None = None, sid=None, device=None, qos=None):
@@ -2022,6 +2395,7 @@ class ServeEngine:
                   max_factor_batch: int | None = None,
                   stack_sessions: bool | None = None,
                   max_stack: int | None = None,
+                  max_lane_pending: int | None = None,
                   health: HealthPolicy | None = None,
                   staging_stride: int | None = None,
                   drain_rate: float | None = None,
@@ -2049,7 +2423,7 @@ class ServeEngine:
             if max_batch_delay is None or any(
                     v is not None for v in (max_pending, max_coalesce_width,
                                             max_factor_batch, stack_sessions, max_stack,
-                                            health, staging_stride,
+                                            max_lane_pending, health, staging_stride,
                                             drain_rate, qos_contention, qos_tier_delay)):
                 raise ValueError("lane= scopes exactly one knob: max_batch_delay")
             with self._lock:
@@ -2064,6 +2438,8 @@ class ServeEngine:
             raise ValueError("staging_stride must be >= 1")
         if max_stack is not None and max_stack < 1:
             raise ValueError("max_stack must be >= 1")
+        if max_lane_pending is not None and max_lane_pending < 1:
+            raise ValueError("max_lane_pending must be >= 1")
         if qos_contention is not None and not 0 < qos_contention <= 1:
             raise ValueError("qos_contention must be in (0, 1]")
         if qos_tier_delay is not None:
@@ -2089,6 +2465,9 @@ class ServeEngine:
                 self.stack_sessions = bool(stack_sessions)
             if max_stack is not None:
                 self.max_stack = int(max_stack)
+            if max_lane_pending is not None:
+                self.max_lane_pending = int(max_lane_pending)
+                self._not_full.notify_all()
             if health is not None:
                 if self._health_strict is None:
                     self._health_strict = self.health
@@ -2119,6 +2498,7 @@ class ServeEngine:
                "max_factor_batch": self.max_factor_batch,
                "stack_sessions": self.stack_sessions,
                "max_stack": self.max_stack,
+               "max_lane_pending": self.max_lane_pending,
                "staging_stride": self._staging_stride,
                "drain_rate": self._drain_rate,
                "health_relaxed": (self._health_strict is not None
@@ -2177,21 +2557,21 @@ class ServeEngine:
         return sessions, plans
 
     def _gang_readopt(self, sessions) -> None:
-        """Adopt revived sessions straight back into the lane's gangs: the
+        """Adopt revived sessions straight back into their lanes' gangs: the
         tier layer's grouped-revival hook (`ResidentSet.revive_many`), so a
         revived fleet's first window already dispatches stacked. Advisory:
         a failure leaves adoption to the next stacked dispatch. Called with
         no session lock held."""
         if not self.stack_sessions:
             return
-        lane = self._lanes[0]
         groups: dict = {}
         for s in sessions:
             if s.plan.batched or s.plan.key.kind == "qr" or s._served_tier is not None:
                 continue
-            groups.setdefault(id(s.plan), (s.plan, []))[1].append(s)
+            lane = self._lane_for(s)
+            groups.setdefault((id(s.plan), lane.index), (s.plan, lane, []))[2].append(s)
         checked = self.health is not None and self.health.check_output
-        for plan, group in groups.values():
+        for plan, lane, group in groups.values():
             try:
                 with lane._on_lane_stream():
                     lane._gang_for(plan).ensure(group, self.max_stack, checked)
@@ -2275,9 +2655,12 @@ class ServeEngine:
         (`(1, 2, ..., max_factor_batch)` covers every bucket). Warms the
         checked programs when the engine's policy checks outputs.
         `precisions` warms the served tiers' program families ('auto': the
-        whole ladder, checked). Each warming dispatch runs on the lane's
-        stream and is waited for. `wait=False` warms on a background
-        thread and returns it."""
+        whole ladder, checked). Every live lane is warmed, each on its own
+        stream (waited for), deduplicated by (plan, bucket, lane key): a
+        second prewarm of the same buckets dispatches nothing. A mesh
+        plan is warmed once, on the lane that serves it, and its factor
+        buckets all warm bucket 1 (a mesh request is never stacked).
+        `wait=False` warms on a background thread and returns it."""
         plan = target if isinstance(target, FactorPlan) else target.plan
         session = None if isinstance(target, FactorPlan) else target
         tiers: list = []
@@ -2289,27 +2672,40 @@ class ServeEngine:
                 tiers += [t for t in serve.PRECISION_TIERS if t not in tiers]
             elif p2 is not None and p2 not in tiers:
                 tiers.append(p2)
+        if tiers and plan.mesh is not None:
+            raise ValueError("mesh-sharded plans serve their native precision only: "
+                             "precisions= does not apply to them")
 
         def run():
-            lane = self._lanes[0]
-            with profiler.region("engine.prewarm"), lane._on_lane_stream():
-                if session is not None:
-                    with session._lock:  # a spilled target faults in
-                        session._ensure_resident()
-                order_after_default(lane.device)
-                if session is not None:
-                    for wb in sorted({rank_bucket(w) for w in widths}):
-                        self._prewarm_width(session, wb)
+            if session is not None:
+                with session._lock:  # a spilled target faults in
+                    session._ensure_resident()
+            if plan.mesh is not None:
+                lanes = [self._first_live()]
+                fbs = {1} if factor_batches else set()
+            else:
+                lanes = [ln for ln in self._lanes if not ln.dead]
+                fbs = {rank_bucket(n) for n in factor_batches}
+            for lane in lanes:
+                with profiler.region("engine.prewarm"), lane._on_lane_stream():
+                    if plan.mesh is not None:
+                        _mesh_order_after_default(plan.mesh)
+                    else:
+                        order_after_default(lane.device)
+                    if session is not None:
+                        for wb in sorted({rank_bucket(w) for w in widths}):
+                            self._prewarm_width(lane, session, wb)
+                            for t in tiers:
+                                self._prewarm_tier_width(lane, session, t, wb, auto)
+                            for sz in stacks:
+                                self._prewarm_stack(lane, session, rank_bucket(sz), wb,
+                                                    update_ranks)
+                    for fbk in sorted(fbs):
+                        self._prewarm_factor(lane, plan, fbk)
                         for t in tiers:
-                            self._prewarm_tier_width(session, t, wb, auto)
-                        for s in stacks:
-                            self._prewarm_stack(session, rank_bucket(s), wb, update_ranks)
-                for fbk in sorted({rank_bucket(n) for n in factor_batches}):
-                    self._prewarm_factor(plan, fbk)
-                    for t in tiers:
-                        self._prewarm_tier_factor(plan, t, fbk)
-                if lane.cuda:
-                    lane.stream.synchronize()
+                            self._prewarm_tier_factor(lane, plan, t, fbk)
+                    if lane.cuda:
+                        lane.stream.synchronize()
 
         if wait:
             run()
@@ -2318,57 +2714,76 @@ class ServeEngine:
         t.start()
         return t
 
-    def _staged(self, host: torch.Tensor, device) -> torch.Tensor:
-        """A warm-up input moved to `device` as traffic moves its staged
-        buffers (through pinned host memory, a non-blocking copy), so the
-        pinned allocator holds buffers of the bucket's sizes before the
-        first request needs them."""
-        pinned, _ = self._lanes[0]._host_buffer(host.shape, host.dtype)
-        pinned.copy_(host)
-        return self._lanes[0]._h2d(pinned, device)
+    @staticmethod
+    def _warm_key(lane, plan):
+        """The device key of a warm record: the lane's key, or for a mesh
+        plan its mesh key (one warm covers whichever lane serves it)."""
+        return plan.key.mesh_key if plan.mesh is not None else lane.key
 
-    def _collect(self, *outs) -> None:
+    def _staged(self, lane, host: torch.Tensor, device, mesh=None):
+        """A warm-up input moved as traffic moves its staged buffers
+        (through the lane's pinned host memory, a non-blocking copy; split
+        over `mesh` when given), so the pinned allocator holds buffers of
+        the bucket's sizes before the first request needs them."""
+        pinned, _ = lane._host_buffer(host.shape, host.dtype)
+        pinned.copy_(host)
+        if mesh is not None:
+            return _shard_batch((pinned,), mesh, non_blocking=True)[0]
+        return lane._h2d(pinned, device)
+
+    @staticmethod
+    def _collect(lane, *outs) -> None:
         """Copy warm-up outputs to pinned host buffers as the drain receives
         answers and verdicts, and wait for the lane."""
-        lane = self._lanes[0]
         for x in outs:
             lane._d2h(x)
         if lane.cuda:
             lane.stream.synchronize()
 
-    def _zeros_rhs(self, session, wb: int) -> torch.Tensor:
+    @staticmethod
+    def _on_lane(lane, session, *state):
+        """`state` where `lane` reads it: the session's own tensors when
+        the lane serves its device (or it is a mesh session), else
+        warm-up copies on the lane's device, freed after the warm-up."""
+        if (session.plan.mesh is not None or session.device is None
+                or same_device(session.device, lane.device)):
+            return state
+        return tuple(put_tree(x, lane.device) for x in state)
+
+    def _zeros_rhs(self, lane, session, wb: int) -> torch.Tensor:
         plan = session.plan
         shape = (plan.B, plan.N, wb) if plan.batched else (plan.M, wb)
-        return self._staged(torch.zeros(shape, dtype=serve._torch_dtype(plan.key.dtype)),
-                            session.device)
+        return self._staged(lane, torch.zeros(shape, dtype=serve._torch_dtype(plan.key.dtype)),
+                            lane.device, plan.mesh)
 
-    def _prewarm_width(self, session, wb: int) -> None:
-        """Warm one RHS bucket (deduplicated through the plan's per-device
+    def _prewarm_width(self, lane, session, wb: int) -> None:
+        """Warm one RHS bucket on `lane` (deduplicated through the plan's
         warm registry)."""
         plan = session.plan
         checked = self.health is not None and self.health.check_output
         kind = "solve_health" if checked else "solve"
-        dk = _devkey(session.device)
+        dk = self._warm_key(lane, plan)
         if plan.device_warm(kind, wb, dk):
             return
-        b2 = self._zeros_rhs(session, wb)
+        b2 = self._zeros_rhs(lane, session, wb)
         with session._lock:
             session._ensure_resident()
             session._lane_reads_base()
             F, A, A0 = session._factors, session._A, session._A0
             probe = session._probe_row() if checked else None
+        F, A, A0, probe = self._on_lane(lane, session, F, A, A0, probe)
         if checked:
-            self._collect(*plan._solve_health_fn(wb)(F, A0, probe, b2))
+            self._collect(lane, *plan._solve_health_fn(wb)(F, A0, probe, b2))
         else:
-            self._collect(plan._solve_fn(wb)(F, A, b2))
+            self._collect(lane, plan._solve_fn(wb)(F, A, b2))
         plan.mark_device_warm(kind, wb, dk)
 
-    def _prewarm_stack(self, session, sb: int, wb: int, update_ranks=()) -> None:
-        """Warm the gang's stacked programs for one (stack, width) bucket:
-        the plain stacked solve (or the checked per-slot form when the
-        policy checks outputs) and, per rank bucket of `update_ranks`, the
-        stacked Woodbury programs a drifting gang dispatches, fed zero
-        drift state (the clean slot's shape)."""
+    def _prewarm_stack(self, lane, session, sb: int, wb: int, update_ranks=()) -> None:
+        """Warm the gang's stacked programs for one (stack, width) bucket
+        on `lane`: the plain stacked solve (or the checked per-slot form
+        when the policy checks outputs) and, per rank bucket of
+        `update_ranks`, the stacked Woodbury programs a drifting gang
+        dispatches, fed zero drift state (the clean slot's shape)."""
         plan = session.plan
         if plan.batched:
             raise ValueError("stacks= prewarming applies to single-system plans only")
@@ -2376,7 +2791,7 @@ class ServeEngine:
         kind = "stacked_health" if checked else "stacked"
         # the checked and unchecked Woodbury programs are warmed apart
         ukind = "stacked_usolve_health" if checked else "stacked_usolve"
-        dk = _devkey(session.device)
+        dk = self._warm_key(lane, plan)
         ranks = sorted({rank_bucket(k) for k in update_ranks
                         if not plan.device_warm(ukind, (sb, rank_bucket(k), wb), dk)})
         if plan.device_warm(kind, (sb, wb), dk) and not ranks:
@@ -2386,66 +2801,77 @@ class ServeEngine:
             session._lane_reads_base()
             F0, A0, A0full = session._factors, session._A, session._A0
             probe = session._probe_row() if checked else None
+        F0, A0, A0full, probe = self._on_lane(lane, session, F0, A0, A0full, probe)
         F = stack_trees([F0] * sb)
         A = None if A0 is None else torch.stack([A0] * sb)
         wA = None if probe is None else torch.stack([probe] * sb)
-        b = self._staged(torch.zeros((sb, plan.N, wb),
-                                     dtype=serve._torch_dtype(plan.key.dtype)),
-                         session.device)
+        b = self._staged(lane, torch.zeros((sb, plan.N, wb),
+                                           dtype=serve._torch_dtype(plan.key.dtype)),
+                         lane.device)
         if not plan.device_warm(kind, (sb, wb), dk):
             if checked:
-                self._collect(*plan._stacked_solve_health_fn(sb, wb)(F, A, wA, b))
+                self._collect(lane, *plan._stacked_solve_health_fn(sb, wb)(F, A, wA, b))
             else:
-                self._collect(plan._stacked_solve_fn(sb, wb)(F, A, b))
+                self._collect(lane, plan._stacked_solve_fn(sb, wb)(F, A, b))
             plan.mark_device_warm(kind, (sb, wb), dk)
         sweeps = plan.key.refine + session.policy.refine
         A0s = torch.stack([A0full] * sb) if sweeps else None
         for kb in ranks:
             z = zero_update_state(plan.N, kb, serve._torch_dtype(plan.key.dtype),
                                   serve._torch_dtype(plan.key.factor_dtype),
-                                  device=session.device)
+                                  device=lane.device)
             Up, Vp, Y, Ci = (torch.stack([t] * sb) for t in z)
             if checked:
-                self._collect(*plan._stacked_update_solve_health_fn(sb, kb, wb, sweeps)(
+                self._collect(lane, *plan._stacked_update_solve_health_fn(sb, kb, wb, sweeps)(
                     F, A0s, Up, Vp, Y, Ci, wA, b))
             else:
-                self._collect(plan._stacked_update_solve_fn(sb, kb, wb, sweeps)(
+                self._collect(lane, plan._stacked_update_solve_fn(sb, kb, wb, sweeps)(
                     F, A0s, Up, Vp, Y, Ci, b))
             plan.mark_device_warm(ukind, (sb, kb, wb), dk)
 
-    def _identity_stack(self, plan, bb: int) -> torch.Tensor:
-        """(bb,) + shape identity matrices staged to the lane device: the
-        warm-up input (well-conditioned for every kind and substitution),
-        the filler the pad slots use."""
+    def _identity_stack(self, lane, plan, bb: int) -> torch.Tensor:
+        """(bb,) + shape identity matrices staged to the lane device (a mesh
+        plan: one identity batch, sharded): the warm-up input
+        (well-conditioned for every kind and substitution), the filler the
+        pad slots use."""
         eye = torch.eye(*plan.key.shape[-2:], dtype=serve._torch_dtype(plan.key.dtype))
-        return self._staged(eye.expand((bb,) + plan.key.shape), self._lanes[0].device)
+        if plan.mesh is not None:
+            return self._staged(lane, eye.expand(plan.key.shape), None, plan.mesh)
+        return self._staged(lane, eye.expand((bb,) + plan.key.shape), lane.device)
 
-    def _prewarm_factor(self, plan, bb: int) -> None:
+    def _prewarm_factor(self, lane, plan, bb: int) -> None:
         checked = self.health is not None and self.health.check_output
         kind = "factor_health" if checked else "factor"
-        dk = _devkey(self._lanes[0].device)
+        dk = self._warm_key(lane, plan)
         if plan.device_warm(kind, bb, dk):
             return
-        Ad = self._identity_stack(plan, bb)
-        if checked:
-            self._collect(plan._factor_health_fn(bb)(Ad)[2])
+        Ad = self._identity_stack(lane, plan, bb)
+        if plan.mesh is not None:
+            if checked:
+                self._collect(lane, plan._mesh_factor_health_fn()(Ad)[2])
+            else:
+                plan._factor_once(Ad)
+                self._collect(lane)
+        elif checked:
+            self._collect(lane, plan._factor_health_fn(bb)(Ad)[2])
         else:
             plan._stacked_factor_fn(bb)(Ad)
-            self._collect()
+            self._collect(lane)
         plan.mark_device_warm(kind, bb, dk)
 
-    def _prewarm_tier_width(self, session, tier: str, wb: int, auto: bool = False) -> None:
-        """Warm one served tier's solve program for one RHS bucket ('auto'
-        traffic always dispatches the checked tier form). Warming a
-        cross-tier bucket also builds the session's derived tier
+    def _prewarm_tier_width(self, lane, session, tier: str, wb: int,
+                            auto: bool = False) -> None:
+        """Warm one served tier's solve program for one RHS bucket on
+        `lane` ('auto' traffic always dispatches the checked tier form).
+        Warming a cross-tier bucket also builds the session's derived tier
         factors."""
         plan = session.plan
         checked = auto or (self.health is not None and self.health.check_output)
         kind = "tier_health" if checked else "tier"
-        dk = _devkey(session.device)
+        dk = self._warm_key(lane, plan)
         if plan.device_warm(kind, (tier, wb), dk):
             return
-        b2 = self._zeros_rhs(session, wb)
+        b2 = self._zeros_rhs(lane, session, wb)
         with session._lock:
             session._ensure_resident()
             session._lane_reads_base()
@@ -2453,20 +2879,21 @@ class ServeEngine:
                  else session._tier_factor(tier))
             A0 = session._A0
             probe = session._probe_row() if checked else None
+        F, A0, probe = self._on_lane(lane, session, F, A0, probe)
         if checked:
-            self._collect(*plan._tier_solve_health_fn(tier, wb)(F, A0, probe, b2))
+            self._collect(lane, *plan._tier_solve_health_fn(tier, wb)(F, A0, probe, b2))
         else:
-            self._collect(plan._tier_solve_fn(tier, wb)(F, A0, b2))
+            self._collect(lane, plan._tier_solve_fn(tier, wb)(F, A0, b2))
         plan.mark_device_warm(kind, (tier, wb), dk)
 
-    def _prewarm_tier_factor(self, plan, tier: str, bb: int) -> None:
-        """Warm one served tier's coalesced factor bucket (tier factor
-        batches dispatch unchecked)."""
-        dk = _devkey(self._lanes[0].device)
+    def _prewarm_tier_factor(self, lane, plan, tier: str, bb: int) -> None:
+        """Warm one served tier's coalesced factor bucket on `lane` (tier
+        factor batches dispatch unchecked)."""
+        dk = self._warm_key(lane, plan)
         if plan.device_warm("tier_factor", (tier, bb), dk):
             return
-        plan._tier_stacked_factor_fn(tier, bb)(self._identity_stack(plan, bb))
-        self._collect()
+        plan._tier_stacked_factor_fn(tier, bb)(self._identity_stack(lane, plan, bb))
+        self._collect(lane)
         plan.mark_device_warm("tier_factor", (tier, bb), dk)
 
     # ------------------------------------------------------------------ #
@@ -2481,6 +2908,10 @@ class ServeEngine:
             owned = {r for r in reqs if r in self._live}
             self._live.difference_update(owned)
             self._pending -= len(owned)
+            for r in owned:
+                if r.lane_slot and r.lane is not None:
+                    r.lane.pending -= 1
+                    r.lane_slot = False
             self._not_full.notify_all()
         return owned
 
@@ -2538,10 +2969,69 @@ class ServeEngine:
 
     def _lane_died(self, lane, thread, exc: BaseException) -> None:
         """Post-mortem hook on a dying lane worker: record the cause and
-        trip the watchdog at once (one lane: the whole engine trips)."""
+        trip the watchdog at once. A one-lane engine trips whole; on
+        several lanes only the dead lane trips (its fault domain)."""
         lane._dead = (thread.name, exc)
-        self._dead = (thread.name, exc)
-        self._watchdog_trip([thread.name], exc)
+        if len(self._lanes) == 1:
+            self._dead = (thread.name, exc)
+            self._watchdog_trip([thread.name], exc)
+        else:
+            self._lane_trip(lane, [thread.name], exc, dying=thread)
+
+    # futures-owner
+    def _lane_trip(self, lane, names, exc, dying=None) -> None:
+        """The per-lane watchdog action: fail the live requests routed to
+        the dead lane (queued or in flight: resolution ownership makes
+        failing one about to settle harmless), then respawn its dead
+        threads, up to `max_lane_revives` times; past that the lane is
+        marked dead and admission routes around it. Other lanes never
+        notice."""
+        if not lane._trip_lock.acquire(blocking=False):
+            return  # a concurrent trip (the dying thread or the poll) owns it
+        try:
+            resilience.bump("watchdog_trips")
+            with self._lock:
+                revive = lane.revives < self.max_lane_revives and not self._closed
+                if not revive:
+                    lane.dead = True
+                leftover = [r for r in self._live if getattr(r, "lane", None) is lane]
+            self._fail(leftover, EngineClosed(
+                f"lane {lane.index} worker thread(s) {names} died"
+                + (f" ({exc!r})" if exc is not None else "")
+                + f": {len(leftover)} pending request(s) on this lane failed by the "
+                "watchdog; other lanes unaffected"))
+            if revive:
+                lane.revive(exclude=dying)
+                resilience.bump("lane_revives")
+            else:
+                self._retire_lane(lane, dying)
+            if self._pool_pending():
+                # the dead lane may have held the one wake in flight
+                self._wake_lane(force=True)
+        finally:
+            lane._trip_lock.release()
+
+    @staticmethod
+    def _retire_lane(lane, dying=None) -> None:
+        """Let a lane marked dead end its surviving worker: a stop for its
+        dispatcher, and for its drainer a stop (or, when the drainer is the
+        dead one, an emptied hand-off queue, so a dispatcher blocked on it
+        can finish). `close` then joins nothing that waits forever."""
+        lane._inq.put(_STOP)
+        drainer = lane._drainer
+        if drainer is None or not drainer.is_alive() or drainer is dying:
+            try:
+                while True:
+                    lane._outq.get_nowait()
+            # conflint: disable=CFX-FUTURE the trip failed every request of the lane already
+            except Empty:
+                pass
+        else:
+            try:
+                lane._outq.put_nowait(_STOP)
+            # conflint: disable=CFX-FUTURE a full queue already wakes the drain
+            except Full:
+                pass
 
     # futures-owner
     def _watchdog_trip(self, names, exc) -> None:
@@ -2570,11 +3060,27 @@ class ServeEngine:
             # conflint: disable=CFX-LOCK benign racy poll; a stale read only delays one tick
             if self._closed:
                 return
-            lane = self._lanes[0]
-            dead = [t.name for t in (lane._dispatcher, lane._drainer) if not t.is_alive()]
-            if dead:
-                exc = lane._dead[1] if lane._dead is not None else None
-                self._watchdog_trip(dead, exc)
+            if len(self._lanes) == 1:
+                lane = self._lanes[0]
+                dead = [t.name for t in (lane._dispatcher, lane._drainer)
+                        if not t.is_alive()]
+                if dead:
+                    exc = lane._dead[1] if lane._dead is not None else None
+                    self._watchdog_trip(dead, exc)
+                    return
+                continue
+            for lane in self._lanes:
+                if lane.dead:
+                    continue
+                dead = [t.name for t in (lane._dispatcher, lane._drainer)
+                        if not t.is_alive()]
+                if dead:
+                    exc = lane._dead[1] if lane._dead is not None else None
+                    self._lane_trip(lane, dead, exc)
+            if all(ln.dead for ln in self._lanes):
+                # nothing left to serve: the global trip fails what is
+                # still pending and closes the engine
+                self._watchdog_trip(["all lanes"], None)
                 return
 
     # ------------------------------------------------------------------ #

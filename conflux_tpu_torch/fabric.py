@@ -396,7 +396,9 @@ class _HostCore:
             if sid in self._registry:
                 raise ValueError(f"sid {sid!r} already open on host "
                                  f"{self.host_id}")
-        plan = plan_from_spec(spec)
+        # a record naming no platform (the JAX package's mesh) resolves on
+        # this host's engine device
+        plan = plan_from_spec(spec, device=self.eng.devices[0])
         pol = DriftPolicy(**policy) if policy is not None else None
         s = self.eng.factor(plan, A, sid=sid, policy=pol)
         with self._lock:

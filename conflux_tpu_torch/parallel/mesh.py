@@ -61,6 +61,32 @@ comm = {
     "i": (AXIS_X,),
 }
 
+
+_MESH_REGISTRY: dict = {}
+_MESH_LOCK = threading.Lock()
+
+
+def mesh_cache_key(mesh) -> tuple:
+    """Hashable identity of a serving batch mesh (`batched.BatchMesh`),
+    registered for :func:`lookup_mesh`: ((type, index) of each shard's
+    device, in shard order, repeats kept; axis names). Two equal meshes
+    share one key, so a plan key (and its programs) is the same whichever
+    mesh object built it. The registry holds one mesh per key, bounded by
+    the number of distinct device layouts. (The per-rank grid :class:`Mesh`
+    above is unrelated.)"""
+    key = (tuple((d.type, 0 if d.index is None else d.index) for d in mesh.devices),
+           tuple(mesh.axis_names))
+    with _MESH_LOCK:
+        _MESH_REGISTRY.setdefault(key, mesh)
+    return key
+
+
+def lookup_mesh(key):
+    """The batch mesh registered under a :func:`mesh_cache_key`."""
+    with _MESH_LOCK:
+        return _MESH_REGISTRY[key]
+
+
 TRANSPORTS = ("gloo", "nccl", "staged")
 _DEFAULT_TIMEOUT = 300.0  # seconds a collective may wait for its peers
 

@@ -87,8 +87,23 @@ one set of warm buckets),
 `SolveSession.to_device`, the plan codec (`plan_spec`,
 `plan_from_spec`) and the residency hooks of tiered sessions (`tier`: a
 spilled session faults back in under its lock on its next touch,
-`_ensure_resident`). Not ported yet, each raising NotImplementedError: mesh
-plans and matmul precision other than 'highest'.
+`_ensure_resident`). Not ported yet, raising NotImplementedError: matmul
+precision other than 'highest'.
+
+Mesh plans: ``FactorPlan.create((B, N, N), ..., mesh=batched.batch_mesh(
+devices))`` keeps the batch axis sharded over the mesh's k shards
+(`batched.Sharded` leaves, shard i on device i; a device may repeat). Its
+programs are the one-device programs of the (B/k, N, N) shard plan run on
+each shard in turn (`batched.mesh_map`): a factor launches K4 (K5 for an
+SPD plan) once per shard, on backend "kernel" too (the JAX package keeps
+mesh plans off its Pallas factor; that limit is Pallas-under-sharding's,
+and the port drops it), and a solve round launches K3 once per shard.
+Solves come back gathered on the mesh's first device; a checked solve's
+verdict is one for the whole batch (all shards finite, the largest
+residual). A mesh session is unpinned (`device` None): a `device=` inside
+the mesh is a no-op, one outside it raises `MeshPlanUnsupported`. Mesh
+plans serve their native precision only, and never stack (the stacked
+factor and gang programs refuse them), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,7 +117,18 @@ import numpy as np
 import torch
 
 from conflux_tpu_torch import profiler, resilience
-from conflux_tpu_torch.batched import cholesky_solve_batched, put_tree, unstack_tree
+from conflux_tpu_torch.batched import (
+    BatchMesh,
+    Sharded,
+    _shard_batch,
+    check_mesh,
+    cholesky_solve_batched,
+    gather_batch,
+    mesh_map,
+    put_tree,
+    unstack_tree,
+)
+from conflux_tpu_torch.parallel.mesh import lookup_mesh, mesh_cache_key
 from conflux_tpu_torch.device import hand_to_default, resolve_device, same_device
 from conflux_tpu_torch.lu.single import from_numpy
 from conflux_tpu_torch.ops import blas, hopper_kernels
@@ -181,9 +207,6 @@ def next_precision_tier(tier: str):
 _PLANS: dict[PlanKey, "FactorPlan"] = {}
 _PLANS_LOCK = threading.Lock()
 
-_MESH_SLICE = ("mesh plans (the serving mesh lane, ROADMAP Slice 7 item 14, "
-               "waits for torch.distributed)")
-
 
 def _encode_precision(p):
     """JSON form of a plan key's matmul precision. The port runs IEEE
@@ -222,26 +245,74 @@ def plan_spec(plan: "FactorPlan") -> dict:
     """JSON-serializable identity of a plan: the codec that a checkpoint
     or another process rebuilds the exact plan from
     (:func:`plan_from_spec`). The dict has the JAX package's keys, with the
-    port's dtype names, backend names and panel algos."""
+    port's dtype names, backend names and panel algos. A mesh plan adds
+    the JAX package's "mesh" sub-dict (`device_ids`, one device index per
+    shard with repeats kept, `axis_names`, `device_shape`) and a
+    "platform" key ('cpu' or 'cuda') that the JAX package's reader
+    ignores."""
     k = plan.key
+    d = {"shape": list(k.shape), "dtype": k.dtype,
+         "factor_dtype": k.factor_dtype, "v": k.v, "refine": k.refine,
+         "kind": k.kind, "substitution": k.substitution,
+         "precision": _encode_precision(k.precision),
+         "backend": k.backend, "panel_algo": k.panel_algo}
     if k.mesh_key is not None:
-        raise _not_ported(_MESH_SLICE)
-    return {"shape": list(k.shape), "dtype": k.dtype,
-            "factor_dtype": k.factor_dtype, "v": k.v, "refine": k.refine,
-            "kind": k.kind, "substitution": k.substitution,
-            "precision": _encode_precision(k.precision),
-            "backend": k.backend, "panel_algo": k.panel_algo}
+        mesh = plan.mesh
+        d["mesh"] = {"device_ids": [int(i) for _t, i in k.mesh_key[0]],
+                     "axis_names": [str(a) for a in mesh.axis_names],
+                     "device_shape": [int(s) for s in mesh.device_shape],
+                     "platform": mesh.devices[0].type}
+    return d
 
 
-def plan_from_spec(d: dict) -> "FactorPlan":
+def mesh_from_spec(m: dict, device=None) -> BatchMesh:
+    """Rebuild a batch mesh from its :func:`plan_spec` identity, the mesh
+    half of the checkpoint and fabric codec; it registers under the same
+    `mesh_cache_key`, so a restored plan lands on the same key. The ids
+    are device indices on the record's "platform"; a record without one
+    (the JAX package's, whose ids are its global device ids) names
+    devices of the platform of `device` (the caller's placement: the card
+    unless it passes 'cpu'). Torch has one CPU device, index 0, and
+    `torch.cuda.device_count()` cards: ids this process lacks raise
+    :class:`~resilience.MeshPlanUnsupported` (surface 'plan_codec'), the
+    cross-host residue the JAX package raises too."""
+    ids = [int(i) for i in m["device_ids"]]
+    platform = m.get("platform")
+    if platform is None:
+        platform = resolve_device(device).type
+    if platform not in ("cpu", "cuda"):
+        raise ValueError(f"mesh record names unknown platform {platform!r} (cpu|cuda)")
+    have = 1 if platform == "cpu" else (
+        torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    missing = sorted({i for i in ids if not 0 <= i < have})
+    if missing:
+        raise resilience.MeshPlanUnsupported(
+            f"mesh plan names {platform} device ids {missing} this process does not "
+            f"hold ({have} {platform} device(s)): sharded session state cannot "
+            "migrate across hosts (restore on a host with the same device topology)",
+            surface="plan_codec")
+    shape = tuple(int(x) for x in m.get("device_shape", [len(ids)]))
+    if len(shape) != 1 or shape[0] != len(ids):
+        raise ValueError(f"mesh record device_shape {list(shape)} is not the flat "
+                         f"batch mesh of its {len(ids)} ids")
+    if [str(a) for a in m.get("axis_names", ["b"])] != list(BatchMesh.axis_names):
+        raise ValueError(f"mesh record axis_names {m.get('axis_names')} are not "
+                         f"{list(BatchMesh.axis_names)}")
+    return BatchMesh([torch.device(platform, i) for i in ids])
+
+
+def plan_from_spec(d: dict, device=None) -> "FactorPlan":
     """Rebuild the exact :class:`PlanKey` a :func:`plan_spec` dict names
     (the knobs it was built under included, not re-read from the process's
     registry) and get-or-build its plan: same key, same programs, same
     bits. Records written before plans had a `kind` spell it as the
-    boolean 'spd' and decode here. A "mesh" sub-dict raises
-    NotImplementedError naming the mesh slice."""
-    if d.get("mesh") is not None:
-        raise _not_ported(_MESH_SLICE)
+    boolean 'spd' and decode here. A "mesh" sub-dict rebuilds the mesh
+    (:func:`mesh_from_spec`; `device` places a record that names no
+    platform)."""
+    mesh_key = None
+    m = d.get("mesh")
+    if m is not None:
+        mesh_key = mesh_cache_key(mesh_from_spec(m, device))
     if "kind" in d:
         kind = str(d["kind"])
         if kind not in PLAN_KINDS:
@@ -255,7 +326,7 @@ def plan_from_spec(d: dict) -> "FactorPlan":
         factor_dtype=str(d["factor_dtype"]), v=int(d["v"]),
         refine=int(d["refine"]), kind=kind, substitution=str(d["substitution"]),
         precision=_decode_precision(d["precision"]), backend=backend,
-        panel_algo=str(d["panel_algo"]), mesh_key=None)
+        panel_algo=str(d["panel_algo"]), mesh_key=mesh_key)
     for name in (key.dtype, key.factor_dtype):
         if not isinstance(getattr(torch, name, None), torch.dtype):
             raise ValueError(f"plan spec names unknown dtype {name!r}")
@@ -329,10 +400,32 @@ def _torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _as_tensor(x, device: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return from_numpy(np.asarray(x), device)
+def _as_tensor(x, device: torch.device | None) -> torch.Tensor:
+    """`x` as a tensor on `device`. None (a mesh session's input, sharded
+    next) keeps a tensor where it is and puts numpy on the CPU."""
+    if isinstance(x, (torch.Tensor, Sharded)):
+        return x if device is None else x.to(device)
+    return from_numpy(np.asarray(x), "cpu" if device is None else device)
+
+
+def _pad_cols(x, n: int):
+    """`n` zero columns appended to the trailing axis (per shard for a
+    :class:`~batched.Sharded` tensor)."""
+    return mesh_map(lambda t: torch.nn.functional.pad(t, (0, n)), None, x)
+
+
+def _mesh_verdict(v: Sharded) -> torch.Tensor:
+    """One verdict of a mesh program from its shards' ((2,) or (2, 1)):
+    finite only when every shard is, and the largest residual (a mesh
+    session is one tenant), on the first shard's device."""
+    d0 = v.shards[0].device
+    vs = torch.stack([x.to(d0) for x in v.shards])
+    return torch.stack([vs[:, 0].amin(0), vs[:, 1].amax(0)])
+
+
+def _gather_checked(out):
+    x, v = out
+    return gather_batch(x), _mesh_verdict(v)
 
 
 def _round_operand(T: torch.Tensor, cdtype: torch.dtype) -> torch.Tensor:
@@ -361,8 +454,6 @@ class FactorPlan:
         if key.kind not in PLAN_KINDS:
             raise ValueError(f"unknown plan kind {key.kind!r} — expected one "
                              f"of {PLAN_KINDS}")
-        if key.mesh_key is not None:
-            raise _not_ported("mesh plans")
         if len(shape) not in (2, 3):
             raise ValueError(f"plan shape {shape}: (B, N, N), (N, N) or (M, N)")
         self.batched = len(shape) == 3
@@ -397,6 +488,24 @@ class FactorPlan:
                 if key.kind == "lu":
                     blas._resolve_panel_algo(blas.compute_dtype(fd), self.N, key.v,
                                              key.panel_algo)
+        self.mesh = None if key.mesh_key is None else lookup_mesh(key.mesh_key)
+        self._shard = None
+        if self.mesh is not None:
+            if key.kind == "qr":
+                raise ValueError("kind='qr' plans are unsharded (a single tall system "
+                                 "has no batch axis to mesh-shard)")
+            if not self.batched:
+                raise ValueError("a mesh only applies to batched (B, N, N) plans: a "
+                                 "single system has no batch axis to shard")
+            if self.B % self.mesh.size:
+                raise ValueError(f"plan batch {self.B} must be a multiple of the mesh "
+                                 f"size {self.mesh.size} (pad the batch, or create "
+                                 "the plan at the padded size and slice results)")
+            # the one-device plan every shard runs: same knobs, B/k
+            # systems. Kept out of the plan registry (its programs are
+            # shared callables; the mesh plan counts its own builds)
+            self._shard = FactorPlan(dataclasses.replace(
+                key, shape=(self.B // self.mesh.size,) + tuple(shape[1:]), mesh_key=None))
         self.trace_counts = {"factor": 0, "solve": 0}
         # concurrent first callers fill the memoized program caches
         # double-checked under this lock
@@ -436,6 +545,25 @@ class FactorPlan:
         lazily, as in the JAX package."""
         self.trace_counts[name] = self.trace_counts.get(name, 0) + 1
 
+    def _mesh_prog(self, cache: dict, key, names: tuple, inner, combine=None):
+        """A mesh plan's program for one bucket: `inner()` (the shard
+        plan's program of the same bucket) run on each shard
+        (`batched.mesh_map`), its outputs passed through `combine` (a
+        gather, a verdict reduction). Counted in this plan's
+        `trace_counts` under `names`, once per bucket."""
+        def build():
+            for n in names:
+                self._bump(n)
+            fn = inner()
+            mesh = self.mesh
+
+            def run(*args):
+                out = mesh_map(fn, mesh, *args)
+                return out if combine is None else combine(out)
+            return run
+
+        return self._memo(cache, key, build)
+
     # ------------------------------------------------------------------ #
     # cache
     # ------------------------------------------------------------------ #
@@ -458,8 +586,7 @@ class FactorPlan:
         elif spd and kind != "chol":
             raise ValueError(f"kind={kind!r} contradicts spd=True (the legacy "
                              "spelling of kind='chol') — pass one or the other")
-        if mesh is not None:
-            raise _not_ported("mesh plans")
+        check_mesh(mesh)
         if precision not in (None, "highest"):
             raise _not_ported(f"matmul precision {precision!r} (the port "
                               "runs IEEE float32, 'highest')")
@@ -478,7 +605,8 @@ class FactorPlan:
             factor_dtype=dname if factor_dtype is None else _dtype_name(factor_dtype),
             v=int(v), refine=int(refine), kind=kind, substitution=substitution,
             precision="highest", backend=backend,
-            panel_algo=blas.get_panel_algo(), mesh_key=None)
+            panel_algo=blas.get_panel_algo(),
+            mesh_key=None if mesh is None else mesh_cache_key(mesh))
         with _PLANS_LOCK:
             plan = _PLANS.get(key)
             if plan is None:
@@ -732,6 +860,9 @@ class FactorPlan:
         a request's width up to the next power of two and slice back
         (columns are independent through every step)."""
         self._check_bucket("_solve_fn", nrhs)
+        if self.mesh is not None:
+            return self._mesh_prog(self._solve_cache, nrhs, ("solve",),
+                                   lambda: self._shard._solve_fn(nrhs), gather_batch)
 
         def build():
             self._bump("solve")
@@ -961,6 +1092,9 @@ class FactorPlan:
         power-of-two batch buckets. On the kernel route each slot's
         factors are bitwise invariant to the bucket and to the pad
         contents; :meth:`factor` itself rides this program at bucket 1."""
+        if self.mesh is not None:
+            raise AssertionError("the stacked factor program is unsharded: mesh plans "
+                                 "factor through _factor_once / _mesh_factor_health_fn")
         self._check_bucket("_stacked_factor_fn", bb)
 
         def build():
@@ -980,6 +1114,9 @@ class FactorPlan:
         and projects the residual through wA, so slot i's verdict depends
         only on slot i. Blocked plans without sweeps take the stats from the
         back substitution (:meth:`_blocked_probe_body`)."""
+        if self.mesh is not None:
+            raise AssertionError("the checked stacked factor program is unsharded: mesh "
+                                 "plans factor through _mesh_factor_health_fn")
         self._check_bucket("_factor_health_fn", bb)
 
         def build():
@@ -1042,9 +1179,44 @@ class FactorPlan:
     def _factor_once(self, A):
         """Factor ONE system (or one (B, N, N) batch) through the bucket-1
         slot of the stacked factor program, so every session carries
-        factors of the same program family as the coalesced lane."""
+        factors of the same program family as the coalesced lane. A mesh
+        plan factors its sharded batch through the shard plan's program
+        on each shard (one K4 or K5 launch per shard)."""
+        if self.mesh is not None:
+            return self._mesh_prog(self._factor_cache, ("factor", 1), ("factor",),
+                                   lambda: self._shard._factor_once)(A)
         F = self._stacked_factor_fn(1)(A[None])
         return unstack_tree(F, 1)[0]
+
+    def _mesh_factor_health_fn(self):
+        """The mesh lane's checked cold-start program: factor one sharded
+        (B, N, N) batch and produce the session's health evidence in the
+        same call, A -> (factors, wA, verdict (2, 1)). Each shard runs the
+        shard plan's checked bucket-1 program (the factor with its probe
+        rows from the same K4/K5 launch, then the verdict), whose factors
+        are those `_factor_once` makes; the verdict reduces over the whole
+        batch (one mesh session is one tenant: any non-finite slot fails
+        it, and the largest residual counts), the (2, 1) block
+        `resilience.evaluate_slots` reads as a one-slot batch."""
+        if self.mesh is None:
+            raise AssertionError("_mesh_factor_health_fn is the mesh lane's checked "
+                                 "factor program: unsharded plans ride _factor_health_fn")
+        shard = self._shard
+
+        def inner():
+            fn = shard._factor_health_fn(1)
+
+            def one(a):
+                F, wA, v = fn(a[None])
+                return unstack_tree(F, 1)[0], wA[0], v
+            return one
+
+        def combine(out):
+            F, wA, v = out
+            return F, wA, _mesh_verdict(v)
+
+        return self._mesh_prog(self._factor_cache, ("factor_health", 1),
+                               ("factor_health",), inner, combine)
 
     # ------------------------------------------------------------------ #
     # checked (health-guarded) solve programs
@@ -1067,6 +1239,10 @@ class FactorPlan:
         """The wA = w^T A0 program: the once-per-base half of the
         projected-residual check; for a QR plan the least-squares pair
         (u, uA) (`update.probe_lstsq`)."""
+        if self.mesh is not None:
+            return self._mesh_prog(self._solve_cache, ("probe",), (),
+                                   self._shard._probe_fn)
+
         def build():
             if self.key.kind == "qr":
                 return lambda A0: probe_lstsq(self._probe_w_on(A0.device), A0)
@@ -1116,6 +1292,11 @@ class FactorPlan:
         `SolveSession.solve_checked` runs: (factors, A0, wA, b2) ->
         (x, verdict)."""
         self._check_bucket("_solve_health_fn", nrhs)
+        if self.mesh is not None:
+            cache = self._trsm_cache if self._fused_probe else self._solve_cache
+            return self._mesh_prog(cache, ("health", nrhs), ("health",),
+                                   lambda: self._shard._solve_health_fn(nrhs),
+                                   _gather_checked)
         if self._fused_probe:
             def build():
                 self._bump("health")
@@ -1149,6 +1330,9 @@ class FactorPlan:
         `SolveSession.refine_checked` runs: (factors, A0, wA, x, b2) ->
         (x2, verdict)."""
         self._check_bucket("_refine_fn", nrhs)
+        if self.mesh is not None:
+            return self._mesh_prog(self._solve_cache, ("refine", nrhs), ("refine",),
+                                   lambda: self._shard._refine_fn(nrhs), _gather_checked)
 
         def build():
             self._bump("refine")
@@ -1178,6 +1362,9 @@ class FactorPlan:
         by dtype, as the kernel gate is."""
         if tier not in PRECISION_TIERS:
             raise ValueError(f"unknown served tier {tier!r} — one of {PRECISION_TIERS}")
+        if self.mesh is not None:
+            raise ValueError("mesh-sharded plans serve their native precision only: "
+                             "precision tiers do not compose with mesh plans")
         k = self.key
         fd = _TIER_DTYPES[tier]
         sweeps = max(int(k.refine), 1) if tier == "bf16_ir" else int(k.refine)
@@ -1275,6 +1462,12 @@ class FactorPlan:
         """The capacitance program per rank bucket kb:
         (factors, Up, Vp) -> (Y, Cinv, cond1)."""
         self._check_bucket("_update_fn", kb)
+        if self.mesh is not None:
+            def combine(out):
+                Y, Cinv, cond1 = out
+                return Y, Cinv, gather_batch(cond1)
+            return self._mesh_prog(self._update_cache, ("update", kb), ("update",),
+                                   lambda: self._shard._update_fn(kb), combine)
 
         def build():
             self._bump("update")
@@ -1286,6 +1479,10 @@ class FactorPlan:
         """The Woodbury solve program per (rank bucket, RHS bucket,
         backstop sweeps): (factors, A0, Up, Vp, Y, Cinv, b2) -> x."""
         self._check_bucket("_update_solve_fn", nrhs)
+        if self.mesh is not None:
+            return self._mesh_prog(
+                self._update_cache, ("usolve", kb, nrhs, sweeps), ("update_solve",),
+                lambda: self._shard._update_solve_fn(kb, nrhs, sweeps), gather_batch)
 
         def build():
             self._bump("update_solve")
@@ -1298,6 +1495,12 @@ class FactorPlan:
         through the drifted matrix (w^T A1 = wA + (w^T Up) Vp^H, padded
         columns inert), so a correction gone wrong trips the verdict."""
         self._check_bucket("_update_solve_health_fn", nrhs)
+        if self.mesh is not None:
+            return self._mesh_prog(
+                self._update_cache, ("uhealth", kb, nrhs, sweeps),
+                ("update_solve", "health"),
+                lambda: self._shard._update_solve_health_fn(kb, nrhs, sweeps),
+                _gather_checked)
 
         def build():
             self._bump("update_solve")
@@ -1318,7 +1521,12 @@ class FactorPlan:
         one resident base at the refactor peak, the role of the JAX
         package's buffer donation; otherwise (and for bfloat16 storage,
         whose sum runs in float32) a new tensor by the same product
-        (`update.apply_update`), with the same bits."""
+        (`update.apply_update`), with the same bits. A mesh plan runs it
+        on each shard."""
+        if self.mesh is not None:
+            return self._mesh_prog(self._update_cache, ("refresh", kb, donate), (),
+                                   lambda: self._shard._refresh_fn(kb, donate))
+
         def build():
             def in_place(A0, Up, Vp):
                 cdtype = blas.compute_dtype(A0.dtype)
@@ -1342,6 +1550,19 @@ class FactorPlan:
             raise ValueError(f"A dtype {A.dtype} does not match the plan's "
                              f"{self.key.dtype}")
 
+    def in_mesh(self, device) -> bool:
+        """True when `device` is one of this mesh plan's shard devices."""
+        return any(same_device(device, d) for d in self.mesh.devices)
+
+    def _check_mesh_pin(self, device, surface: str) -> None:
+        """A mesh plan's `device=`: None or a device inside the mesh is a
+        placement no-op (the state spans the mesh already); a device
+        outside it raises :class:`~resilience.MeshPlanUnsupported`."""
+        if device is not None and not self.in_mesh(device):
+            raise resilience.MeshPlanUnsupported(
+                "device= names a device outside this plan's mesh: a mesh-sharded "
+                "session's state cannot migrate off its mesh", surface=surface)
+
     def factor(self, A, *, policy: DriftPolicy | None = None, device=None,
                sid=None, precision: str | None = None) -> "SolveSession":
         """Factor A and open a session on its device-resident factors.
@@ -1355,13 +1576,27 @@ class FactorPlan:
         built at the tier's dtype directly, and its solves default to the
         tier's programs; 'auto' opens on the cheapest rung. None is the
         native path. `sid` is the session's stable id (the engine places
-        and names sessions by it)."""
+        and names sessions by it). A mesh plan shards A over its mesh and
+        opens an unpinned session; `device=` inside the mesh is a no-op,
+        outside it raises `MeshPlanUnsupported`, and `precision=` raises
+        (mesh plans serve their native precision only)."""
         tier0 = check_precision_request(precision)
+        if tier0 is not None and self.mesh is not None:
+            raise ValueError("mesh-sharded plans serve their native precision only: "
+                             "precision= does not compose with mesh plans")
         if tier0 == "auto":
             tier0 = PRECISION_TIERS[0]
-        dev = resolve_device(device)
-        A = _as_tensor(A, dev)
-        self._check_A(A)
+        if self.mesh is not None:
+            # the state spans the mesh: the session stays unpinned
+            self._check_mesh_pin(device, "factor")
+            dev = None
+            A = _as_tensor(A, None)
+            self._check_A(A)
+            (A,) = _shard_batch((A,), self.mesh)
+        else:
+            dev = resolve_device(device)
+            A = _as_tensor(A, dev)
+            self._check_A(A)
         with profiler.region("serve.factor"):
             factors = (self._factor_once(A) if tier0 is None
                        else self._tier_factor_once(tier0, A))
@@ -1390,6 +1625,11 @@ class SolveSession:
         self.device = device
         # the stable session id (engine placement, checkpoint records)
         self.sid = sid
+        # the key of the engine lane this session is pinned to, and the
+        # stream of the lane that last dispatched on it
+        # (`engine.ServeEngine._lane_for`, `engine.DeviceLane._solve_session`)
+        self._lane_key = None
+        self._served_by = None
         # every mutation of the resident state, and every read of it,
         # happens under this re-entrant lock (the escalation ladder
         # re-enters it)
@@ -1534,9 +1774,17 @@ class SolveSession:
         session lock: a concurrent solve never sees half-moved state. A
         ganged session leaves its gang (the stack stays on the old device;
         the session joins its new lane's gang at its next stacked
-        dispatch). Returns self."""
+        dispatch). A mesh session stays where it is: a device inside its
+        mesh is a no-op, one outside it raises `MeshPlanUnsupported`.
+        Returns self."""
         if device is None:
             return self
+        if self.plan.mesh is not None:
+            if self.plan.in_mesh(device):
+                return self
+            raise resilience.MeshPlanUnsupported(
+                "a mesh-sharded session's state is batch-sharded across the whole "
+                "mesh: it cannot move off its mesh to one device", surface="to_device")
         dev = resolve_device(device)
         with self._lock:
             self._ensure_resident()
@@ -1580,7 +1828,7 @@ class SolveSession:
             if b.dim() == 2:
                 if tuple(b.shape) != want:
                     raise ValueError(f"rhs {tuple(b.shape)}, session needs {want}")
-                return b[:, :, None], True
+                return b[..., None], True
             if b.dim() != 3 or tuple(b.shape[:2]) != want:
                 raise ValueError(f"rhs {tuple(b.shape)}, session needs {want} "
                                  "(+ rhs axis)")
@@ -1594,11 +1842,16 @@ class SolveSession:
         return b, False
 
     def _rhs_bucketed(self, b):
+        """(b2, bucket, width, squeeze): the rhs with a trailing width
+        axis, zero-padded to its power-of-two bucket (and sharded over a
+        mesh plan's mesh; the engine hands in one sharded already)."""
         b2, squeeze = self._rhs(b)
         nrhs = b2.shape[-1]
         nb = rank_bucket(nrhs)
         if nb != nrhs:
-            b2 = torch.nn.functional.pad(b2, (0, nb - nrhs))
+            b2 = _pad_cols(b2, nb - nrhs)
+        if self.plan.mesh is not None:
+            (b2,) = _shard_batch((b2,), self.plan.mesh)
         return b2, nb, nrhs, squeeze
 
     @staticmethod
@@ -1722,7 +1975,9 @@ class SolveSession:
         if squeeze:
             x2 = x2[..., None]
         if nb != nrhs:
-            x2 = torch.nn.functional.pad(x2, (0, nb - nrhs))
+            x2 = _pad_cols(x2, nb - nrhs)
+        if plan.mesh is not None:
+            (x2,) = _shard_batch((x2,), plan.mesh)
         with self._lock:
             self._ensure_resident()
             if self._upd is not None:
@@ -1790,13 +2045,17 @@ class SolveSession:
         U = _as_tensor(U, self.device).to(dtype)
         V = _as_tensor(V, self.device).to(dtype)
         self._check_uv(U, V)
+        if plan.mesh is not None:
+            U, V = _shard_batch((U, V), plan.mesh)
         with self._lock, profiler.region("serve.update"):
             self._ensure_resident()
             if self._upd is not None:
                 if not replace:
                     k0 = self._upd["k"]
-                    U = torch.cat([self._upd["Up"][..., :k0], U], -1)
-                    V = torch.cat([self._upd["Vp"][..., :k0], V], -1)
+                    U = mesh_map(lambda a, c: torch.cat([a[..., :k0], c], -1), None,
+                                 self._upd["Up"], U)
+                    V = mesh_map(lambda a, c: torch.cat([a[..., :k0], c], -1), None,
+                                 self._upd["Vp"], V)
                 # the superseded state is dead before the new one is built
                 self._upd = None
             k = U.shape[-1]
@@ -1805,8 +2064,8 @@ class SolveSession:
                 return self
             kb = rank_bucket(k)
             if kb != k:
-                U = torch.nn.functional.pad(U, (0, kb - k))
-                V = torch.nn.functional.pad(V, (0, kb - k))
+                U = _pad_cols(U, kb - k)
+                V = _pad_cols(V, kb - k)
             Y, Cinv, cond1 = plan._update_fn(kb)(self._factors, U, V)
             # the deliberate host read: the policy's decision is host control
             cond = float(cond1.max())
@@ -1834,8 +2093,8 @@ class SolveSession:
             k = Up.shape[-1]
             kb = rank_bucket(k)
             if kb != k:  # zero columns leave A0 + U V^H unchanged
-                Up = torch.nn.functional.pad(Up, (0, kb - k))
-                Vp = torch.nn.functional.pad(Vp, (0, kb - k))
+                Up = _pad_cols(Up, kb - k)
+                Vp = _pad_cols(Vp, kb - k)
             # the superseded state is dead once the new base exists: drop it
             # first, and update an owned base in place, so the peak holds one
             # base and one factor set

@@ -60,12 +60,19 @@ resident, a revive crash leaves it fully spilled). Every outcome lands in
 
 The byte gauges are accounting (each session's `nbytes`), not the caching
 allocator: memory a spill releases returns to torch's cache, and nothing
-here calls `torch.cuda.empty_cache`. Mesh plans (the serving mesh lane)
-are not ported: their branches raise NotImplementedError.
+here calls `torch.cuda.empty_cache`. Mesh sessions tier like any other:
+a spill gathers each sharded leaf's shards into one host tensor of the
+whole batch (the JAX package's record), a revival re-scatters it onto the
+plan's mesh (`batched.shard_host_tree`), bitwise both ways; they fault in
+one at a time (a stacked revival's extra leading axis would break the
+batch-axis-leading shard rule), and the per-device caps count a mesh
+session against its shards' card (the sum of its shards when they share
+one; a mesh over several cards is a domain of its own).
 """
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import itertools
 import json
@@ -83,6 +90,7 @@ import torch
 
 from conflux_tpu_torch import io as cfio
 from conflux_tpu_torch import profiler, resilience
+from conflux_tpu_torch.batched import Sharded, _shard_batch, shard_host_tree
 from conflux_tpu_torch.device import (hand_to_default, order_after_default, resolve_device,
                                        same_device)
 from conflux_tpu_torch.resilience import InjectedFault, RestoreCorrupt, SessionSpilled
@@ -438,6 +446,33 @@ def _copy_stream(dev: torch.device):
         return s
 
 
+def _expand_sharded(trees: list) -> tuple[list, dict]:
+    """Split each mesh-sharded leaf of a wave into one leaf per shard
+    (keys (name, shard)), so :func:`_device_get` copies every shard from
+    its own card; returns the expanded trees and {(tree, name): shard
+    count} for :func:`_join_sharded`."""
+    out, sharded = [], {}
+    for i, tree in enumerate(trees):
+        t2 = {}
+        for k, v in tree.items():
+            if isinstance(v, Sharded):
+                sharded[(i, k)] = len(v.shards)
+                for j, x in enumerate(v.shards):
+                    t2[(k, j)] = x
+            else:
+                t2[k] = v
+        out.append(t2)
+    return out, sharded
+
+
+def _join_sharded(host: list, sharded: dict) -> list:
+    """Inverse of :func:`_expand_sharded` on the host copies: each
+    sharded leaf's shards concatenated along the batch axis."""
+    for (i, k), n in sharded.items():
+        host[i][k] = torch.cat([host[i].pop((k, j)) for j in range(n)])
+    return host
+
+
 def _device_get(trees: list, engine=None) -> list:
     """Copy a wave's leaf dicts to the host. Card leaves land in pinned
     tensors through non-blocking copies on a copy stream that first waits
@@ -447,7 +482,9 @@ def _device_get(trees: list, engine=None) -> list:
     torch's sync debug mode counts). The wave's device tensors stay referenced by the
     callers' transit records until this returns. CPU leaves are cloned
     (the host record must not alias a tensor the caller may keep). Every
-    host leaf keeps its device leaf's dense layout (`_dense_strides`)."""
+    host leaf keeps its device leaf's dense layout (`_dense_strides`). A
+    mesh-sharded leaf comes back as one host tensor of the whole batch."""
+    trees, sharded = _expand_sharded(trees)
     out = [dict() for _ in trees]
     by_dev: dict = {}
     for i, tree in enumerate(trees):
@@ -470,7 +507,7 @@ def _device_get(trees: list, engine=None) -> list:
                 h.copy_(v, non_blocking=True)
                 out[i][k] = h
         s.synchronize()
-    return out
+    return _join_sharded(out, sharded)
 
 
 # --------------------------------------------------------------------------- #
@@ -481,7 +518,13 @@ def _device_get(trees: list, engine=None) -> list:
 def _session_devkey(s):
     """Hashable identity of a session's placement (None: no device), the
     per-device cap accounting key: (type, index), index 0 for a bare
-    'cuda'."""
+    'cuda'. A mesh session counts against its shards' device when they
+    share one (the sum of its shards); a mesh over several devices is a
+    domain of its own, ('mesh', its mesh key)."""
+    mesh = getattr(getattr(s, "plan", None), "mesh", None)
+    if mesh is not None:
+        keys = {(d.type, d.index or 0) for d in mesh.devices}
+        return keys.pop() if len(keys) == 1 else ("mesh", s.plan.key.mesh_key)
     d = getattr(s, "device", None)
     return None if d is None else (d.type, d.index or 0)
 
@@ -510,21 +553,24 @@ def _host_nbytes(leaves: dict) -> int:
     return sum(int(t.numel() * t.element_size()) for t in leaves.values())
 
 
-def _mesh_refused(session) -> None:
-    if session.plan.key.mesh_key is not None:
-        from conflux_tpu_torch.serve import _MESH_SLICE
-
-        raise NotImplementedError(f"tiering {_MESH_SLICE} is not ported yet")
-
-
 def _leaves_to_device(session, leaves: dict) -> dict:
-    """Host leaves -> tensors on the session's device. On the card each
-    copy runs non-blocking on the default stream (the current stream, when
-    it is an engine lane's, then waits on it); torch's pinned host
+    """Host leaves -> tensors on the session's device, or re-scattered
+    onto a mesh session's mesh (`batched.shard_host_tree`). On the card
+    each copy runs non-blocking on the default stream (the current stream,
+    when it is an engine lane's, then waits on it); torch's pinned host
     allocator keeps a pinned leaf's block from reuse until its copy has
     passed, so the caller may drop the host record at once. A copy moves
-    bytes, never computes: bitwise. Mesh plans raise (not ported)."""
-    _mesh_refused(session)
+    bytes, never computes: bitwise."""
+    mesh = session.plan.mesh
+    if mesh is not None:
+        devs = [d for d in mesh.devices if d.type == "cuda"]
+        with contextlib.ExitStack() as st:
+            for d in {(d.index or 0): d for d in devs}.values():
+                st.enter_context(torch.cuda.stream(torch.cuda.default_stream(d)))
+            out = shard_host_tree(leaves, mesh)
+        for d in devs:
+            order_after_default(d)
+        return out
     dev = resolve_device(session.device)
     if dev.type != "cuda":
         return dict(leaves)
@@ -1465,8 +1511,14 @@ class ResidentSet:
             session._factors = fresh._factors
             session._A0 = fresh._A0
             session._probe = fresh._probe
+        elif plan.mesh is not None:
+            (Ad,) = _shard_batch((A1,), plan.mesh)
+            with profiler.region("serve.refactor"):
+                session._factors = plan._factor_once(Ad)
+            hand_to_default((session._factors, Ad))
+            session._A0 = Ad
+            session._probe = None
         else:
-            _mesh_refused(session)
             Ad = A1.to(resolve_device(target))
             with profiler.region("serve.refactor"):
                 session._factors = (plan._factor_once(Ad) if tier is None
@@ -1536,10 +1588,12 @@ class ResidentSet:
                 if rec is None:
                     continue
                 if (rec.tier != "host" or rec.meta["upd"] is not None
+                        or s.plan.mesh is not None
                         or not all(t.is_contiguous() for t in rec.leaves.values())):
                     # drifted, disk-tier and non-row-major leaves (a
-                    # stacked copy would not keep their layout) revive
-                    # one by one
+                    # stacked copy would not keep their layout) and mesh
+                    # sessions (a stacked leading axis would break the
+                    # batch-axis-leading shard rule) revive one by one
                     rest.append(s)
                     continue
                 key = (id(s.plan), rec.meta["n_factors"], rec.meta["has_probe"],
@@ -1574,7 +1628,6 @@ class ResidentSet:
                     try:
                         with profiler.region("serve.revive"):
                             self._make_room(0, 0)
-                            _mesh_refused(chunk[0][0])
                             dev = resolve_device(chunk[0][0].device)
                             stacked = stack_host_trees([rec.leaves for _s, rec in chunk], dev)
                             order_after_default(dev)
@@ -1768,13 +1821,16 @@ def load_fleet(path: str, *, residency: ResidentSet | None = None, names=None,
 
     Sessions are placed on `device` (the card by default: without one this
     raises, it never carries on on the CPU; pass ``device="cpu"`` for the
-    plain versions). With `residency=None` every session is restored
-    resident (eager copies); with a ResidentSet they register host-tier and
-    fault in on first touch (the scalable warm restart: restore costs file
-    reads, traffic pulls in the working set). Returns the sessions in
-    checkpoint order. A corrupt record raises :class:`RestoreCorrupt`.
-    `names` restores a subset (checkpoint order kept); unknown names raise
-    KeyError."""
+    plain versions). A mesh session comes back on its plan's mesh: the
+    record's "platform" names cpu or cuda devices, and a record without one
+    (the JAX package's) names devices of `device`'s platform; ids this
+    process lacks raise `MeshPlanUnsupported`. With `residency=None` every
+    session is restored resident (eager copies); with a ResidentSet they
+    register host-tier and fault in on first touch (the scalable warm
+    restart: restore costs file reads, traffic pulls in the working set).
+    Returns the sessions in checkpoint order. A corrupt record raises
+    :class:`RestoreCorrupt`. `names` restores a subset (checkpoint order
+    kept); unknown names raise KeyError."""
     from conflux_tpu_torch.serve import SolveSession, plan_from_spec
     from conflux_tpu_torch.update import DriftPolicy
 
@@ -1790,10 +1846,13 @@ def load_fleet(path: str, *, residency: ResidentSet | None = None, names=None,
         entries = [e for e in entries if e["name"] in want]
     sessions = []
     for e in entries:
-        plan = plan_from_spec(e["plan"])
+        plan = plan_from_spec(e["plan"], device=dev)
         leaves, meta = _read_record(os.path.join(path, e["dir"]))
         pol = DriftPolicy(**meta["policy"]) if meta.get("policy") is not None else None
-        s = SolveSession(plan, None, None, None, pol, device=dev, sid=meta.get("sid"))
+        # a mesh session is unpinned: its revival re-scatters onto its mesh
+        s = SolveSession(plan, None, None, None, pol,
+                         device=None if plan.mesh is not None else dev,
+                         sid=meta.get("sid"))
         rec = _SpillRecord("host", leaves, meta, nbytes=_host_nbytes(leaves))
         with s._lock:
             c = meta["counters"]

@@ -147,8 +147,11 @@ def test_registry_and_batched_entries_route_to_the_kernel_function():
     bL = tbatched.cholesky_factor_batched(A.bfloat16(), 16)
     assert bL.dtype == torch.bfloat16
     assert float(torch.linalg.norm(bL.float() - kL) / torch.linalg.norm(kL)) < 2 ** -6
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="batch_mesh"):
         tbatched.cholesky_factor_batched(A, 16, mesh=object())
+    # a real mesh runs the same factor per shard (B=3 pads to 4 over 2)
+    mL = tbatched.cholesky_factor_batched(A, 16, mesh=tbatched.batch_mesh(["cpu", "cpu"]))
+    np.testing.assert_allclose(mL.numpy(), kL.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_cholesky_solve_batched_matches_jax():

@@ -135,8 +135,14 @@ def test_registry_and_batched_entry_route_to_the_kernel_function():
     finally:
         tblas.set_panel_algo("kernel")
     assert bLU.dtype == torch.bfloat16 and tuple(bperm.shape) == (3, 64)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="batch_mesh"):
         tbatched.lu_factor_batched(A, 16, mesh=object())
+    # a real mesh runs the same factor per shard (B=3 pads to 4 over 2)
+    mLU, mperm = tbatched.lu_factor_batched(
+        A, 16, mesh=tbatched.batch_mesh(["cpu", "cpu"]))
+    kLU, kperm = tbatched.lu_factor_batched(A, 16)
+    assert torch.equal(mperm, kperm)
+    np.testing.assert_allclose(mLU.numpy(), kLU.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_plain_version_is_what_the_cpu_runs():

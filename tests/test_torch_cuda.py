@@ -1480,3 +1480,123 @@ def test_drifted_engine_answers_bitwise_alone_and_coalesced_on_the_card(cuda):
             assert eng.stats()["batches"] < burst
         for x, ref in zip(got, alone):
             np.testing.assert_array_equal(x, ref)
+
+
+# --------------------------------------------------------------------------- #
+# the mesh lane and several lanes on one card
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("kind", ["lu", "chol"])
+def test_mesh_plan_over_two_shards_of_one_card_bitwise_the_one_device_plan(cuda, kind):
+    """A (8, 256, 256) mesh plan over two shards of cuda:0: its factor
+    launches K4 (K5) once per shard, each solve round K3 once per shard,
+    and factors, plain and checked solves are bitwise the one-device
+    plan's of the same batch (K3, K4 and K5 run one cluster per slot)."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.batched import batch_mesh, gather_batch
+
+    serve.clear_plans()
+    B, n = 8, 256
+    fac = "batched_lu" if kind == "lu" else "batched_chol"
+    A = _rand((B, n, n), 71, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+    if kind == "chol":
+        A = A @ A.mT + torch.eye(n, device=cuda)
+    mp = serve.FactorPlan.create((B, n, n), torch.float32, v=128, kind=kind,
+                                 mesh=batch_mesh([cuda, cuda]))
+    op = serve.FactorPlan.create((B, n, n), torch.float32, v=128, kind=kind)
+    hk.reset_launches()
+    s = mp.factor(A)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES[fac] == 2 and s.device is None
+    o = op.factor(A)
+    for f, g in zip(s.factors, o.factors):
+        assert torch.equal(gather_batch(f), g)
+    b = _rand((B, n, 3), 72, cuda)
+    hk.reset_launches()
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["btrsm"] == 2
+    assert torch.equal(x, o.solve(b))
+    (xs, vs), (xo, vo) = s.solve_checked(b), o.solve_checked(b)
+    assert torch.equal(xs, xo) and torch.equal(vs, vo) and float(vs[0]) == 1.0
+
+
+def test_two_lane_engine_bitwise_the_one_lane_engine(cuda):
+    """Two lanes on one card (two streams): the answers of a mixed trace
+    and of pooled cold starts are bitwise the one-lane engine's, and both
+    lanes serve."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.engine import ServeEngine
+
+    serve.clear_plans()
+    B, n = 8, 256
+    plan = serve.FactorPlan.create((B, n, n), torch.float32, v=128)
+    rng = np.random.default_rng(73)
+    mats = [(rng.standard_normal((B, n, n)) / np.sqrt(n) + 2 * np.eye(n)).astype(np.float32)
+            for _ in range(6)]
+    trace = [(i % 4, rng.standard_normal((B, n, 1 + i % 3)).astype(np.float32))
+             for i in range(48)]
+    answers, opened = {}, {}
+    for devices in ([cuda], [cuda, cuda]):
+        with ServeEngine(max_batch_delay=0.002, devices=devices) as eng:
+            sessions = [plan.factor(mats[i], sid=f"lane-{i}") for i in range(4)]
+            eng.prewarm(sessions[0], widths=(1, 2, 4, 8, 16, 32), factor_batches=(1, 2))
+            futs = [eng.submit(sessions[i], b) for i, b in trace]
+            answers[len(devices)] = [f.result(300) for f in futs]
+            cold = [eng.submit_factor(plan, m) for m in mats[4:]]
+            opened[len(devices)] = [f.result(300).solve(trace[0][1]).cpu() for f in cold]
+            if len(devices) == 2:
+                assert all(r["batches"] >= 1 for r in eng.stats()["lanes"])
+    for a, b in zip(answers[1], answers[2]):
+        assert np.array_equal(a, b)
+    for a, b in zip(opened[1], opened[2]):
+        assert torch.equal(a, b)
+
+
+def test_refactor_under_traffic_on_two_lanes_holds_to_the_drifted_matrix(cuda):
+    """The stream race class of the one-lane engine, on two lanes of one
+    card: callers drift and refactor two refine sessions, each pinned to
+    its own lane, on the default stream while the lanes serve them. Every
+    answer solves one of the matrices its session held, to 1e-4, and no
+    other of them."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.resilience import HealthPolicy
+
+    serve.clear_plans()
+    n, rounds, per = 256, 4, 12
+    plan = serve.FactorPlan.create((n, n), torch.float32, v=128, refine=1)
+    rng = np.random.default_rng(74)
+    with ServeEngine(max_batch_delay=0.001, health=HealthPolicy(),
+                     devices=[cuda, cuda]) as eng:
+        sids = []
+        i = 0
+        while len(sids) < 2:
+            if eng.placement_lane(f"r{i}").index == len(sids):
+                sids.append(f"r{i}")
+            i += 1
+        ss, versions = [], []
+        for k, sid in enumerate(sids):
+            A = _rand((n, n), 75 + k, cuda) / np.sqrt(n) + 2 * torch.eye(n, device=cuda)
+            ss.append(plan.factor(A, sid=sid))
+            versions.append([A.double().cpu()])
+        assert [eng._lane_for(s).index for s in ss] == [0, 1]
+        eng.prewarm(ss[0], widths=(1, 2, 4, 8, 16, 32))
+        bs = [rng.standard_normal((n, 1 + j % 3)).astype(np.float32)
+              for j in range(rounds * per)]
+        futs = []
+        for r in range(rounds):
+            for j in range(r * per, (r + 1) * per):
+                futs.append((j % 2, bs[j], eng.submit(ss[j % 2], bs[j])))
+            for k, s in enumerate(ss):
+                U = torch.from_numpy(0.03 * rng.standard_normal((n, 4))).float().to(cuda)
+                W = torch.from_numpy(0.03 * rng.standard_normal((n, 4))).float().to(cuda)
+                s.update(U, W)
+                s.refactor()
+                versions[k].append(versions[k][-1] + (U @ W.mT).double().cpu())
+        xs = [(k, b, f.result(300)) for k, b, f in futs]
+    for k, b, x in xs:
+        bb, xx = torch.from_numpy(b).double(), torch.from_numpy(x).double()
+        res = sorted(float((Av @ xx - bb).norm() / bb.norm()) for Av in versions[k])
+        assert res[0] < 1e-4 and res[1] > 1e-3, res[:2]

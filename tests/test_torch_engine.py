@@ -386,10 +386,15 @@ def test_engine_knobs_and_unported_keywords():
     rs, ctl = ResidentSet(), AdaptiveController(interval=60.0)
     with ServeEngine(device=CPU, residency=rs, controller=ctl) as eng:
         assert rs.engine is eng and "tier" in eng.stats() and "controller" in eng.stats()
-    for kw, what in (({"lanes": 2}, "mesh lane"), ({"lanes": "auto"}, "mesh lane"),
-                     ({"devices": ["cpu", "cpu"]}, "mesh lane")):
-        with pytest.raises(NotImplementedError, match=what):
-            ServeEngine(device=CPU, **kw)
+    # several lanes on the CPU: lanes=n repeats the CPU, as devices= naming
+    # it twice does; 'auto' is one lane per card and raises without one
+    for kw in ({"lanes": 2}, {"devices": ["cpu", "cpu"]}):
+        with ServeEngine(device=CPU, **kw) as eng:
+            assert eng.devices == (torch.device("cpu"),) * 2
+            assert [ln.key for ln in eng.lanes] == [("cpu", 0), ("cpu", 1)]
+    if torch.cuda.device_count() == 0:
+        with pytest.raises(ValueError, match="device_count"):
+            ServeEngine(device=CPU, lanes="auto")
     with ServeEngine(devices=["cpu"]) as eng:
         assert eng.devices == (torch.device("cpu"),)
     if not torch.cuda.is_available():

@@ -1,10 +1,12 @@
 """The port's public names against the JAX package's.
 
 `conflux_tpu_torch.__all__` must cover `conflux_tpu.__all__`, less the
-names whose modules are not ported yet (the serving mesh lane and the
-persistent cache). Each slice that ports one of them takes it off
-`NOT_PORTED`. Both lists are read with `ast`, so neither
-package's heavy modules are imported for the comparison.
+names whose modules are not ported yet, `NOT_PORTED`. Every module is
+ported now (the last two names, `batch_mesh` and
+`enable_persistent_cache`, came with the serving mesh lane and the
+persistent cache), so the set is empty and the port's names cover the
+JAX package's. Both lists are read with `ast`, so neither package's
+heavy modules are imported for the comparison.
 """
 
 import ast
@@ -15,10 +17,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-NOT_PORTED = frozenset({
-    # the serving mesh lane and the persistent cache
-    "batch_mesh", "enable_persistent_cache",
-})
+NOT_PORTED = frozenset()
 
 
 def _all_of(pkg: str) -> list:

@@ -267,9 +267,17 @@ def test_factor_deadline_lazy_eviction():
 
 
 def test_factor_lane_rejects_bad_inputs():
+    from conflux_tpu_torch.batched import batch_mesh
+
     plan = _plan()
+    mplan = serve.FactorPlan.create((8, N, N), torch.float32, v=V,
+                                    mesh=batch_mesh([CPU] * 2))
     session = plan.factor(_systems(1, seed=67)[0], device=CPU)
     with ServeEngine(max_batch_delay=0.0, device=CPU) as eng:
+        # mesh plans are admitted: the rejection left on the mesh path is
+        # a shape mismatch
+        with pytest.raises(ValueError, match="shape"):
+            eng.submit_factor(mplan, np.zeros((N, N), np.float32))
         with pytest.raises(ValueError, match="shape"):
             eng.submit_factor(plan, np.zeros((N, N + 1), np.float32))
         with pytest.raises(TypeError, match="FactorPlan"):

@@ -55,24 +55,49 @@ def test_auto_resolves_to_blocked_and_explicit_substitutions_stay():
     {"kind": "qr", "mesh": object()}, {"mesh": object()},
     {"kind": "qr", "precision": "default"}, {"precision": "default"}])
 def test_unported_plans_raise(kw):
+    """Matmul precision other than 'highest' is still not ported. Mesh
+    plans are: a `mesh=` that is not a `batch_mesh` is a type error, and a
+    real mesh keeps the JAX package's refusals (QR plans, single-system
+    plans, a batch the shard count does not divide)."""
     serve.clear_plans()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    if "mesh" not in kw:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            serve.FactorPlan.create((N, N), torch.float32, v=V, **kw)
+        return
+    from conflux_tpu_torch.batched import batch_mesh
+
+    with pytest.raises(TypeError, match="batch_mesh"):
         serve.FactorPlan.create((N, N), torch.float32, v=V, **kw)
+    real = {**kw, "mesh": batch_mesh(["cpu", "cpu"])}
+    qr = kw.get("kind") == "qr"
+    with pytest.raises(ValueError, match="unsharded" if qr else "batched"):
+        serve.FactorPlan.create((N, N), torch.float32, v=V, **real)
+    if not qr:
+        with pytest.raises(ValueError, match="multiple of the mesh size"):
+            serve.FactorPlan.create((3, N, N), torch.float32, v=V, **real)
+        plan = serve.FactorPlan.create((4, N, N), torch.float32, v=V, **real)
+        assert plan.mesh.size == 2 and plan.key.mesh_key == (
+            (("cpu", 0), ("cpu", 0)), ("b",))
 
 
 def test_unported_session_features_raise():
-    """What the port still leaves out raises, naming it: a plan record
-    naming a mesh, or a matmul precision other than 'highest'. The
-    precision ladder, the Woodbury update, the codec, the bucket lifecycle
-    and device moves are ported (`test_torch_precision.py`,
-    `test_torch_update.py`, `test_torch_stacked.py`)."""
+    """What the port still leaves out raises, naming it: a matmul
+    precision other than 'highest'. The precision ladder, the Woodbury
+    update, the codec, the bucket lifecycle and device moves are ported
+    (`test_torch_precision.py`, `test_torch_update.py`,
+    `test_torch_stacked.py`), and so are mesh plans: a plan record naming
+    a mesh round-trips to the same plan."""
+    from conflux_tpu_torch.batched import batch_mesh
+
     _jp, tp = _plans()
     d = tp.spec()
-    for bad in ({**d, "mesh": {"device_ids": [0], "axis_names": ["b"],
-                               "device_shape": [1]}},
-                {**d, "precision": ["precision", "DEFAULT"]}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve.plan_from_spec(bad)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.plan_from_spec({**d, "precision": ["precision", "DEFAULT"]})
+    mp = serve.FactorPlan.create((4, N, N), torch.float32, v=V, mesh=batch_mesh(["cpu"]))
+    md = mp.spec()
+    assert md["mesh"] == {"device_ids": [0], "axis_names": ["b"], "device_shape": [1],
+                          "platform": "cpu"}
+    assert serve.plan_from_spec(md) is mp
 
 
 @pytest.mark.parametrize("substitution", ["blocked", "trsm", "inv"])

@@ -300,8 +300,17 @@ def test_plan_codec_shims_and_refusals():
     assert lu.key.kind == "lu" and lu.key.spd is False and tp.key.spd is True
     # the JAX package's tagged enum pair names the port's 'highest'
     assert serve.plan_from_spec({**d, "precision": ["precision", "HIGHEST"]}) is tp
-    with pytest.raises(NotImplementedError, match="mesh"):
-        serve.plan_from_spec({**d, "mesh": {"device_ids": [0]}})
+    # a mesh record that names no platform (the JAX package's) resolves
+    # on the caller's device; ids this process lacks are the residue
+    from conflux_tpu_torch.resilience import MeshPlanUnsupported
+
+    with pytest.raises(ValueError, match="mesh"):
+        serve.plan_from_spec({**d, "mesh": {"device_ids": [0]}}, device="cpu")
+    bd = serve.FactorPlan.create((4, N, N), torch.float32, v=V, kind="chol").spec()
+    m1 = serve.plan_from_spec({**bd, "mesh": {"device_ids": [0]}}, device="cpu")
+    assert m1.mesh.devices == (torch.device("cpu", 0),) and m1.key.kind == "chol"
+    with pytest.raises(MeshPlanUnsupported, match="device ids"):
+        serve.plan_from_spec({**bd, "mesh": {"device_ids": [0, 1]}}, device="cpu")
     with pytest.raises(ValueError, match="kind"):
         serve.plan_from_spec({**d, "kind": "svd"})
     with pytest.raises(ValueError, match="malformed"):

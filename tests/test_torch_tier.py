@@ -519,25 +519,36 @@ def test_engine_checkpoint_drain_barrier_and_lazy_restore(tmp_path):
 
 
 def test_mesh_plan_fleet_record_is_refused_naming_the_mesh_lane(tmp_path):
-    """The JAX package's mesh plans ride its fleet codec; the port has no
-    mesh lane, so restoring such a record (and tiering a mesh session)
-    raises NotImplementedError naming it."""
+    """The JAX package's mesh plans ride its fleet codec, and so do the
+    port's. Its 8-device CPU mesh names device ids 0..7; torch has one CPU
+    device, so restoring that record on the CPU raises MeshPlanUnsupported
+    naming the ids it lacks (the mesh lane's cross-host residue), while a
+    port mesh session's leaves re-scatter onto its own mesh, bitwise."""
     from conflux_tpu.batched import batch_mesh
+
+    from conflux_tpu_torch.batched import Sharded
+    from conflux_tpu_torch.batched import batch_mesh as tbatch_mesh
+    from conflux_tpu_torch.resilience import MeshPlanUnsupported
 
     jserve.clear_plans()
     jplan = jserve.FactorPlan.create((8, N, N), jnp.float32, v=V, mesh=batch_mesh())
     rng = np.random.default_rng(17)
-    js = jplan.factor(jnp.asarray(np.stack([_mk(rng) for _ in range(8)])))
+    A = np.stack([_mk(rng) for _ in range(8)])
+    js = jplan.factor(jnp.asarray(A))
     jtier.save_fleet(str(tmp_path / "ck"), [js], names=["m"])
-    with pytest.raises(NotImplementedError, match="mesh lane"):
+    with pytest.raises(MeshPlanUnsupported, match="device ids") as ei:
         tier.load_fleet(str(tmp_path / "ck"), device=CPU)
+    assert ei.value.surface == "plan_codec"
 
-    class _MeshSession:
-        plan = type("P", (), {"key": type("K", (), {"mesh_key": ("m",)})()})()
-        device = torch.device("cpu")
-
-    with pytest.raises(NotImplementedError, match="mesh lane"):
-        tier._leaves_to_device(_MeshSession(), {})
+    serve.clear_plans()
+    tplan = serve.FactorPlan.create((8, N, N), torch.float32, v=V,
+                                    mesh=tbatch_mesh(["cpu"] * 2))
+    s = tplan.factor(A, device=CPU)
+    host = {k: v.clone() for k, v in tier._device_get([{"A0": s._A0}])[0].items()}
+    assert torch.equal(host["A0"], torch.from_numpy(A))
+    back = tier._leaves_to_device(s, host)
+    assert isinstance(back["A0"], Sharded) and len(back["A0"].shards) == 2
+    assert all(torch.equal(a, b) for a, b in zip(back["A0"].shards, s._A0.shards))
 
 
 # --------------------------------------------------------------------- #
