@@ -263,6 +263,19 @@ Phases, each of which must pass or the script exits non-zero:
      batch and K4 once per factor batch (held), per-lane telemetry; a kill
      on lane 0's dispatcher fails only its request and the lane revives;
      solves/s and sessions/s for two lanes and one.
+ 39. the per-phase device tables of the grid routes (`profiler.trace`,
+     `phase_table`, as the miniapps' --profile prints them): the LU grid
+     program at N=32768, v=1024, f32, 1x1x1, CONFCHOX at N=32768 and the
+     grid QR at N=16384 (a depth cut), one untraced and one traced run
+     each: every phase of the JAX package's program in the table, every
+     device event counted once, every K1 launch under step6_dgemm /
+     computeA11 / qr_trailing_update and every K2 launch under
+     step1_pivoting as the launch counts say, the traced output bitwise
+     the untraced;
+ 40. `scripts/torch_soak.py --serve --lockcheck`, then `--tier
+     --lockcheck`, 30 s each on the card: 0 failed trials, 0 lock-order
+     cycles, 0 engine locks held across a serve.* dispatch region, K3 and
+     K4 launched under both.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round (phase 29 reads the counts
@@ -350,6 +363,7 @@ def graph_ms(fn, iters: int) -> float:
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    # conflint: disable=CFX-RECOMPILE a timing helper: one capture per measurement, by design
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for _ in range(iters):
@@ -4545,6 +4559,192 @@ def phase_lanes() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------- #
+# 39-40: the per-phase device tables of the grid routes, and lockcheck soaks
+# --------------------------------------------------------------------------- #
+
+# the named-scope phases of the JAX package's grid programs
+# (tests/test_torch_profiler_trace.py holds the port's names to them)
+LU_PHASES = {"step0_reduce", "step1_pivoting", "step2_pivotrows", "step4_dtrsm",
+             "step5_dtrsm", "step6_dgemm", "step7_writes"}
+CHOL_PHASES = {"reduceA11", "choleskyA00", "updateA10", "scatterA11", "computeA11"}
+QR_PHASES = {"qr_panel_reduce", "qr_reproject", "qr_panel_tsqr", "qr_trailing_c",
+             "qr_trailing_update", "qr_writes"}
+
+
+def _traced_table(tag: str, prog, shard, mesh, phases: set, phase_re: str,
+                  k1_phase: str, k2_phase: str | None) -> tuple[dict, dict]:
+    """One untraced run of `prog` and one traced by `profiler.trace`; prints
+    the traced run's phase table and checks it: every phase of `phases`
+    present, every device event counted once, every K1 launch under
+    `k1_phase` (and K2 under `k2_phase`) and as many as the launch counts
+    say, the traced output bitwise the untraced. Returns (table, the
+    traced run's launches)."""
+    from conflux_tpu_torch import profiler
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    want = prog(shard, mesh)
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="phases39-") as d:
+        t0 = time.perf_counter()
+        with profiler.trace(d):
+            got = prog(shard, mesh)
+        traced_s = time.perf_counter() - t0
+        counts = dict(hk.LAUNCHES)
+        print(f"[phases 39] {tag} ({CARD}): traced run {traced_s:.2f} s (trace included), "
+              f"launches {counts}", flush=True)
+        table = profiler.phase_table(d, phase_re=phase_re)
+        durs = profiler._trace_durations(d)
+        launched = profiler.launch_phases(d, phase_re)
+    same = all(torch.equal(a, b) for a, b in zip(want, got))
+    events = sum(n for _name, _ms, n in durs.values())
+    counted = sum(n for _ms, n in table.values())
+    ms_all = sum(ms for _name, ms, _n in durs.values())
+    ms_table = sum(ms for ms, _n in table.values())
+    k1 = [p for p, name, _ms, _n in launched.values()
+          if "gemm_tma_kernel" in name or "gemm_simt_kernel" in name]
+    k2 = [p for p, name, _ms, _n in launched.values() if "lu_block_kernel" in name]
+    missing = phases - set(table)
+    print(f"[phases 39] {tag}: device events {events}, counted {counted} ({ms_table:.3f} of "
+          f"{ms_all:.3f} ms); K1 {len(k1)} launches under {sorted(set(k1))} (counts "
+          f"{counts['gemm']}), K2 {len(k2)} under {sorted(set(k2))} (counts "
+          f"{counts['lu_block']}); phases missing {sorted(missing)}; traced output bitwise "
+          f"the untraced {same}", flush=True)
+    check(not missing, f"phases 39 {tag}: phases missing {sorted(missing)}")
+    check(counted == events and abs(ms_table - ms_all) <= 1e-6 * max(1.0, ms_all),
+          f"phases 39 {tag}: {counted} events counted of {events}")
+    check(len(k1) == counts["gemm"] > 0 and set(k1) == {k1_phase},
+          f"phases 39 {tag}: K1 {len(k1)} under {set(k1)}, counts {counts['gemm']}")
+    if k2_phase is None:
+        check(not k2 and counts["lu_block"] == 0, f"phases 39 {tag}: K2 launched")
+    else:
+        check(len(k2) == counts["lu_block"] > 0 and set(k2) == {k2_phase},
+              f"phases 39 {tag}: K2 {len(k2)} under {set(k2)}, counts {counts['lu_block']}")
+    check(same, f"phases 39 {tag}: the traced output is not bitwise the untraced one")
+    del want, got
+    torch.cuda.empty_cache()
+    return table, counts
+
+
+def phase_phase_tables() -> dict:
+    """(39) The per-phase device tables of the grid routes, as the
+    miniapps' --profile prints them (`profiler.trace`, `phase_table`): the
+    LU grid program at N=32768, v=1024, f32, 1x1x1 (bench.py's
+    configuration, full size), CONFCHOX at N=32768, v=1024, and the grid
+    QR at N=16384, v=1024: a depth cut, since one untraced QR run takes
+    ~8 s at N=32768 and the phase runs each program twice (untraced, then
+    traced). The timed runs of phases 32-35 stay untraced. Each table is
+    printed and held: every phase of the JAX package's program present,
+    every device event of the traced run counted once, each K1 launch
+    under step6_dgemm / computeA11 / qr_trailing_update and each K2 launch
+    under step1_pivoting, as many as the launch counts, and the traced
+    output bitwise the untraced run's. Returns the traced runs' launches."""
+    import numpy as np
+
+    from conflux_tpu_torch import profiler
+    from conflux_tpu_torch.cholesky.distributed import build_program as chol_program
+    from conflux_tpu_torch.geometry import CholeskyGeometry, Grid3, LUGeometry
+    from conflux_tpu_torch.io import generate_spd_local
+    from conflux_tpu_torch.lu.distributed import build_program as lu_program
+    from conflux_tpu_torch.parallel.mesh import distribute_shards, make_mesh
+    from conflux_tpu_torch.qr.distributed import build_program as qr_program
+
+    t_phase = time.perf_counter()
+    grid = Grid3(1, 1, 1)
+    mesh = make_mesh(grid)
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    N, v = 32768, 1024
+    A = torch.randn((N, N), generator=gen, device="cuda")
+    A.diagonal().add_(2.0)
+    geom = LUGeometry.create(N, N, v, grid)
+    _t, c = _traced_table("LU N=32768 v=1024 f32 1x1x1", lu_program(geom, mesh, dtype=A.dtype),
+                          A, mesh, LU_PHASES, profiler._PHASE_RE, "step6_dgemm",
+                          "step1_pivoting")
+    add(c)
+    del A
+    cgeom = CholeskyGeometry.create(N, v, grid)
+    shard = distribute_shards(lambda px, py: generate_spd_local(cgeom, px, py, dtype=np.float32),
+                              mesh, shape=(1, 1, cgeom.Ml, cgeom.Nl), dtype=np.float32)
+    _t, c = _traced_table("CONFCHOX N=32768 v=1024 f32 1x1x1",
+                          lambda s, m: (chol_program(cgeom, mesh, dtype=s.dtype)(s, m),),
+                          shard, mesh, CHOL_PHASES, profiler._PHASE_RE, "computeA11", None)
+    add(c)
+    del shard
+    Nq = 16384
+    Q = torch.randn((Nq, Nq), generator=gen, device="cuda")
+    qgeom = LUGeometry.create(Nq, Nq, v, grid)
+    _t, c = _traced_table("QR N=16384 v=1024 f32 1x1x1 (depth cut)",
+                          qr_program(qgeom, mesh, dtype=Q.dtype), Q, mesh, QR_PHASES,
+                          profiler.QR_PHASE_RE, "qr_trailing_update", None)
+    add(c)
+    del Q
+    torch.cuda.empty_cache()
+    print(f"[phases 39] phase {time.perf_counter() - t_phase:.1f} s, launches {total} "
+          f"({CARD})", flush=True)
+    return total
+
+
+def _soak_module():
+    """`scripts/torch_soak.py` as a module (its trials and `soak`)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_soak.py")
+    spec = importlib.util.spec_from_file_location("torch_soak", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_lockcheck_soaks() -> dict:
+    """(40) `scripts/torch_soak.py --serve --lockcheck`, then `--tier
+    --lockcheck`, on the card, in this process, each for a time budget of
+    30 s: engines with the full HealthPolicy under the serve fault menu,
+    then a ResidentSet-managed engine under the tier fault sites, every
+    lock the port creates watched by `analysis.lockcheck`. Each must end
+    with 0 failed trials (a wrong answer fails its trial), 0 lock-order
+    cycles and 0 engine locks held across a serve.* dispatch region, and
+    launch K3 and K4. Returns the launches."""
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    mod = _soak_module()
+    mod.ENGINE["device"] = "cuda"
+    total: dict = {}
+    for mode in ("serve", "tier"):
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        out = mod.soak(mode, trials=1000, seed=0, time_budget=30.0, lockcheck=True,
+                       emit=lambda m: None)
+        torch.cuda.synchronize()
+        counts = dict(hk.LAUNCHES)
+        _add_counts(total, counts)
+        rep = out["lockcheck"]
+        cycles = [v for v in rep["violations"] if "cycle" in v]
+        held = [v for v in rep["violations"] if "held across dispatch" in v]
+        print(f"[lockcheck 40] torch_soak --{mode} --lockcheck ({CARD}): {out['trials']} "
+              f"trials in {out['seconds']:.1f} s, {out['fails']} failed; lockcheck "
+              f"{rep['locks']} locks, {rep['acquisitions']} acquisitions, "
+              f"{rep['order_edges']} order edges, {rep['stash_edges']} victim-stash edges, "
+              f"{len(cycles)} lock-order cycles, {len(held)} locks held across dispatch; "
+              f"launches {counts}", flush=True)
+        for v in rep["violations"]:
+            print(f"[lockcheck 40]   {v}", flush=True)
+        check(out["trials"] >= 1 and out["fails"] == 0,
+              f"lockcheck 40 --{mode}: {out['fails']} of {out['trials']} trials failed")
+        check(not rep["violations"], f"lockcheck 40 --{mode}: {len(rep['violations'])} "
+              "violations")
+        check(counts["btrsm"] > 0 and counts["batched_lu"] > 0,
+              f"lockcheck 40 --{mode}: K3 and K4 must both launch: {counts}")
+    return total
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -4611,7 +4811,9 @@ def main() -> int:
     c36 = phase_dist_qr_ranks()
     c37 = phase_mesh()
     c38 = phase_lanes()
-    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38)
+    c39 = phase_phase_tables()
+    c40 = phase_lockcheck_soaks()
+    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38, c39, c40)
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"] + sum(c.get("gemm", 0) for c in late)
     k2["launches"] += cf["lu_block"] + cl["lu_block"] + sum(c.get("lu_block", 0) for c in late)
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]

@@ -43,6 +43,7 @@ from conflux_tpu_torch.parallel.mesh import (
     gather_shards,
     make_mesh,
 )
+from conflux_tpu_torch.profiler import scope
 
 
 def _ht(x: torch.Tensor) -> torch.Tensor:
@@ -99,30 +100,34 @@ def _factor(geom: CholeskyGeometry, shard: torch.Tensor, mesh, backend: str, don
         r0, r1, c0, c1 = frow(k), frow(k + 1), fcol(k), fcol(k + 1)
 
         # ---- diagonal tile: sum over x + potrf (choleskyA00) ------------ #
-        Akk = (panel[ldiag - r0:ldiag - r0 + v].clone() if x == xo
-               else torch.zeros((v, v), dtype=cdtype, device=dev))
-        L00 = blas.potrf(mesh.psum(Akk, AXIS_X))
+        with scope("choleskyA00"):
+            Akk = (panel[ldiag - r0:ldiag - r0 + v].clone() if x == xo
+                   else torch.zeros((v, v), dtype=cdtype, device=dev))
+            L00 = blas.potrf(mesh.psum(Akk, AXIS_X))
 
         # ---- L10 for the rows below the diagonal (updateA10) ------------ #
-        L10 = blas.trsm_right_lower_t(L00, panel[r1 - r0:]).contiguous()  # (Ml - r1, v)
+        with scope("updateA10"):
+            L10 = blas.trsm_right_lower_t(L00, panel[r1 - r0:]).contiguous()  # (Ml - r1, v)
 
         # ---- L10^T to the column owners over x (scatterA11) ------------- #
         # my live columns' rows of the panel (tile > k: from L10 on the row
         # owner; the diagonal tile's columns take L00's rows)
-        own = (col_owner_x[c0:] == x) & (col_local_row[c0:] >= r1)
-        src = (col_local_row[c0:] - r1).clamp(0, max(Ml - r1 - 1, 0))
-        Lc = (torch.where(own[:, None], L10.index_select(0, src), torch.zeros((), dtype=cdtype,
-                                                                               device=dev))
-              if Ml > r1 else torch.zeros((Nl - c0, v), dtype=cdtype, device=dev))
-        mesh.psum(Lc, AXIS_X)  # (Nl - c0, v): L's rows for my columns
-        if c1 > c0:  # the diagonal tile's columns are mine
-            Lc[:c1 - c0] = L00
-        Lc = Lc[c1 - c0:]
+        with scope("scatterA11"):
+            own = (col_owner_x[c0:] == x) & (col_local_row[c0:] >= r1)
+            src = (col_local_row[c0:] - r1).clamp(0, max(Ml - r1 - 1, 0))
+            Lc = (torch.where(own[:, None], L10.index_select(0, src),
+                              torch.zeros((), dtype=cdtype, device=dev))
+                  if Ml > r1 else torch.zeros((Nl - c0, v), dtype=cdtype, device=dev))
+            mesh.psum(Lc, AXIS_X)  # (Nl - c0, v): L's rows for my columns
+            if c1 > c0:  # the diagonal tile's columns are mine
+                Lc[:c1 - c0] = L00
+            Lc = Lc[c1 - c0:]
 
         # ---- trailing update on this layer's slab (computeA11) ---------- #
         z_lo, z_hi = min(z * nlayr, v), min((z + 1) * nlayr, v)
         L10s = L10[:, z_lo:z_hi].to(dtype)
-        LcsT = _ht(Lc[:, z_lo:z_hi]).to(dtype).contiguous()  # (nl, Nl - c1)
+        with scope("computeA11"):
+            LcsT = _ht(Lc[:, z_lo:z_hi]).to(dtype).contiguous()  # (nl, Nl - c1)
         kn = k + 1
         slab = kn < k_end and y == kn % Py
         lj1 = (kn // Py) * v
@@ -142,16 +147,18 @@ def _factor(geom: CholeskyGeometry, shard: torch.Tensor, mesh, backend: str, don
                 blas.gemm(L10s[ra - r1:rb - r1], LcsT[:, ca - c1:cb - c1], c=blk,
                           alpha=-1.0, beta=1.0, backend=backend, out=blk)
 
-        if z_hi > z_lo:
-            if lookahead and slab:
-                # the next panel's column slab first: its sum over (y, z)
-                # has no data dependence on the rest of the update
-                run([p for p in pieces if (p[2], p[3]) == (lj1, lj1 + v)])
-                pieces = [p for p in pieces if (p[2], p[3]) != (lj1, lj1 + v)]
         if lookahead and kn < k_end:
-            nxt = panel_reduce(kn)
-        if z_hi > z_lo:
-            run(pieces)
+            # the next panel's column slab first: its sum over (y, z) has no
+            # data dependence on the rest of the update (the slab's GEMMs
+            # are the next reduce's, as in the reference)
+            with scope("reduceA11"):
+                if z_hi > z_lo and slab:
+                    run([p for p in pieces if (p[2], p[3]) == (lj1, lj1 + v)])
+                    pieces = [p for p in pieces if (p[2], p[3]) != (lj1, lj1 + v)]
+                nxt = panel_reduce(kn)
+        with scope("computeA11"):
+            if z_hi > z_lo:
+                run(pieces)
 
         # ---- factor writes: panel column on layer 0 --------------------- #
         if y == yo:
@@ -163,19 +170,24 @@ def _factor(geom: CholeskyGeometry, shard: torch.Tensor, mesh, backend: str, don
     panel = None
     for k in range(k0, k_end):
         if panel is None:
-            panel = panel_reduce(k)
+            with scope("reduceA11"):
+                panel = panel_reduce(k)
         panel = step(k, panel)
     return mesh.psum(Aloc, "z")
 
 
-def build_program(geom: CholeskyGeometry, mesh=None, backend: str | None = None,
-                  donate: bool = False, resumable: bool = False, lookahead: bool = False,
+def build_program(geom: CholeskyGeometry, mesh=None, precision=None,
+                  backend: str | None = None, donate: bool = False,
+                  resumable: bool = False, lookahead: bool = False,
                   segs: tuple = (8, 8), dtype=None):
     """The distributed Cholesky program of one configuration, its defaults
     and argument checks resolved (`cholesky_factor_distributed` and
     `cholesky_factor_steps` go through it): a callable (shard, mesh, k0,
     k1) -> shard_out. `backend` picks the trailing GEMM ("kernel": K1,
-    "xla": the library product; default the registry's)."""
+    "xla": the library product; default the registry's). `precision` is
+    the JAX package's matmul precision, at its position: None or
+    "highest" (`blas.check_precision`)."""
+    blas.check_precision(precision)
     backend = blas.check_backend(blas.get_backend() if backend is None else backend)
     blas.check_gemm_route(backend, torch.float32 if dtype is None else dtype)
     if len(segs) != 2 or segs[0] < 1 or segs[1] < 1:
@@ -198,7 +210,7 @@ def _rank_shard(shards, geom, mesh) -> torch.Tensor:
     return distribute_shards(shards, mesh)
 
 
-def cholesky_factor_distributed(shards, geom: CholeskyGeometry, mesh,
+def cholesky_factor_distributed(shards, geom: CholeskyGeometry, mesh, precision=None,
                                 backend: str | None = None, donate: bool = False,
                                 lookahead: bool = False, segs: tuple = (8, 8)):
     """Factor this rank's block-cyclic shard of an SPD (HPD) matrix; every
@@ -211,14 +223,15 @@ def cholesky_factor_distributed(shards, geom: CholeskyGeometry, mesh,
     (bitwise the plain loop); `segs` = (row, col) trailing-update segment
     counts."""
     shard = _rank_shard(shards, geom, mesh)
-    fn = build_program(geom, mesh, backend=backend, donate=donate, lookahead=lookahead,
+    fn = build_program(geom, mesh, precision, backend=backend, donate=donate,
+                       lookahead=lookahead,
                        segs=segs, dtype=shard.dtype)
     return fn(shard, mesh)
 
 
 def cholesky_factor_steps(shards, geom: CholeskyGeometry, mesh, k0: int, k1: int,
-                          backend: str | None = None, donate: bool = False,
-                          segs: tuple = (8, 8)):
+                          precision=None, backend: str | None = None,
+                          donate: bool = False, segs: tuple = (8, 8)):
     """Factor supersteps [k0, k1) only: checkpoint/restart for Cholesky (no
     pivot state to carry): feed each call's output shard into the next;
     after the last call the lower triangle holds L as
@@ -228,14 +241,15 @@ def cholesky_factor_steps(shards, geom: CholeskyGeometry, mesh, k0: int, k1: int
     if not (0 <= k0 < k1 <= geom.Kappa):
         raise ValueError(f"step range [{k0}, {k1}) outside [0, {geom.Kappa})")
     shard = _rank_shard(shards, geom, mesh)
-    fn = build_program(geom, mesh, backend=backend, donate=donate, resumable=True,
+    fn = build_program(geom, mesh, precision, backend=backend, donate=donate,
+                       resumable=True,
                        segs=segs, dtype=shard.dtype)
     return fn(shard, mesh, k0, k1)
 
 
 def cholesky_distributed_host(A: np.ndarray, grid: Grid3, v: int, mesh=None,
-                              backend: str | None = None, segs: tuple = (8, 8),
-                              device=None):
+                              precision=None, backend: str | None = None,
+                              segs: tuple = (8, 8), *, device=None):
     """Scatter an SPD matrix, factor on the grid, gather L back, on every
     rank together (the reference's initialize/parallelCholesky/finalize
     sequence, `Cholesky.h:19-23`). Returns (L (N, N) lower-triangular numpy,
@@ -251,7 +265,7 @@ def cholesky_distributed_host(A: np.ndarray, grid: Grid3, v: int, mesh=None,
         Ap[: A.shape[0], : A.shape[0]] = A
         A = Ap
     shard = distribute_shards(geom.scatter(A), mesh)
-    out = cholesky_factor_distributed(shard, geom, mesh, backend=backend, donate=True,
-                                      segs=segs)
+    out = cholesky_factor_distributed(shard, geom, mesh, precision, backend=backend,
+                                      donate=True, segs=segs)
     L = np.tril(geom.gather(gather_shards(out, mesh).cpu().numpy()))
     return L, geom

@@ -20,7 +20,8 @@ import torch
 from conflux_tpu_torch.ops import blas
 
 
-def cholesky_blocked(A: torch.Tensor, v: int, backend: str | None = None) -> torch.Tensor:
+def cholesky_blocked(A: torch.Tensor, v: int, precision=None,
+                     backend: str | None = None) -> torch.Tensor:
     """Lower Cholesky factor of SPD (complex: HPD) A (N x N, N a multiple
     of v), or of each system of a (B, N, N) batch.
 
@@ -30,8 +31,11 @@ def cholesky_blocked(A: torch.Tensor, v: int, backend: str | None = None) -> tor
     read; a tile that is not positive definite comes out NaN), solves the
     panel below it (`trsm_right_lower_t`) and updates the whole trailing
     square, A22 -= L10 L10^H, as the JAX package does: one K1 launch per
-    system on "kernel", one batched library product on "xla".
+    system on "kernel", one batched library product on "xla". `precision`
+    is the JAX package's matmul precision, at its position: None or
+    "highest" (`blas.check_precision`).
     """
+    blas.check_precision(precision)
     batched = A.dim() == 3
     if A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"matrix must be square, got {tuple(A.shape)}")

@@ -40,6 +40,7 @@ from conflux_tpu_torch.cli.common import (
     add_grid_args,
     apply_auto,
     np_dtype,
+    phase_profile,
     platform_device,
     print_route,
     resolve_knob_defaults,
@@ -178,6 +179,11 @@ def _distributed(mesh, args, geom, backend) -> None:
         with region("refine_solve"):
             refine_report(lambda r: solvers.cholesky_solve_distributed(out, geom, mesh, r),
                           A, out.dtype, args.refine, emit=rank0)
+    if args.profile:
+        from conflux_tpu_torch.cholesky.distributed import build_program
+
+        phase_profile(build_program(geom, mesh, backend=backend, lookahead=args.lookahead,
+                                    segs=args.segs, dtype=shard.dtype), shard, mesh)
 
 
 def _single(args, geom, grid) -> int:

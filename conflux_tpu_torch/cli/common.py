@@ -80,6 +80,47 @@ class WallTimer:
         self.ms = (time.perf_counter() - self.t0) * 1e3
 
 
+def phase_profile(program, shard, mesh, phase_re: str | None = None) -> dict | None:
+    """Per-phase device-time table of a grid program (the reference's
+    per-step semiprof table, `README.md:120-165`): one extra run of
+    `program(shard, mesh)` (a `build_program` of the timed run, not
+    donating), traced by `profiler.trace` on rank 0 while the other ranks
+    run it beside, then `profiler.phase_table` (`phase_re` defaults to the
+    LU and Cholesky phases). Every rank calls it; rank 0 returns the table.
+
+    On the CPU the trace has no device work, and this prints `(no device
+    phase table: ...)` as the reference does; on a card a trace without
+    device work or without a phase raises. torch records the ranges of the
+    tracing thread only, so in a threaded world the other ranks' launches
+    count under '(other)'."""
+    import tempfile
+
+    from conflux_tpu_torch import profiler
+
+    if mesh.rank != 0:
+        program(shard, mesh)
+        sync(mesh.device)
+        return None
+    phase_re = profiler._PHASE_RE if phase_re is None else phase_re
+    with tempfile.TemporaryDirectory(prefix="conflux-phases-") as trace_dir:
+        with profiler.trace(trace_dir):
+            program(shard, mesh)
+            sync(mesh.device)
+        try:
+            table = profiler.phase_table(trace_dir, phase_re=phase_re)
+        except ValueError as e:
+            if mesh.device.type == "cuda":
+                raise
+            print(f"(no device phase table: {e})")
+            return None
+    if set(table) <= {"(other)"}:
+        raise RuntimeError("the traced run launched device work inside no phase range")
+    if mesh.grid.P > 1:
+        print(f"(rank 0's phases; the other {mesh.grid.P - 1} ranks' launches are under "
+              "'(other)' in a threaded world, and on their own processes otherwise)")
+    return table
+
+
 def add_experiment_type_arg(p) -> None:
     """The reference's -t vocabulary (`examples/conflux_miniapp.cpp:63-66`)."""
     p.add_argument(

@@ -44,6 +44,7 @@ from conflux_tpu_torch.cli.common import (
     add_grid_args,
     apply_auto,
     np_dtype,
+    phase_profile,
     platform_device,
     print_route,
     resolve_knob_defaults,
@@ -201,6 +202,14 @@ def _distributed(mesh, args, geom, route) -> None:
         with region("refine_solve"):
             refine_report(lambda r: solvers.lu_solve_distributed(out, perm, geom, mesh, r),
                           from_numpy(A, mesh.device), out.dtype, args.refine, emit=rank0)
+    if args.profile:
+        from conflux_tpu_torch.lu.distributed import build_program
+
+        # dtype rides along so the profiled program is the one just timed
+        phase_profile(build_program(geom, mesh, backend=backend, panel_algo=panel_algo,
+                                    lookahead=args.lookahead, election=args.election,
+                                    segs=args.segs, tree=args.tree, update=args.update,
+                                    dtype=shard.dtype), shard, mesh)
 
 
 def _single(args, geom, grid) -> int:

@@ -52,6 +52,7 @@ from conflux_tpu_torch.cli.common import (
     add_experiment_type_arg,
     add_grid_args,
     apply_auto,
+    phase_profile,
     positive_int,
     resolve_knob_defaults,
     result_line,
@@ -246,6 +247,14 @@ def _run(mesh, args, geom) -> None:
                 rec, orth = _tall_residuals(shard, Q, R, mesh)
         if rank0:
             print(f"_residual_ orth={orth:.3e} reconstruction={rec:.3e}")
+    if args.profile and args.full:
+        # per-phase device table of the grid loop (its qr_* ranges), as the
+        # LU and Cholesky miniapps print theirs
+        from conflux_tpu_torch.qr.distributed import build_program
+
+        phase_profile(build_program(geom, mesh, backend=backend, csegs=args.csegs,
+                                    lookahead=args.lookahead, dtype=shard.dtype),
+                      shard, mesh, profiler.QR_PHASE_RE)
 
 
 if __name__ == "__main__":

@@ -65,6 +65,7 @@ from conflux_tpu_torch.parallel.mesh import (
     gather_shards,
     make_mesh,
 )
+from conflux_tpu_torch.profiler import scope
 
 _GRI_SENTINEL = int(np.iinfo(np.int32).max)
 
@@ -235,50 +236,53 @@ def _factor(prog: _Program, shard: torch.Tensor, mesh, orig, k0: int, k_end: int
         # (k+1)*v); the non-winner occupants move to the slots vacated by
         # external winners (i-th displaced occupant -> i-th vacated
         # position, both ascending)
-        slots = k * v + torch.arange(v, device=dev)
-        occ_is_winner = (wpos[None, :] == slots[:, None]).any(1)
-        is_ext = wpos >= (k + 1) * v
-        both = is_ext[None, :] & is_ext[:, None]
-        rank = (both & (wpos[None, :] < wpos[:, None])).sum(1)
-        ext_sorted = torch.full((v + 1,), _GRI_SENTINEL, dtype=torch.int64, device=dev)
-        ext_sorted.scatter_(0, torch.where(is_ext, rank, v), wpos)  # slot v: dropped
-        disp_rank = torch.cumsum((~occ_is_winner).to(torch.int64), 0) - 1
-        dest_disp = torch.where(~occ_is_winner, ext_sorted[disp_rank.clamp(min=0)],
-                                _GRI_SENTINEL)
+        with scope("step2_pivotrows"):
+            slots = k * v + torch.arange(v, device=dev)
+            occ_is_winner = (wpos[None, :] == slots[:, None]).any(1)
+            is_ext = wpos >= (k + 1) * v
+            both = is_ext[None, :] & is_ext[:, None]
+            rank = (both & (wpos[None, :] < wpos[:, None])).sum(1)
+            ext_sorted = torch.full((v + 1,), _GRI_SENTINEL, dtype=torch.int64, device=dev)
+            ext_sorted.scatter_(0, torch.where(is_ext, rank, v), wpos)  # slot v: dropped
+            disp_rank = torch.cumsum((~occ_is_winner).to(torch.int64), 0) - 1
+            dest_disp = torch.where(~occ_is_winner, ext_sorted[disp_rank.clamp(min=0)],
+                                    _GRI_SENTINEL)
 
-        # winners' full rows and the displaced occupants' rows, reduced over
-        # (x, z) in one sum; their row ids and the occupants' panel rows
-        # over x (ref step 3)
-        wloc = loc_of(wpos)
-        rows = torch.cat([_take_rows(Aloc, wloc, Ml),
-                          Aloc[li:li + v] if own_d
-                          else torch.zeros((v, Nl), dtype=dtype, device=dev)])
-        mesh.psum(rows, ("x", "z"))
-        Prows, Drows = rows[:v], rows[v:]
-        ids = torch.cat([_take_rows(orig, wloc, Ml),
-                         orig[li:li + v] if own_d else torch.zeros_like(orig[:v])])
-        mesh.psum(ids, AXIS_X)
-        worig, dorig = ids[:v], ids[v:]
-        diag_panel = (panel[li - r0:li - r0 + v].clone() if own_d
-                      else torch.zeros((v, v), dtype=cdtype, device=dev))
-        mesh.psum(diag_panel, AXIS_X)
+            # winners' full rows and the displaced occupants' rows, reduced over
+            # (x, z) in one sum; their row ids and the occupants' panel rows
+            # over x (ref step 3)
+            wloc = loc_of(wpos)
+            rows = torch.cat([_take_rows(Aloc, wloc, Ml),
+                              Aloc[li:li + v] if own_d
+                              else torch.zeros((v, Nl), dtype=dtype, device=dev)])
+            mesh.psum(rows, ("x", "z"))
+            Prows, Drows = rows[:v], rows[v:]
+            ids = torch.cat([_take_rows(orig, wloc, Ml),
+                             orig[li:li + v] if own_d else torch.zeros_like(orig[:v])])
+            mesh.psum(ids, AXIS_X)
+            worig, dorig = ids[:v], ids[v:]
+            diag_panel = (panel[li - r0:li - r0 + v].clone() if own_d
+                          else torch.zeros((v, v), dtype=cdtype, device=dev))
+            mesh.psum(diag_panel, AXIS_X)
 
-        # swap writes: vacated positions take the displaced rows (they stay
-        # active and take the trailing update, their z-summed value on
-        # layer 0); the diagonal rows are rewritten after the update
-        didx = loc_of(dest_disp)
-        _set_rows(Aloc, didx, Drows if z0 else torch.zeros_like(Drows))
-        if own_d:
-            orig[li:li + v] = worig
-        _set_rows(orig, didx, dorig)
-        # the panel after the swap, for the L10 solve (displaced rows only
-        # matter: the diagonal rows are not in the live suffix)
-        panel_post = panel.clone()
-        _set_rows(panel_post, didx - r0, diag_panel)
+            # swap writes: vacated positions take the displaced rows (they stay
+            # active and take the trailing update, their z-summed value on
+            # layer 0); the diagonal rows are rewritten after the update
+            didx = loc_of(dest_disp)
+            _set_rows(Aloc, didx, Drows if z0 else torch.zeros_like(Drows))
+            if own_d:
+                orig[li:li + v] = worig
+            _set_rows(orig, didx, dorig)
+            # the panel after the swap, for the L10 solve (displaced rows only
+            # matter: the diagonal rows are not in the live suffix)
+            panel_post = panel.clone()
+            _set_rows(panel_post, didx - r0, diag_panel)
 
         # ---- L10 on the live rows, U01 on the live columns (steps 4, 5) -- #
-        L10 = blas.trsm_right_upper(U00, panel_post[r1 - r0:]).contiguous()  # (Ml-r1, v)
-        U01 = blas.trsm_left_lower_unit(L00, Prows[:, c1:].to(cdtype)).contiguous()
+        with scope("step4_dtrsm"):
+            L10 = blas.trsm_right_upper(U00, panel_post[r1 - r0:]).contiguous()  # (Ml-r1, v)
+        with scope("step5_dtrsm"):
+            U01 = blas.trsm_left_lower_unit(L00, Prows[:, c1:].to(cdtype)).contiguous()
 
         # ---- trailing update on this layer's slab (ref step 6) ---------- #
         z_lo, z_hi = min(z * nlayr, v), min((z + 1) * nlayr, v)
@@ -295,45 +299,51 @@ def _factor(prog: _Program, shard: torch.Tensor, mesh, orig, k0: int, k_end: int
         lj1 = (kn // Py) * v
         ccuts = _cuts(c1, Nl, list(cbounds) + ([lj1, lj1 + v] if slab else []))
         nxt = None
-        if z_hi > z_lo and r1 < Ml:
-            if prog.lookahead and slab:
-                for ra, rb in rcuts:
-                    gemm_piece(L10s, U01s, r1, c1, ra, rb, lj1, lj1 + v)
-                ccuts = [(a, b) for a, b in ccuts if (a, b) != (lj1, lj1 + v)]
         if prog.lookahead and kn < k_end:
             # the next step's panel and election come from the updated slab
             # alone: no data dependence on the rest of this step's GEMMs
-            panel_n = panel_reduce(kn)
-            nxt = (panel_n,) + elect(panel_n, kn)
-        if z_hi > z_lo and r1 < Ml:
-            for ca, cb in ccuts:
-                for ra, rb in rcuts:
-                    gemm_piece(L10s, U01s, r1, c1, ra, rb, ca, cb)
+            # (the slab's GEMMs are the next reduce's, as in the reference)
+            with scope("step0_reduce"):
+                if z_hi > z_lo and r1 < Ml and slab:
+                    for ra, rb in rcuts:
+                        gemm_piece(L10s, U01s, r1, c1, ra, rb, lj1, lj1 + v)
+                    ccuts = [(a, b) for a, b in ccuts if (a, b) != (lj1, lj1 + v)]
+                panel_n = panel_reduce(kn)
+            with scope("step1_pivoting"):
+                nxt = (panel_n,) + elect(panel_n, kn)
+        with scope("step6_dgemm"):
+            if z_hi > z_lo and r1 < Ml:
+                for ca, cb in ccuts:
+                    for ra, rb in rcuts:
+                        gemm_piece(L10s, U01s, r1, c1, ra, rb, ca, cb)
 
         # ---- factor writes (z == 0 carries the factors) ------------------ #
         # diagonal block rows: leading columns keep the winners' frozen L
         # prefix (Prows), trailing columns take U01; the panel tile itself
         # takes the packed lu00 below
-        if own_d:
-            if z0:
-                Aloc[li:li + v, :c1] = Prows[:, :c1]
-                Aloc[li:li + v, c1:] = U01.to(dtype)
-            else:
-                Aloc[li:li + v] = 0
-        if y == j_owner:
-            if z0:
-                Aloc[r1:, lj:lj + v] = L10.to(dtype)
-                if own_d:
-                    Aloc[li:li + v, lj:lj + v] = lu00.to(dtype)
-            else:
-                Aloc[:, lj:lj + v] = 0
+        with scope("step7_writes"):
+            if own_d:
+                if z0:
+                    Aloc[li:li + v, :c1] = Prows[:, :c1]
+                    Aloc[li:li + v, c1:] = U01.to(dtype)
+                else:
+                    Aloc[li:li + v] = 0
+            if y == j_owner:
+                if z0:
+                    Aloc[r1:, lj:lj + v] = L10.to(dtype)
+                    if own_d:
+                        Aloc[li:li + v, lj:lj + v] = lu00.to(dtype)
+                else:
+                    Aloc[:, lj:lj + v] = 0
         return nxt
 
     carry = None
     for k in range(k0, k_end):
         if carry is None:
-            panel = panel_reduce(k)
-            carry = (panel,) + elect(panel, k)
+            with scope("step0_reduce"):
+                panel = panel_reduce(k)
+            with scope("step1_pivoting"):
+                carry = (panel,) + elect(panel, k)
         carry = step(k, *carry)
     # all factors live on layer 0: the sum makes the output z-replicated
     Aout = mesh.psum(Aloc, "z")
@@ -347,12 +357,12 @@ def _factor(prog: _Program, shard: torch.Tensor, mesh, orig, k0: int, k_end: int
     return Aout, mesh.pmax(orig, ("y", "z")), perm
 
 
-def build_program(geom: LUGeometry, mesh=None, backend: str | None = None,
-                  panel_algo: str | None = None, panel_chunk: int | None = None,
-                  donate: bool = False, resumable: bool = False,
-                  lookahead: bool = False, election: str = "gather",
-                  segs: tuple = (16, 16), tree: str = "pairwise",
-                  update: str = "segments", dtype=None) -> _Program:
+def build_program(geom: LUGeometry, mesh=None, precision=None, backend: str | None = None,
+                  panel_chunk: int | None = None, donate: bool = False,
+                  resumable: bool = False, lookahead: bool = False,
+                  election: str = "gather", segs: tuple = (16, 16),
+                  tree: str = "pairwise", update: str = "segments", dtype=None, *,
+                  panel_algo: str | None = None) -> _Program:
     """The distributed LU program of one configuration, every default and
     argument check resolved here (`lu_factor_distributed` and
     `lu_factor_steps` go through it). Pass the input `dtype` the program
@@ -364,7 +374,11 @@ def build_program(geom: LUGeometry, mesh=None, backend: str | None = None,
     ("kernel": K2, float32 with v a multiple of 128; "auto", "partial" or
     "tournament": the library LU; default the registry's). `mesh` is
     accepted for the reference's signature; a program runs on any rank's
-    mesh of the geometry's grid."""
+    mesh of the geometry's grid. `precision` is the JAX package's matmul
+    precision, at its position: None or "highest" (`blas.check_precision`);
+    the parameters up to `dtype` stand where the JAX package has them, and
+    the port's own (`panel_algo`) are keyword-only."""
+    blas.check_precision(precision)
     backend = blas.check_backend(blas.get_backend() if backend is None else backend)
     panel_algo = blas.get_panel_algo() if panel_algo is None else panel_algo
     if panel_algo not in ("kernel", "auto", "partial", "tournament"):
@@ -425,11 +439,12 @@ def _rank_shard(shards, geom, mesh) -> torch.Tensor:
     return distribute_shards(shards, mesh)
 
 
-def lu_factor_distributed(shards, geom: LUGeometry, mesh, backend: str | None = None,
-                          panel_algo: str | None = None, panel_chunk: int | None = None,
+def lu_factor_distributed(shards, geom: LUGeometry, mesh, precision=None,
+                          backend: str | None = None, panel_chunk: int | None = None,
                           donate: bool = False, lookahead: bool = False,
                           election: str = "gather", segs: tuple = (16, 16),
-                          tree: str = "pairwise", update: str = "segments"):
+                          tree: str = "pairwise", update: str = "segments", *,
+                          panel_algo: str | None = None):
     """Factor this rank's block-cyclic shard in place on the grid; every
     rank of `mesh`'s world calls it together.
 
@@ -459,7 +474,7 @@ def lu_factor_distributed(shards, geom: LUGeometry, mesh, backend: str | None = 
     package.
     """
     shard = _rank_shard(shards, geom, mesh)
-    fn = build_program(geom, mesh, backend=backend, panel_algo=panel_algo,
+    fn = build_program(geom, mesh, precision, backend=backend, panel_algo=panel_algo,
                        panel_chunk=panel_chunk, donate=donate, lookahead=lookahead,
                        election=election, segs=segs, tree=tree, update=update,
                        dtype=shard.dtype)
@@ -467,10 +482,11 @@ def lu_factor_distributed(shards, geom: LUGeometry, mesh, backend: str | None = 
 
 
 def lu_factor_steps(shards, geom: LUGeometry, mesh, k0: int, k1: int, orig=None,
-                    backend: str | None = None, panel_algo: str | None = None,
+                    precision=None, backend: str | None = None,
                     panel_chunk: int | None = None, donate: bool = False,
                     election: str = "gather", segs: tuple = (16, 16),
-                    tree: str = "pairwise", update: str = "segments"):
+                    tree: str = "pairwise", update: str = "segments", *,
+                    panel_algo: str | None = None):
     """Factor supersteps [k0, k1) only: the checkpoint/restart primitive.
 
     After k steps the matrix lives in LAPACK-order positions: global
@@ -496,17 +512,18 @@ def lu_factor_steps(shards, geom: LUGeometry, mesh, k0: int, k1: int, orig=None,
         orig = torch.as_tensor(orig)
         if orig.dim() == 2:
             orig = orig[mesh.x]
-    fn = build_program(geom, mesh, backend=backend, panel_algo=panel_algo,
+    fn = build_program(geom, mesh, precision, backend=backend, panel_algo=panel_algo,
                        panel_chunk=panel_chunk, donate=donate, resumable=True,
                        election=election, segs=segs, tree=tree, update=update,
                        dtype=shard.dtype)
     return fn(shard, mesh, orig, k0, k1)
 
 
-def lu_distributed_host(A: np.ndarray, grid: Grid3, v: int, mesh=None,
-                        backend: str | None = None, panel_algo: str | None = None,
-                        panel_chunk: int | None = None, segs: tuple = (16, 16),
-                        tree: str = "pairwise", update: str = "segments", device=None):
+def lu_distributed_host(A: np.ndarray, grid: Grid3, v: int, mesh=None, precision=None,
+                        backend: str | None = None, panel_chunk: int | None = None,
+                        segs: tuple = (16, 16), tree: str = "pairwise",
+                        update: str = "segments", *, panel_algo: str | None = None,
+                        device=None):
     """Host-level convenience, called by every rank together: scatter a
     global matrix, factor on the grid, gather back. Returns (LU_packed
     (M, N) in original row order, perm (M,), geom) as numpy, on every
@@ -518,7 +535,7 @@ def lu_distributed_host(A: np.ndarray, grid: Grid3, v: int, mesh=None,
     if mesh is None:
         mesh = make_mesh(grid, device=device)
     shard = distribute_shards(geom.scatter(np.asarray(A)), mesh)
-    out, perm = lu_factor_distributed(shard, geom, mesh, backend=backend,
+    out, perm = lu_factor_distributed(shard, geom, mesh, precision, backend=backend,
                                       panel_algo=panel_algo, panel_chunk=panel_chunk,
                                       donate=True, segs=segs, tree=tree, update=update)
     perm = perm.cpu().numpy()

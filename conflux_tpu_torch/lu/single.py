@@ -47,8 +47,8 @@ def state_from_numpy(LU: np.ndarray, perm: np.ndarray, device=None):
     return from_numpy(LU, device), from_numpy(np.asarray(perm, np.int64), device)
 
 
-def lu_factor_blocked(A: torch.Tensor, v: int, backend: str | None = None,
-                      panel_algo: str | None = None):
+def lu_factor_blocked(A: torch.Tensor, v: int, precision=None, backend: str | None = None,
+                      *, panel_algo: str | None = None):
     """Factor A (M x N, M >= N, both multiples of v) as P A = L U, or each
     system of a (B, M, N) batch (the JAX package's `jax.vmap` of its body).
 
@@ -61,8 +61,11 @@ def lu_factor_blocked(A: torch.Tensor, v: int, backend: str | None = None,
     system and superstep; "xla" (any dtype) on the library product, one
     batched call a superstep. Panel algo "kernel" elects on K2, one
     batched launch per column block for all the systems (float32 panel
-    math); the library algos on the batched library LU.
+    math); the library algos on the batched library LU. `precision` is
+    the JAX package's matmul precision, at its position: None or
+    "highest" (`blas.check_precision`).
     """
+    blas.check_precision(precision)
     batched = A.dim() == 3
     if A.dim() not in (2, 3):
         raise ValueError(f"A must be (M, N) or (B, M, N), got {tuple(A.shape)}")

@@ -58,6 +58,19 @@ def get_backend() -> str:
     return _BACKEND
 
 
+def check_precision(precision) -> None:
+    """Validate a factor entry point's `precision=`: None, "highest" and the
+    JAX package's enum name "HIGHEST" (read case-blind, or an enum whose
+    `.name` it is) run IEEE float32 products, the port's only matmul
+    precision; another raises NotImplementedError (ROADMAP item 16)."""
+    name = getattr(precision, "name", precision)
+    if precision is None or (isinstance(name, str) and name.lower() == "highest"):
+        return
+    raise NotImplementedError(
+        f"matmul precision {precision!r} is not ported yet (the port runs IEEE "
+        "float32 products, 'highest'; other precisions are ROADMAP item 16)")
+
+
 def check_gemm_route(backend: str, dtype: torch.dtype) -> None:
     """Refuse a dtype the backend's GEMM does not take: the K1 kernel
     (backend "kernel") has float32 and bfloat16 instances only, as the

@@ -20,9 +20,17 @@ counters beside the live engines' counters (`engine_stats`), the
 resilience outcome counters, the QoS rows (`qos_stats`) and the tier
 layer's counters and gauges (`tier.tier_stats`) and the serve fabrics'
 census (`fabric.fabric_stats`); `StatsWindow` and `CounterWindow` give
-rolling deltas of them. Its XLA tools
-(`phase_table`, `op_name_map`, the trace readers) read HLO and XLA traces
-and have no counterpart yet (ROADMAP, Slice 7 tooling).
+rolling deltas of them.
+
+The trace half (the role of the reference's XLA tools): `trace(logdir)`
+records CPU and, with a card, CUDA activity through `torch.profiler` into
+a chrome trace under `logdir`; `scope(name)` (the role of
+`jax.named_scope`, which the distributed programs open around each step
+of their loops) and `region(name)` open a `record_function` range only
+while a profiler records this thread, so untraced code pays a flag check;
+`phase_table` reads a trace back into per-phase device time, each kernel,
+copy or fill charged to the innermost phase range around the runtime
+call that launched it (`op_name_map`, `_trace_durations`).
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import time
 import weakref
 from collections import defaultdict
 
+import torch
+
 # the region tables are written from every serve-engine worker thread
 # (dispatcher, drain, watchdog) and the caller's
 _PROF_LOCK = threading.Lock()
@@ -41,6 +51,17 @@ _times: dict[str, float] = defaultdict(float)    # guarded-by: _PROF_LOCK
 _counts: dict[str, int] = defaultdict(int)       # guarded-by: _PROF_LOCK
 _enabled = True
 _builds = 0  # guarded-by: _PROF_LOCK
+
+# set by conflux_tpu_torch.analysis.lockcheck while a watch() is active:
+# the hook observes which locks are held when a region is entered (the
+# serve.* regions are the dispatch sites). One attribute read per region
+# when inactive.
+_dispatch_hook = None
+
+# whether a torch.profiler session records this thread: a C call of
+# ~0.1 us, where a record_function costs ~10 us even with no profiler
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SCOPE = contextlib.nullcontext()
 
 
 def enable(on: bool = True) -> None:
@@ -64,14 +85,29 @@ def compile_count() -> int:
         return _builds
 
 
+def scope(name: str):
+    """A named range of `torch.profiler` traces, the role of
+    `jax.named_scope`: a `record_function(name)` while a profiler records
+    this thread, else a no-op context."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SCOPE
+
+
 @contextlib.contextmanager
 def region(name: str):
-    """Profiled named scope: `with profiler.region('lu_factorization'): ...`"""
+    """Profiled named scope: `with profiler.region('lu_factorization'): ...`
+    (host wall time and calls, and a trace range under `trace`)."""
+    hook = _dispatch_hook
+    if hook is not None:
+        hook(name)
     if not _enabled:
-        yield
+        with scope(name):
+            yield
         return
     t0 = time.perf_counter()
-    yield
+    with scope(name):
+        yield
     dt = time.perf_counter() - t0
     with _PROF_LOCK:
         _times[name] += dt
@@ -498,3 +534,178 @@ class CounterWindow:
             self._prev = num
             self._t_prev = now
         return out
+
+
+# --------------------------------------------------------------------------- #
+# device-side per-phase timing (the reference's per-step semiprof table)
+# --------------------------------------------------------------------------- #
+
+# LU loop scopes (step0_reduce .. step7_writes) + Cholesky loop scopes
+# (reference vocabulary: reduceA11/choleskyA00/updateA10/scatterA11/computeA11)
+_PHASE_RE = r"(step\d+_[a-z0-9]+|(?:reduce|cholesky|update|compute|scatter)A\d\d)"
+# the distributed QR's loop scopes (qr_panel_reduce .. qr_writes), which
+# _PHASE_RE does not match
+QR_PHASE_RE = (r"(qr_panel_reduce|qr_reproject|qr_panel_tsqr|qr_trailing_c"
+               r"|qr_trailing_update|qr_writes)")
+
+# chrome-trace categories: the device's work, the host calls that launch
+# it (their correlation id is the work's), and the record_function ranges
+_DEVICE_CATS = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
+_LAUNCH_CATS = frozenset({"cuda_runtime", "cuda_driver"})
+_RANGE_CAT = "user_annotation"
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Device-level tracing: `with profiler.trace('/tmp/trace'): ...`.
+
+    Records CPU activity, and CUDA activity when a card is present,
+    through `torch.profiler`, and at exit (after waiting for the card, so
+    the trace holds the work launched inside) writes a chrome trace
+    `*.pt.trace.json` under `logdir`, as the reference's
+    `jax.profiler.trace` writes `*.xplane.pb`. torch records the ranges
+    (`scope`, `region`) of the entering thread only: launches from other
+    threads, such as the other ranks of a threaded world, are in the trace
+    without a range."""
+    import os
+    import socket
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+
+
+def _trace_events(trace_dir: str) -> list:
+    """The events of the newest `*.pt.trace.json` under trace_dir."""
+    import glob
+    import json
+    import os
+
+    files = sorted(glob.glob(os.path.join(trace_dir, "**", "*.pt.trace.json"),
+                             recursive=True), key=lambda f: (os.path.getmtime(f), f))
+    if not files:
+        raise FileNotFoundError(f"no *.pt.trace.json under {trace_dir}")
+    with open(files[-1]) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _trace_durations(trace_dir: str) -> dict:
+    """Launch -> (name, device ms, events) from the newest trace: kernel,
+    memcpy and memset events keyed by their correlation id (the id of the
+    runtime call that launched them; a launch of several, such as a graph,
+    sums them under its first event's name). CUDA kernels of one stream
+    do not nest, so each event is charged its whole duration (the
+    reference's self-time stack has no counterpart)."""
+    durs: dict = {}
+    for i, ev in enumerate(_trace_events(trace_dir)):
+        if ev.get("ph") != "X" or ev.get("cat") not in _DEVICE_CATS:
+            continue
+        corr = ev.get("args", {}).get("correlation")
+        key = ("event", i) if corr is None else corr  # no id: its own launch
+        name, ms, n = durs.get(key, (ev.get("name", ""), 0.0, 0))
+        durs[key] = (name, ms + float(ev.get("dur", 0.0)) / 1e3, n + 1)
+    if not durs:
+        raise ValueError(
+            "trace has no device op events (CPU runs have no device "
+            "activity; the phase table needs a CUDA execution)")
+    return durs
+
+
+def _host_ranges(events: list) -> dict:
+    """(pid, tid) -> that thread's record_function ranges as (start, end,
+    name), in start order (outer before inner at one start)."""
+    ranges: dict = defaultdict(list)
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") == _RANGE_CAT:
+            t0 = float(ev["ts"])
+            ranges[(ev.get("pid"), ev.get("tid"))].append(
+                (t0, t0 + float(ev.get("dur", 0.0)), ev["name"]))
+    for rs in ranges.values():
+        rs.sort(key=lambda r: (r[0], -r[1]))
+    return ranges
+
+
+def op_name_map(trace_dir: str) -> dict:
+    """Launch (correlation id) -> the '/'-joined names of the ranges that
+    enclosed its launching runtime call on the host thread that made it,
+    outermost first ('' for a launch outside every range). The join goes
+    by launch, not by time on the device: launches are asynchronous, so a
+    kernel runs long after its range closed on the host. The role of the
+    reference's HLO token -> op_name metadata map."""
+    events = _trace_events(trace_dir)
+    ranges = _host_ranges(events)
+    calls: dict = defaultdict(list)  # (pid, tid) -> [(ts, corr)]
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in _LAUNCH_CATS:
+            corr = ev.get("args", {}).get("correlation")
+            if corr is not None:
+                calls[(ev.get("pid"), ev.get("tid"))].append((float(ev["ts"]), corr))
+    out: dict = {}
+    for thread, cs in calls.items():
+        rs = ranges.get(thread, [])
+        stack: list = []  # the open ranges at the sweep's time, outer first
+        i = 0
+        for ts, corr in sorted(cs, key=lambda c: c[0]):
+            while i < len(rs) and rs[i][0] <= ts:
+                while stack and stack[-1][1] < rs[i][0]:
+                    stack.pop()
+                stack.append(rs[i])
+                i += 1
+            while stack and stack[-1][1] < ts:
+                stack.pop()
+            out[corr] = "/".join(r[2] for r in stack)
+    return out
+
+
+def launch_phases(trace_dir: str, phase_re: str = _PHASE_RE) -> dict:
+    """Launch -> (phase, name, device ms, events) of the newest trace:
+    the phase is the innermost enclosing range that `phase_re` matches,
+    '(other)' for a launch inside none (or whose runtime call the trace
+    lacks)."""
+    import re
+
+    phase = re.compile(phase_re)
+    paths = op_name_map(trace_dir)
+    out: dict = {}
+    for corr, (name, ms, n) in _trace_durations(trace_dir).items():
+        ph = "(other)"
+        for part in reversed(paths.get(corr, "").split("/")):
+            m = phase.search(part) if part else None
+            if m:
+                ph = m.group(1)
+                break
+        out[corr] = (ph, name, ms, n)
+    return out
+
+
+def phase_table(trace_dir: str, hlo_text: str | None = None,
+                phase_re: str = _PHASE_RE) -> dict[str, tuple[float, int]]:
+    """Per-phase device time {phase: (ms, ops)} for a traced program.
+
+    The reference joins the XPlane trace with the compiled program's HLO
+    (`hlo_text`); the port has no HLO and joins each launch to the
+    `scope`/`region` ranges around its runtime call (`launch_phases`), so
+    `hlo_text` must be None. Device events whose range matches no phase
+    are aggregated under '(other)'. Prints the reference-shaped table
+    (README.md:120-165) and returns the mapping."""
+    if hlo_text is not None:
+        raise ValueError("the port has no HLO: phase_table joins each launch to "
+                         "its trace ranges; pass hlo_text=None")
+    agg: dict[str, tuple[float, int]] = defaultdict(lambda: (0.0, 0))
+    for ph, _name, ms, n in launch_phases(trace_dir, phase_re).values():
+        t, k = agg[ph]
+        agg[ph] = (t + ms, k + n)
+    total = sum(t for t, _ in agg.values()) or 1.0
+    lines = [f"{'PHASE':<24}{'OPS':>8}{'DEVICE ms':>14}{'%':>8}"]
+    for ph, (t, n) in sorted(agg.items(), key=lambda kv: -kv[1][0]):
+        lines.append(f"{ph:<24}{n:>8}{t:>14.3f}{100 * t / total:>8.1f}")
+    print("\n".join(lines))
+    return dict(agg)

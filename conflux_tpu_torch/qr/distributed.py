@@ -71,6 +71,7 @@ from conflux_tpu_torch.parallel.mesh import (
     gather_shards,
     make_mesh,
 )
+from conflux_tpu_torch.profiler import scope
 from conflux_tpu_torch.qr.single import _positive_diag, _tree_r
 
 
@@ -297,8 +298,12 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
     def elect(k):
         """The whole per-step panel pipeline: panel reduce, BCGS2
         re-projection and the two-pass TSQR election over x."""
-        W, P = reproject(panel_reduce(k), k)
-        Qp, Rp = _two_pass_tsqr(mesh, P, Px, prog.chunk, 2)
+        with scope("qr_panel_reduce"):
+            P = panel_reduce(k)
+        with scope("qr_reproject"):
+            W, P = reproject(P, k)
+        with scope("qr_panel_tsqr"):
+            Qp, Rp = _two_pass_tsqr(mesh, P, Px, prog.chunk, 2)
         return W, Qp, Rp
 
     def step(k, W, Qp, Rp):
@@ -309,10 +314,11 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
         c1 = fcol(k + 1)  # this rank's live columns are the suffix [c1, Nl)
 
         # ---- trailing projection C = Qp^H A (the first GS sweep) ------- #
-        C = torch.zeros((v, Nl), dtype=cdtype, device=dev)
-        if c1 < Nl:
-            C[:, c1:] = torch.matmul(Qp.mH, Aloc[:, c1:].to(cdtype))
-        mesh.psum(C, ("x", "z"))  # (v, Nl)
+        with scope("qr_trailing_c"):
+            C = torch.zeros((v, Nl), dtype=cdtype, device=dev)
+            if c1 < Nl:
+                C[:, c1:] = torch.matmul(Qp.mH, Aloc[:, c1:].to(cdtype))
+            mesh.psum(C, ("x", "z"))  # (v, Nl)
 
         # ---- trailing update A -= Qp C on this layer's z-slab ---------- #
         z_lo, z_hi = min(z * nlayr, v), min((z + 1) * nlayr, v)
@@ -331,33 +337,39 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
 
         nxt = None
         if z_hi > z_lo and prog.lookahead and slab:
-            run([(lj1, lj1 + v)])
+            # the next panel's slab GEMM is the next reduce's, as in the
+            # reference
+            with scope("qr_panel_reduce"):
+                run([(lj1, lj1 + v)])
             cuts = [c for c in cuts if c != (lj1, lj1 + v)]
 
         # ---- Q panel write (layer 0, column owner) --------------------- #
-        if y == yo:
-            Aloc[:, lj:lj + v] = Qp.to(dtype) if z0 else 0
+        with scope("qr_writes"):
+            if y == yo:
+                Aloc[:, lj:lj + v] = Qp.to(dtype) if z0 else 0
         if prog.lookahead and kn < k_end:
             # the next election reads the updated slab and the finished Q
             # columns only: no data dependence on the rest of the update
             nxt = elect(kn)
-        if z_hi > z_lo:
-            run(cuts)
+        with scope("qr_trailing_update"):
+            if z_hi > z_lo:
+                run(cuts)
 
         # ---- R writes: C into row tile k (live columns), Rp on the
         # diagonal block, W into column panel k (done rows) --------------- #
-        if z0 and x == xo:
-            Rloc[lir:lir + v, c1:] = C[:, c1:].to(dtype)
-            if y == yo:
-                Rloc[lir:lir + v, lj:lj + v] = Rp.to(dtype)
-        # W transpose-exchange: my R rows' corrections live on the y-rank
-        # owning that global column; a sum over y delivers them
-        take = (wsrc_y == y) & (grow_r < k * v)
-        Wr = torch.where(take[:, None], W.index_select(0, wsrc_col),
-                         torch.zeros((), dtype=cdtype, device=dev))
-        mesh.psum(Wr, "y")  # (Nlr, v), complete on every y
-        if z0 and y == yo:
-            Rloc[:, lj:lj + v] += Wr.to(dtype)
+        with scope("qr_writes"):
+            if z0 and x == xo:
+                Rloc[lir:lir + v, c1:] = C[:, c1:].to(dtype)
+                if y == yo:
+                    Rloc[lir:lir + v, lj:lj + v] = Rp.to(dtype)
+            # W transpose-exchange: my R rows' corrections live on the y-rank
+            # owning that global column; a sum over y delivers them
+            take = (wsrc_y == y) & (grow_r < k * v)
+            Wr = torch.where(take[:, None], W.index_select(0, wsrc_col),
+                             torch.zeros((), dtype=cdtype, device=dev))
+            mesh.psum(Wr, "y")  # (Nlr, v), complete on every y
+            if z0 and y == yo:
+                Rloc[:, lj:lj + v] += Wr.to(dtype)
         return nxt
 
     carry = None
@@ -394,9 +406,10 @@ def gemm_launches(geom: LUGeometry, csegs: int = 8, k0: int = 0,
                                        for k in range(k0, k1) for y in range(geom.grid.Py))
 
 
-def build_program(geom: LUGeometry, mesh=None, backend: str | None = None,
-                  chunk: int | None = None, donate: bool = False, csegs: int = 8,
-                  lookahead: bool = False, dtype=None) -> _Program:
+def build_program(geom: LUGeometry, mesh=None, precision=None, backend: str | None = None,
+                  chunk: int | None = None, donate: bool = False,
+                  resumable: bool = False, csegs: int = 8, lookahead: bool = False,
+                  dtype=None) -> _Program:
     """The block-cyclic QR program of one configuration, every default and
     argument check resolved here (`qr_factor_distributed` and
     `qr_factor_steps` go through it). Pass the input `dtype` the program
@@ -404,8 +417,11 @@ def build_program(geom: LUGeometry, mesh=None, backend: str | None = None,
     compute dtype (float64 halves it), so a resumed run chunks like the
     run it resumes, and the route is checked against it. `backend` picks
     the trailing GEMM ("kernel": K1, float32 and bfloat16; "xla": the
-    library product, any dtype; default the registry's). `mesh` is
-    accepted for the reference's signature."""
+    library product, any dtype; default the registry's). `mesh` and
+    `resumable` are accepted for the reference's signature (every program
+    takes the resume state R); `precision` is the JAX package's matmul
+    precision, at its position: None or "highest" (`blas.check_precision`)."""
+    blas.check_precision(precision)
     if geom.M < geom.N:
         raise ValueError(f"distributed QR needs M >= N, got {geom.M}x{geom.N}")
     backend = blas.check_backend(blas.get_backend() if backend is None else backend)
@@ -427,9 +443,9 @@ def _rank_shard(shards, geom, mesh, what: str = "shards") -> torch.Tensor:
     return distribute_shards(shards, mesh)
 
 
-def qr_factor_distributed(shards, geom: LUGeometry, mesh, backend: str | None = None,
-                          chunk: int | None = None, donate: bool = False, csegs: int = 8,
-                          lookahead: bool = False):
+def qr_factor_distributed(shards, geom: LUGeometry, mesh, precision=None,
+                          backend: str | None = None, chunk: int | None = None,
+                          donate: bool = False, csegs: int = 8, lookahead: bool = False):
     """Blocked QR of this rank's block-cyclic shard on the grid; every rank
     of `mesh`'s world calls it together. `shards` is this rank's (Ml, Nl)
     tensor (or the full (Px, Py, Ml, Nl) array).
@@ -443,13 +459,13 @@ def qr_factor_distributed(shards, geom: LUGeometry, mesh, backend: str | None = 
     the next panel's election from a separately updated column slab before
     the rest of the trailing update (bitwise the plain loop)."""
     shard = _rank_shard(shards, geom, mesh)
-    fn = build_program(geom, mesh, backend=backend, chunk=chunk, donate=donate,
+    fn = build_program(geom, mesh, precision, backend=backend, chunk=chunk, donate=donate,
                        csegs=csegs, lookahead=lookahead, dtype=shard.dtype)
     return fn(shard, mesh)
 
 
 def qr_factor_steps(shards, geom: LUGeometry, mesh, k0: int, k1: int, R=None,
-                    backend: str | None = None, chunk: int | None = None,
+                    precision=None, backend: str | None = None, chunk: int | None = None,
                     donate: bool = False, csegs: int = 8):
     """Factor column panels [k0, k1) only: checkpoint/restart for the QR
     loop. State = (shard, R): after k panels, columns with tile id < k hold
@@ -467,8 +483,8 @@ def qr_factor_steps(shards, geom: LUGeometry, mesh, k0: int, k1: int, R=None,
     shard = _rank_shard(shards, geom, mesh)
     if R is not None:
         R = _rank_shard(R, r_geometry(geom), mesh, "R")
-    fn = build_program(geom, mesh, backend=backend, chunk=chunk, donate=donate,
-                       csegs=csegs, dtype=shard.dtype)
+    fn = build_program(geom, mesh, precision, backend=backend, chunk=chunk, donate=donate,
+                       resumable=True, csegs=csegs, dtype=shard.dtype)
     return fn(shard, mesh, R, k0, k1)
 
 
@@ -478,8 +494,8 @@ def r_geometry(geom: LUGeometry) -> LUGeometry:
 
 
 def qr_blocked_distributed_host(A: np.ndarray, grid: Grid3, v: int, mesh=None,
-                                backend: str | None = None, chunk: int | None = None,
-                                device=None):
+                                precision=None, backend: str | None = None,
+                                chunk: int | None = None, *, device=None):
     """Host convenience, every rank together: scatter, factor, gather.
     Returns (Q (M, N), R (N, N), geom) for the original shape, as numpy on
     every rank. `mesh` defaults to `make_mesh(grid, device=device)`.
@@ -506,8 +522,8 @@ def qr_blocked_distributed_host(A: np.ndarray, grid: Grid3, v: int, mesh=None,
     if mesh is None:
         mesh = make_mesh(grid, device=device)
     shard = distribute_shards(geom.scatter(A), mesh)
-    Qs, Rs = qr_factor_distributed(shard, geom, mesh, backend=backend, chunk=chunk,
-                                   donate=True)
+    Qs, Rs = qr_factor_distributed(shard, geom, mesh, precision, backend=backend,
+                                   chunk=chunk, donate=True)
     Q = geom.gather(gather_shards(Qs, mesh).cpu().numpy())[:M, :N]
     # R's geometry pads its rows to whole tiles per x-rank; the pad tiles
     # are never written, so slicing restores the (N, N) contract

@@ -1,10 +1,20 @@
-"""Chaos soak of the port's serve fabric, against per-session float64
-oracles: the port's counterpart of `scripts/soak.py --fabric` and
-`--elastic`.
+"""Chaos soak of the port's serving stack, against per-session float64
+oracles: the port's counterpart of `scripts/soak.py --serve`, `--tier`,
+`--fabric` and `--elastic`, and of its `--lockcheck`.
 
+    python scripts/torch_soak.py --serve   [--trials 20] [--seed 0] [--platform cpu]
+    python scripts/torch_soak.py --tier    [--time-budget 30] [--lockcheck]
     python scripts/torch_soak.py --fabric  [--trials 20] [--seed 0] [--platform cpu]
     python scripts/torch_soak.py --elastic [--trials 20] [--seed 0] [--platform cpu]
     python scripts/torch_soak.py --fabric --replay SEED
+
+`--serve`: each trial serves a fleet of 1-3 (possibly drifted) sessions
+through a `ServeEngine` with the full `HealthPolicy` under the serve
+fault menu (NaN at staging, delays and crashes at dispatch, drain, d2h and
+refresh, forced-unhealthy verdicts), with clean, poisoned and born-expired
+requests. `--tier`: Zipf traffic over a fleet larger than the device tier
+through a `ResidentSet`-managed engine while the spill, revive, disk_write
+and disk_read sites inject crashes, delays and corrupt records.
 
 `--fabric`: each trial builds a `LocalHost` fabric (2-3 engine hosts, fast
 heartbeat, durable admission) and serves solve, drift-update and migrate
@@ -20,8 +30,13 @@ leave, kill and drain storms and the fabric and replicate fault menu.
 Invariants: failures are structured resilience errors only, every session
 answers against its own float64 oracle (a fail-over may legally revive its
 last durable state, nothing else), recovery windows end, and the session
-census is conserved with zero lost sessions. Each trial line carries its
-seed; `--replay SEED` re-runs one trial. Engines run on the card unless
+census is conserved with zero lost sessions (`--serve`/`--tier`: every
+future resolves, no pending slot leaks, the engine closes un-wedged, the
+tier conserves its session count). Each trial line carries its seed;
+`--replay SEED` re-runs one trial. `--lockcheck` runs the trials under
+`conflux_tpu_torch.analysis.lockcheck` (the locks of this process, not of
+fabric workers) and fails on a lock-order cycle or an engine lock held
+across a `serve.*` dispatch region. Engines run on the card unless
 `--platform cpu`. The exit status is the gate.
 """
 
@@ -40,6 +55,258 @@ import torch  # noqa: E402
 
 # the hosts' engine keywords; main() sets the device from --platform
 ENGINE: dict = {"max_batch_delay": 0.0}
+
+
+def run_serve_trial(seed: int) -> tuple[bool, str]:
+    """One chaos trial of the serving engine under injected faults.
+
+    A fleet of 1-3 (possibly drifted) sessions behind a `ServeEngine` with
+    the full `HealthPolicy` on, under a seeded `FaultPlan` sampled from the
+    serve menu (NaN at staging, delay/crash at dispatch, drain, d2h and
+    refresh, forced-unhealthy verdicts), serves mixed clean, poisoned and
+    born-expired traffic. Invariants (graceful degradation, never silent
+    corruption): every admitted request's future resolves; failures are
+    STRUCTURED resilience errors; answers match the float64 oracle of the
+    session's (possibly drifted) matrix; the engine closes un-wedged with
+    zero pending and coherent counters."""
+    from conflux_tpu_torch import resilience, serve
+    from conflux_tpu_torch.engine import EngineSaturated, ServeEngine
+    from conflux_tpu_torch.resilience import (
+        DeadlineExceeded,
+        FaultPlan,
+        FaultSpec,
+        HealthPolicy,
+        InjectedFault,
+        RhsNonFinite,
+        SessionQuarantined,
+        SolveUnhealthy,
+    )
+
+    rng = np.random.default_rng(seed)
+    serve.clear_plans()
+    N = int(rng.choice([32, 64]))
+    S = int(rng.integers(1, 4))
+    plan = serve.FactorPlan.create((N, N), torch.float32, v=16)
+    As, sessions = [], []
+    for _ in range(S):
+        A = (rng.standard_normal((N, N)) / np.sqrt(N) + 2.0 * np.eye(N)).astype(np.float32)
+        sess = plan.factor(A, device=ENGINE["device"])
+        if rng.integers(2):  # pre-traffic Woodbury drift on this session
+            k = int(rng.integers(1, 4))
+            U = (0.01 * rng.standard_normal((N, k))).astype(np.float32)
+            Vm = (0.01 * rng.standard_normal((N, k))).astype(np.float32)
+            sess.update(U, Vm)
+            A = A + U @ Vm.T
+        As.append(A.astype(np.float64))
+        sessions.append(sess)
+    # sample the fault menu AFTER the fleet is built, so set-up is clean
+    menu = [
+        FaultSpec("staging", "nan", prob=0.3, count=int(rng.integers(1, 4))),
+        FaultSpec("dispatch", "delay", prob=0.3, delay_s=0.002, count=3),
+        FaultSpec("drain", "crash", prob=0.5, count=1),
+        FaultSpec("d2h", "delay", prob=0.3, delay_s=0.002, count=3),
+        FaultSpec("d2h", "crash", prob=0.5, count=1),
+        FaultSpec("solve", "unhealthy", prob=0.4, count=int(rng.integers(1, 3))),
+        FaultSpec("refresh", "delay", prob=0.5, delay_s=0.002, count=2),
+    ]
+    picks = [m for m in menu if rng.integers(2)]
+    faults = FaultPlan(picks, seed=seed)
+    label = f"seed={seed} serve N={N} S={S} faults={[(f.site, f.kind) for f in picks]}"
+    eng = ServeEngine(
+        max_batch_delay=float(rng.choice([0.0, 0.002])), max_pending=64,
+        max_coalesce_width=8,
+        health=HealthPolicy(quarantine_after=2, quarantine_cooldown=0.05),
+        fault_plan=faults, watchdog_interval=0.05, device=ENGINE["device"])
+    resilience.install_faults(faults)  # the serve layer's 'refresh' site
+    reqs = []
+    try:
+        for _ in range(24):
+            si = int(rng.integers(S))
+            w = int(rng.choice([1, 1, 2, 3]))
+            b = rng.standard_normal((N, w)).astype(np.float32)
+            kind = int(rng.integers(8))
+            deadline = None
+            if kind == 0:  # poisoned at the source: admission guard food
+                b[int(rng.integers(N)), 0] = np.nan
+            elif kind == 1:  # born expired: lazy-eviction food
+                deadline = 0.0
+            try:
+                fut = eng.submit(sessions[si], b, deadline=deadline)
+            except (RhsNonFinite, SessionQuarantined, EngineSaturated):
+                continue  # structured admission outcomes are fine
+            reqs.append((si, b, fut))
+        wedged = eng.close(timeout=120)
+        if wedged:
+            return False, f"{label}: close() wedged {wedged}"
+    finally:
+        resilience.install_faults(None)
+        eng.close(timeout=10)
+    ok_exc = (RhsNonFinite, DeadlineExceeded, SolveUnhealthy, SessionQuarantined,
+              InjectedFault)
+    answered = 0
+    for si, b, fut in reqs:
+        if not fut.done():
+            return False, f"{label}: close() left a future unresolved"
+        try:
+            x = np.asarray(fut.result(0))
+        except ok_exc:
+            continue
+        except Exception as e:  # noqa: BLE001 — any other leak is a bug
+            return False, f"{label}: UNSTRUCTURED {type(e).__name__}: {e}"
+        want = np.linalg.solve(As[si], b.astype(np.float64))
+        err = np.linalg.norm(x - want) / max(np.linalg.norm(want), 1e-30)
+        if not err < 1e-3:
+            return False, f"{label}: answer off oracle ({err:.2e})"
+        answered += 1
+    stats = eng.stats()
+    if stats["pending"] != 0:
+        return False, f"{label}: {stats['pending']} pending slots leaked"
+    if stats["completed"] + stats["failed"] != stats["requests"]:
+        return False, f"{label}: counters incoherent {stats}"
+    h = resilience.health_stats()
+    return True, (f"{label}: ok {answered}/{len(reqs)} answered, "
+                  f"injected={sum(faults.injected.values())}, "
+                  f"redispatches={h['survivor_redispatches']}, evictions={h['evictions']}")
+
+
+def run_tier_trial(seed: int) -> tuple[bool, str]:
+    """One chaos trial of the tiered residency layer.
+
+    A Zipf-popular request stream drives a fleet far larger than the
+    device-resident capacity through a `ResidentSet`-managed engine while
+    the tier fault sites (spill, revive, disk_write, disk_read) inject
+    crashes, delays and record corruption. Invariants: every future
+    resolves with an answer or a STRUCTURED error; answers match each
+    session's own float64 oracle (a spill or revive that leaked state
+    between sessions would miss it); the managed session count is
+    conserved across tiers; the resident high-water respects the capacity
+    unless a spill crash was injected (a failed spill keeps its session
+    resident by design); the engine closes un-wedged with zero pending."""
+    import tempfile
+
+    from conflux_tpu_torch import serve, tier
+    from conflux_tpu_torch.engine import EngineSaturated, ServeEngine
+    from conflux_tpu_torch.resilience import (
+        DeadlineExceeded,
+        FaultPlan,
+        FaultSpec,
+        HealthPolicy,
+        InjectedFault,
+        RestoreCorrupt,
+        RhsNonFinite,
+        SessionQuarantined,
+        SessionSpilled,
+        SolveUnhealthy,
+    )
+
+    rng = np.random.default_rng(seed)
+    serve.clear_plans()
+    N = int(rng.choice([24, 32]))
+    F = int(rng.integers(6, 10))
+    C = int(rng.integers(1, 3))
+    plan = serve.FactorPlan.create((N, N), torch.float32, v=8)
+    As, fleet = [], []
+    for _ in range(F):
+        A = (rng.standard_normal((N, N)) / np.sqrt(N) + 2.0 * np.eye(N)).astype(np.float32)
+        sess = plan.factor(A, device=ENGINE["device"])
+        A64 = A.astype(np.float64)
+        if rng.integers(2):  # pre-traffic Woodbury drift on this session
+            k = int(rng.integers(1, 3))
+            U = (0.01 * rng.standard_normal((N, k))).astype(np.float32)
+            Vm = (0.01 * rng.standard_normal((N, k))).astype(np.float32)
+            sess.update(U, Vm)
+            A64 = A64 + U.astype(np.float64) @ Vm.astype(np.float64).T
+        As.append(A64)
+        fleet.append(sess)
+    menu = [
+        FaultSpec("spill", "crash", prob=0.3, count=2),
+        FaultSpec("spill", "delay", prob=0.3, delay_s=0.001, count=3),
+        FaultSpec("revive", "crash", prob=0.3, count=2),
+        FaultSpec("revive", "delay", prob=0.3, delay_s=0.001, count=3),
+        FaultSpec("disk_write", "nan", prob=0.3, count=1),
+        FaultSpec("disk_write", "crash", prob=0.3, count=1),
+        FaultSpec("disk_read", "crash", prob=0.4, count=1),
+    ]
+    picks = [m for m in menu if rng.integers(2)]
+    faults = FaultPlan(picks, seed=seed)
+    label = f"seed={seed} tier N={N} F={F} C={C} faults={[(f.site, f.kind) for f in picks]}"
+    pmf = 1.0 / np.arange(1, F + 1) ** 1.1
+    pmf /= pmf.sum()
+    ok_exc = (RhsNonFinite, DeadlineExceeded, SolveUnhealthy, SessionQuarantined,
+              InjectedFault, SessionSpilled, RestoreCorrupt)
+    with tempfile.TemporaryDirectory() as tmp:
+        rs = tier.ResidentSet(
+            max_sessions=C, host_max_sessions=max(2, F // 2), disk_dir=tmp,
+            evict_batch=max(1, C), max_concurrent_revives=2,
+            revive_refactor_rank=(1 if rng.integers(2) else None), fault_plan=faults)
+        eng = ServeEngine(
+            max_batch_delay=float(rng.choice([0.0, 0.002])), max_pending=64,
+            max_coalesce_width=8,
+            health=HealthPolicy(quarantine_after=3, quarantine_cooldown=0.05),
+            residency=rs, revive_wait=5.0, watchdog_interval=0.05,
+            device=ENGINE["device"])
+        rs.adopt(*fleet)
+        reqs = []
+        try:
+            for _ in range(28):
+                si = int(rng.choice(F, p=pmf))
+                w = int(rng.choice([1, 1, 2]))
+                b = rng.standard_normal((N, w)).astype(np.float32)
+                deadline = 0.0 if rng.integers(8) == 0 else None
+                if rng.integers(4) == 0:
+                    # a direct client-thread touch: the transparent
+                    # session-level revival path (engine-free)
+                    try:
+                        x = fleet[si].solve(b).cpu().numpy()
+                    except ok_exc:
+                        continue
+                    reqs.append((si, b, None, x))
+                    continue
+                try:
+                    fut = eng.submit(fleet[si], b, deadline=deadline)
+                except (RhsNonFinite, SessionQuarantined, EngineSaturated, SessionSpilled,
+                        RestoreCorrupt):
+                    continue
+                reqs.append((si, b, fut, None))
+            wedged = eng.close(timeout=120)
+            if wedged:
+                return False, f"{label}: close() wedged {wedged}"
+        finally:
+            eng.close(timeout=10)
+        answered = 0
+        for si, b, fut, x in reqs:
+            if fut is not None:
+                if not fut.done():
+                    return False, f"{label}: close() left a future unresolved"
+                try:
+                    x = np.asarray(fut.result(0))
+                except ok_exc:
+                    continue
+                except Exception as e:  # noqa: BLE001 — a leak is a bug
+                    return False, f"{label}: UNSTRUCTURED {type(e).__name__}: {e}"
+            want = np.linalg.solve(As[si], b.astype(np.float64))
+            err = np.linalg.norm(x - want) / max(np.linalg.norm(want), 1e-30)
+            if not err < 1e-3:
+                return False, (f"{label}: answer off its own oracle ({err:.2e}): "
+                               "cross-session corruption or a torn revive")
+            answered += 1
+        stats = eng.stats()
+        if stats["pending"] != 0:
+            return False, f"{label}: {stats['pending']} slots leaked"
+        st = rs.stats()
+        conserved = (st["resident_sessions"] + st["host_sessions"] + st["disk_sessions"]
+                     + st["corrupt_sessions"])
+        if conserved != F or st["managed_sessions"] != F:
+            return False, f"{label}: session count not conserved ({conserved}/{F}: {st})"
+        if st["resident_high_water"] > C and ("spill", "crash") not in faults.injected:
+            return False, (f"{label}: resident high-water {st['resident_high_water']} > "
+                           f"cap {C} with no spill fault injected")
+        h = tier.tier_stats()
+        return True, (f"{label}: ok {answered}/{len(reqs)} answered, "
+                      f"injected={sum(faults.injected.values())}, "
+                      f"spills={h['spills_host']}+{h['spills_disk']}d, "
+                      f"revives={h['revives_h2d']}h/{h['revives_refactor']}rf, "
+                      f"corrupt={st['corrupt_sessions']}")
 
 
 def run_fabric_trial(seed: int) -> tuple[bool, str]:
@@ -589,9 +856,63 @@ def run_elastic_trial(seed: int) -> tuple[bool, str]:
                   f"injected={sum(faults.injected.values())}")
 
 
+TRIALS = {"serve": run_serve_trial, "tier": run_tier_trial, "fabric": run_fabric_trial,
+          "elastic": run_elastic_trial}
+
+
+def soak(mode: str, trials: int = 20, seed: int = 0, time_budget: float | None = None,
+         keep_going: bool = False, lockcheck: bool = False, replay: int | None = None,
+         emit=print) -> dict:
+    """Run `mode`'s trials (seeds seed, seed+1, ...; or the one seed
+    `replay`) until `trials` ran, `time_budget` seconds passed or, without
+    `keep_going`, one failed; with `lockcheck` under
+    `conflux_tpu_torch.analysis.lockcheck.watch()` (this process's locks
+    only: fabric workers are processes of their own). Returns {"trials",
+    "fails", "seconds", "lockcheck": the watch's report or None}."""
+    import contextlib
+
+    trial = TRIALS[mode]
+    cm = contextlib.nullcontext(None)
+    if lockcheck:
+        from conflux_tpu_torch.analysis import lockcheck as lockcheck_mod
+
+        cm = lockcheck_mod.watch()
+    t0 = time.time()
+    ran = fails = 0
+    with cm as lc:
+        seeds = [replay] if replay is not None else range(seed, seed + trials)
+        for s in seeds:
+            if replay is None and time_budget and time.time() - t0 > time_budget:
+                emit(f"time budget reached after {ran} trials")
+                break
+            ok, msg = trial(s)
+            ran += 1
+            emit(("PASS " if ok else "FAIL ") + msg)
+            if not ok:
+                fails += 1
+                if not keep_going:
+                    break
+    rep = None
+    if lc is not None:
+        rep = lc.report()
+        emit(f"lockcheck: {rep['locks']} locks, {rep['acquisitions']} acquisitions, "
+             f"{rep['order_edges']} order edges, {rep['stash_edges']} victim-stash edges, "
+             f"{len(rep['violations'])} violation(s)")
+        for v in rep["violations"]:
+            emit("LOCKCHECK " + v)
+    return {"trials": ran, "fails": fails, "seconds": time.time() - t0, "lockcheck": rep}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--serve", action="store_true",
+                      help="the engine with the full HealthPolicy under the serve fault "
+                      "menu (staging NaN, dispatch/drain/d2h/refresh delays and crashes, "
+                      "unhealthy verdicts) over clean, poisoned and expired traffic")
+    mode.add_argument("--tier", action="store_true",
+                      help="Zipf traffic over a fleet larger than the device tier through a "
+                      "ResidentSet-managed engine, under the spill/revive/disk fault sites")
     mode.add_argument("--fabric", action="store_true",
                       help="kill/revive/migrate chaos over LocalHost fleets, then the shm "
                       "wire under its fault sites")
@@ -606,34 +927,24 @@ def main(argv=None) -> int:
     ap.add_argument("--replay", type=int, default=None,
                     help="re-run exactly one trial seed and exit")
     ap.add_argument("--keep-going", action="store_true")
+    ap.add_argument("--lockcheck", action="store_true",
+                    help="run the trials under conflux_tpu_torch.analysis.lockcheck: every "
+                    "lock the port creates is instrumented, and a lock-order cycle or an "
+                    "engine lock held across a serve.* dispatch region fails the soak")
     ap.add_argument("--platform", choices=("gpu", "cpu"), default="gpu")
     args = ap.parse_args(argv)
     if args.platform == "gpu" and not torch.cuda.is_available():
         print("torch_soak: no card (pass --platform cpu for the plain versions)")
         return 2
     ENGINE["device"] = "cpu" if args.platform == "cpu" else "cuda"
-    trial = run_elastic_trial if args.elastic else run_fabric_trial
-    if args.replay is not None:
-        ok, msg = trial(args.replay)
-        print(msg, flush=True)
-        return 0 if ok else 1
-    t0 = time.time()
-    fails = 0
-    i = -1
-    for i in range(args.trials):
-        if args.time_budget and time.time() - t0 > args.time_budget:
-            print(f"time budget reached after {i} trials", flush=True)
-            i -= 1
-            break
-        ok, msg = trial(args.seed + i)
-        print(("PASS " if ok else "FAIL ") + msg, flush=True)
-        if not ok:
-            fails += 1
-            if not args.keep_going:
-                break
-    print(f"torch_soak: {fails} failures / {i + 1} trials in {time.time() - t0:.0f}s "
-          f"on {ENGINE['device']}", flush=True)
-    return 1 if fails else 0
+    name = next(m for m in TRIALS if getattr(args, m))
+    out = soak(name, args.trials, args.seed, args.time_budget, args.keep_going,
+               args.lockcheck, args.replay, emit=lambda m: print(m, flush=True))
+    if args.replay is None:
+        print(f"torch_soak: {out['fails']} failures / {out['trials']} trials in "
+              f"{out['seconds']:.0f}s on {ENGINE['device']}", flush=True)
+    bad_locks = out["lockcheck"] is not None and out["lockcheck"]["violations"]
+    return 1 if out["fails"] or bad_locks else 0
 
 
 if __name__ == "__main__":

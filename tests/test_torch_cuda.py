@@ -1600,3 +1600,68 @@ def test_refactor_under_traffic_on_two_lanes_holds_to_the_drifted_matrix(cuda):
         bb, xx = torch.from_numpy(b).double(), torch.from_numpy(x).double()
         res = sorted(float((Av @ xx - bb).norm() / bb.norm()) for Av in versions[k])
         assert res[0] < 1e-4 and res[1] > 1e-3, res[:2]
+
+
+def test_phase_table_of_a_traced_grid_lu_attributes_every_k1_and_k2_launch(cuda, tmp_path):
+    """The grid LU at N=4096 (v=512, 1x1x1) traced on the card: every
+    phase of the reference's program in the table, every device event
+    counted once, every K1 launch under step6_dgemm and every K2 launch
+    under step1_pivoting, and the traced factor bitwise the untraced."""
+    from conflux_tpu_torch import profiler
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+    from conflux_tpu_torch.lu.distributed import build_program
+    from conflux_tpu_torch.parallel.mesh import make_mesh
+
+    geom = LUGeometry.create(4096, 4096, 512, Grid3(1, 1, 1))
+    mesh = make_mesh(Grid3(1, 1, 1))
+    A = _rand((4096, 4096), 71, cuda)
+    A.diagonal().add_(2.0)
+    prog = build_program(geom, mesh, dtype=torch.float32)
+    want, want_perm = prog(A, mesh)
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    with profiler.trace(str(tmp_path)):
+        got, perm = prog(A, mesh)
+    launched = dict(hk.LAUNCHES)
+    assert torch.equal(got, want) and torch.equal(perm, want_perm)
+    table = profiler.phase_table(str(tmp_path))
+    assert {"step0_reduce", "step1_pivoting", "step2_pivotrows", "step4_dtrsm",
+            "step5_dtrsm", "step6_dgemm", "step7_writes"} <= set(table)
+    durs = profiler._trace_durations(str(tmp_path))
+    assert sum(n for _ms, n in table.values()) == sum(n for _nm, _ms, n in durs.values())
+    phases = profiler.launch_phases(str(tmp_path))
+    k1 = [p for p, name, _ms, _n in phases.values()
+          if "gemm_tma_kernel" in name or "gemm_simt_kernel" in name]
+    k2 = [p for p, name, _ms, _n in phases.values() if "lu_block_kernel" in name]
+    assert len(k1) == launched["gemm"] > 0 and set(k1) == {"step6_dgemm"}
+    assert len(k2) == launched["lu_block"] > 0 and set(k2) == {"step1_pivoting"}
+
+
+def test_serve_engine_under_lockcheck_on_the_card(cuda):
+    """A short engine run on the card (a factor through the factor lane,
+    coalesced solves) under the runtime lock-order harness: no lock-order
+    cycle, no engine lock held across a serve.* dispatch region, answers
+    within the solve bar."""
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.analysis import lockcheck
+    from conflux_tpu_torch.engine import ServeEngine
+    from conflux_tpu_torch.resilience import HealthPolicy
+
+    serve.clear_plans()
+    rng = np.random.default_rng(72)
+    N = 256
+    A = (rng.standard_normal((N, N)) / 16 + 2.0 * np.eye(N)).astype(np.float32)
+    bs = [rng.standard_normal((N, w)).astype(np.float32) for w in (1, 2, 1, 4) * 4]
+    with lockcheck.watch() as lc:
+        plan = serve.FactorPlan.create((N, N), torch.float32, v=128)
+        eng = ServeEngine(max_batch_delay=0.002, health=HealthPolicy(),
+                          watchdog_interval=0.05)
+        try:
+            sess = eng.factor(plan, A, timeout=300)
+            xs = [f.result(300) for f in [eng.submit(sess, b) for b in bs]]
+        finally:
+            eng.close(timeout=300)
+    rep = lc.report()
+    assert rep["violations"] == [] and rep["acquisitions"] > 0, rep
+    for x, b in zip(xs, bs):
+        assert float(np.abs(A.astype(np.float64) @ x - b).max()) < 1e-4

@@ -113,6 +113,7 @@ def _port_files():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "scripts", "torch_lu_profile.py")
     yield os.path.join(REPO, "scripts", "torch_ckpt_roundtrip.py")
+    yield os.path.join(REPO, "scripts", "torch_soak.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -123,10 +124,13 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     rel = {os.path.relpath(p, REPO) for p in files}
-    # the JAX-free modules the port keeps its own copies of, and the
-    # checkpoint round trip's script, are walked like every other file
+    # the JAX-free modules the port keeps its own copies of (conflint's
+    # among them), and the checkpoint round trip's and the soak's scripts,
+    # are walked like every other file
     assert {"conflux_tpu_torch/tier.py", "conflux_tpu_torch/control.py",
-            "conflux_tpu_torch/io.py", "scripts/torch_ckpt_roundtrip.py"} <= rel
+            "conflux_tpu_torch/io.py", "conflux_tpu_torch/analysis/core.py",
+            "conflux_tpu_torch/analysis/rules.py", "conflux_tpu_torch/analysis/lockcheck.py",
+            "scripts/torch_ckpt_roundtrip.py", "scripts/torch_soak.py"} <= rel
     bad = []
     for path in files:
         with open(path) as f:
