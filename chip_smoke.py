@@ -275,7 +275,24 @@ Phases, each of which must pass or the script exits non-zero:
  40. `scripts/torch_soak.py --serve --lockcheck`, then `--tier
      --lockcheck`, 30 s each on the card: 0 failed trials, 0 lock-order
      cycles, 0 engine locks held across a serve.* dispatch region, K3 and
-     K4 launched under both.
+     K4 launched under both;
+ 41. matmul precision: the TF32 library product at 8192x1024.1024x8192
+     (its error between 10x the IEEE product's and the TF32 bar, both
+     times), HIGHEST bitwise `torch.matmul` with TF32 off, IEEE products
+     bitwise while another thread runs TF32 ones (200 rounds), kernel
+     plans at DEFAULT bitwise their HIGHEST plans with K1, K2, K3 and K4
+     held against their plain versions, the TF32 update in place into a
+     strided block of a larger matrix (2D and batched) against float64,
+     the grid LU at N=32768 on backend "xla" at HIGHEST and HIGH (ms,
+     residuals, per-phase tables with step6_dgemm), HIGH's residual at
+     N=8192 and 16384, two controls the TF32 bar must refuse (TF32
+     products skipped; operands rounded to bfloat16), and
+     `solve_distributed` at N=16384: HIGHEST with 3 classic sweeps within
+     1e-6, HIGH's classic sweeps and GMRES-IR within it or warning;
+ 42. the tuning sweep, `scripts/torch_tune.py`, at N=32768 --reps 1 on a
+     short config list (the autotune rule's segs 4x4 beside the default),
+     on backend "kernel" and on "xla", each config within its precision's
+     bar.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round (phase 29 reads the counts
@@ -4745,6 +4762,403 @@ def phase_lockcheck_soaks() -> dict:
     return total
 
 
+def _add_launches(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + int(n)
+
+
+# TF32 on an H100 SXM: 495 TFLOP/s dense (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12
+
+
+def _tf32_bar(K: int) -> float:
+    """The TF32 bar of a K-deep product's error relative to its largest
+    entry: TF32's eps (2^-10; unit roundoff 2^-11) times sqrt(K)."""
+    from conflux_tpu_torch.validation import TF32_EPS
+
+    return TF32_EPS * math.sqrt(K)
+
+
+def _grid_lu_at(level: str, backend: str, geom, mesh, make) -> tuple:
+    """(mean ms of 2 timed runs, residual, per-phase table of a traced run)
+    of the grid LU at `level` on `backend`."""
+    from conflux_tpu_torch import profiler
+    from conflux_tpu_torch.lu.distributed import lu_factor_distributed
+    from conflux_tpu_torch.validation import lu_residual_distributed
+
+    out = lu_factor_distributed(make(), geom, mesh, level, backend, donate=True)
+    del out
+    times = []
+    for _ in range(2):
+        A = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, perm = lu_factor_distributed(A, geom, mesh, level, backend, donate=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = lu_residual_distributed(make(), out, perm, geom, mesh)
+    del out, perm, A
+    A = make()
+    with tempfile.TemporaryDirectory(prefix="precision41-") as d:
+        with profiler.trace(d):
+            lu_factor_distributed(A, geom, mesh, level, backend, donate=True)
+        table = profiler.phase_table(d, phase_re=profiler._PHASE_RE)
+    del A
+    torch.cuda.empty_cache()
+    return sum(times) / len(times), res, table
+
+
+def phase_precision() -> dict:
+    """(41) Matmul precision on the card. (a) The TF32 library product
+    (`blas.gemm(..., "high", "xla")`, one cuBLAS call with its own TF32
+    compute type) at 8192x1024 . 1024x8192 f32: its error against a
+    float64 product between 10x the IEEE product's and the TF32 bar, both
+    times beside their bounds; the HIGHEST product bitwise `torch.matmul`
+    with TF32 off. (b) Two threads, 200 rounds each, IEEE and TF32
+    products at once: every IEEE result bitwise. (c) Kernel plans at
+    DEFAULT bitwise their HIGHEST plans: a (32, 1024, 1024) f32 LU plan
+    (K4, K3) and the HPL-MxP (4, 1024, 1024) plan with bf16 factors (K1,
+    K2, K3), every first K1, K2, K3 and K4 call at each shape held
+    against its plain version. (a') The grid programs' trailing update
+    at HIGH, C -= A B in place into a block of a larger matrix (ldc > N;
+    A and B strided views of the same matrix), 2D and batched: within
+    the TF32 product bar of a float64 product, the rest untouched.
+    (d) `lu_factor_distributed` at N=32768, v=1024, 1x1x1 on backend
+    "xla" at HIGHEST and HIGH: ms, residual (HIGHEST within
+    residual_bound(N, f32), HIGH within the TF32 bar) and the per-phase
+    table (phase 39's machinery), step6_dgemm of each; HIGH's residual at
+    N=8192 and 16384 within the bar; and two controls at N=32768 the bar
+    must refuse: every TF32 product skipped, and operands rounded to
+    bfloat16. (e) `solve_distributed` at N=16384 on backend "xla" against
+    the 1e-6 bar of `scripts/accuracy_demo.py`: HIGHEST with 3 classic
+    sweeps must reach it; the HIGH factor with 3 classic sweeps and under
+    GMRES-IR (`ir="gmres"`) must reach it or warn: a TF32 factor's
+    backward error is ~2^14 times float32's (0.3 at N=32768 on this
+    matrix), past what either converges from. Returns the launches."""
+    import threading
+    import warnings
+
+    from conflux_tpu_torch import serve
+    from conflux_tpu_torch.geometry import Grid3, LUGeometry
+    from conflux_tpu_torch.ops import blas
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+    from conflux_tpu_torch.parallel.mesh import make_mesh
+    from conflux_tpu_torch.lu.distributed import lu_factor_distributed
+    from conflux_tpu_torch.solvers import solve_distributed
+    from conflux_tpu_torch.validation import TF32_EPS, lu_residual_distributed, residual_bound
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    # (a) the product
+    M, K, N = 8192, 1024, 8192
+    g = torch.Generator(device="cuda").manual_seed(41)
+    a = torch.randn((M, K), generator=g, device="cuda")
+    b = torch.randn((K, N), generator=g, device="cuda")
+    ref = a.double() @ b.double()
+    scale = float(ref.abs().max())
+    calls = blas.TF32_CALLS
+    tf = blas.gemm(a, b, None, 1.0, 1.0, "high", "xla")
+    ie = blas.gemm(a, b, None, 1.0, 1.0, "highest", "xla")
+    torch.cuda.synchronize()
+    err_tf = float((tf.double() - ref).abs().max()) / scale
+    err_ie = float((ie.double() - ref).abs().max()) / scale
+    bar = _tf32_bar(K)
+    ms_tf = time_ms(lambda: blas.gemm(a, b, None, 1.0, 1.0, "high", "xla"), 10)
+    ms_ie = time_ms(lambda: blas.gemm(a, b, None, 1.0, 1.0, "highest", "xla"), 10)
+    flops = 2.0 * M * N * K
+    nbytes = 4.0 * (M * K + K * N + M * N)
+    bound_tf = 1e3 * max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
+    bound_ie = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    print(f"[precision 41] {M}x{K}.{K}x{N} f32 ({CARD}): TF32 (HIGH) {ms_tf:.3f} ms = "
+          f"{flops / ms_tf / 1e9:.1f} TFLOP/s (bound {bound_tf:.3f} ms), IEEE (HIGHEST) "
+          f"{ms_ie:.3f} ms = {flops / ms_ie / 1e9:.1f} TFLOP/s (bound {bound_ie:.3f} ms); max "
+          f"error over max |A B| against float64: TF32 {err_tf:.3e}, IEEE {err_ie:.3e}, TF32 "
+          f"bar {bar:.3e}; TF32 library calls {blas.TF32_CALLS - calls}", flush=True)
+    check(10 * err_ie <= err_tf <= bar,
+          f"precision 41: TF32 error {err_tf:.3e} not in [10 x {err_ie:.3e}, {bar:.3e}]")
+    check(blas.TF32_CALLS - calls == 12, "precision 41: HIGH did not take the TF32 product")
+    same = torch.equal(ie, a @ b)
+    print(f"[precision 41]   HIGHEST bitwise torch.matmul with TF32 off {same} "
+          f"(allow_tf32 {torch.backends.cuda.matmul.allow_tf32})", flush=True)
+    check(same and not torch.backends.cuda.matmul.allow_tf32,
+          "precision 41: the HIGHEST product is not IEEE torch.matmul")
+    # (b) two threads
+    a2, b2 = a[:2048].contiguous(), b[:, :2048].contiguous()
+    want = blas.gemm(a2, b2, None, 1.0, 1.0, "highest", "xla")
+    torch.cuda.synchronize()
+    bad: list = []
+    tf_done: list = []
+
+    def ieee():
+        torch.cuda.set_device(a2.device)
+        for i in range(200):
+            if not torch.equal(blas.gemm(a2, b2, None, 1.0, 1.0, "highest", "xla"), want):
+                bad.append(i)
+
+    def tf32():
+        torch.cuda.set_device(a2.device)
+        for _ in range(200):
+            blas.gemm(a2, b2, None, 1.0, 1.0, "high", "xla")
+        tf_done.append(True)
+
+    threads = [threading.Thread(target=ieee), threading.Thread(target=tf32)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    print(f"[precision 41]   two threads, 200 IEEE and 200 TF32 products at once: IEEE "
+          f"results not bitwise {len(bad)}", flush=True)
+    check(not bad and tf_done, f"precision 41: {len(bad)} IEEE products changed under TF32")
+    del a, b, ref, tf, ie, a2, b2, want
+    torch.cuda.empty_cache()
+    # (a') the grid programs' trailing update: in place into a block of a
+    # larger matrix, operands strided views of the same matrix
+    for shape, k, w in (((8192, 12288), 1024, 1024), ((4, 2048, 3072), 256, 256)):
+        S = torch.randn(shape, generator=g, device="cuda")
+        S0 = S.clone()
+        L21 = S[..., k + w:, k:k + w]
+        U12 = S[..., k:k + w, k + w:]
+        A22 = S[..., k + w:, k + w:]
+        prod = L21.double() @ U12.double()
+        want = A22.double() - prod
+        scale = float(prod.abs().max())
+        del prod
+        calls = blas.TF32_CALLS
+        blas.gemm(L21, U12, A22, -1.0, 1.0, "high", "xla", out=A22)
+        torch.cuda.synchronize()
+        err = float((A22.double() - want).abs().max()) / scale
+        outside = torch.ones_like(S, dtype=torch.bool)
+        outside[..., k + w:, k + w:] = False
+        kept = torch.equal(S[outside], S0[outside])
+        sbar = _tf32_bar(w)
+        print(f"[precision 41]   TF32 C -= A B in place, C {tuple(A22.shape)} of "
+              f"{tuple(S.shape)} (ldc {A22.stride(-2)}), A and B strided views: error over "
+              f"max |A B| {err:.3e} (bar {sbar:.3e}), rest untouched {kept}", flush=True)
+        check(err <= sbar and kept and blas.TF32_CALLS == calls + 1,
+              f"precision 41: strided TF32 update {tuple(S.shape)}: error {err:.3e}, "
+              f"untouched {kept}")
+        del S, S0, L21, U12, A22, want, outside
+        torch.cuda.empty_cache()
+    # (c) kernel plans at DEFAULT
+    rng_g = torch.Generator(device="cpu").manual_seed(42)
+    A = (torch.randn((32, 1024, 1024), generator=rng_g) / 32 + 2 * torch.eye(1024)).cuda()
+    rhs = torch.randn((32, 1024), generator=rng_g).cuda()
+    serve.clear_plans()
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    outs = {}
+    with _held_to_plain("precision 41", ("gemm", "lu_block", "btrsm", "batched_lu")):
+        for level in ("default", None):
+            p1 = serve.FactorPlan.create((32, 1024, 1024), torch.float32, v=256,
+                                         precision=level)
+            p2 = serve.FactorPlan.create((4, 1024, 1024), torch.float32, v=256,
+                                         factor_dtype=torch.bfloat16, refine=2,
+                                         precision=level)
+            outs[level] = (p1.factor(A).solve(rhs), p2.factor(A[:4]).solve(rhs[:4]))
+        torch.cuda.synchronize()
+    counts = dict(hk.LAUNCHES)
+    _add_launches(total, counts)
+    same = all(torch.equal(x, y) for x, y in zip(outs["default"], outs[None]))
+    print(f"[precision 41]   kernel plans at DEFAULT bitwise their HIGHEST plans {same} "
+          f"((32, 1024, 1024) LU; (4, 1024, 1024) bf16 factors, refine 2); launches {counts}",
+          flush=True)
+    check(same, "precision 41: a DEFAULT kernel plan differs from its HIGHEST plan")
+    check(all(counts[k] > 0 for k in ("gemm", "lu_block", "btrsm", "batched_lu")),
+          f"precision 41: a kernel of the plans never launched: {counts}")
+    del A, rhs, outs
+    serve.clear_plans()
+    torch.cuda.empty_cache()
+    # (d) the grid LU on backend "xla" at HIGHEST and HIGH
+    n, v = 32768, 1024
+    grid = Grid3(1, 1, 1)
+    geom = LUGeometry.create(n, n, v, grid)
+    mesh = make_mesh(grid)
+
+    def make():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        A = torch.randn((n, n), generator=gen, device="cuda")
+        A.diagonal().add_(2.0)
+        return A
+
+    rows = {}
+    for level in ("highest", "high"):
+        hk.reset_launches()
+        calls = blas.TF32_CALLS
+        ms, res, table = _grid_lu_at(level, "xla", geom, mesh, make)
+        counts = dict(hk.LAUNCHES)
+        _add_launches(total, counts)
+        rows[level] = (ms, res, table)
+        lbar = residual_bound(n, torch.float32, precision=level)
+        print(f"[precision 41] grid LU N=32768 v=1024 f32 1x1x1 backend xla precision "
+              f"{level} ({CARD}): {ms:.1f} ms = {2 / 3 * n ** 3 / ms / 1e6:.1f} GFLOP/s, "
+              f"residual {res:.3e} (bar {lbar:.3e}), TF32 calls {blas.TF32_CALLS - calls}, "
+              f"launches {counts}", flush=True)
+        print(f"[precision 41]   phases (device ms, events): "
+              + ", ".join(f"{k} {t[0]:.1f} ({t[1]})" for k, t in sorted(table.items())),
+              flush=True)
+        check(math.isfinite(res) and res <= lbar,
+              f"precision 41: grid LU at {level} residual {res:.3e} > {lbar:.3e}")
+        check(counts["gemm"] == 0 and counts["lu_block"] > 0,
+              f"precision 41: the xla grid LU ran K1 or no K2: {counts}")
+        check((blas.TF32_CALLS > calls) == (level == "high"),
+              f"precision 41: TF32 calls at {level}: {blas.TF32_CALLS - calls}")
+    # the TF32 bar's readings: sound HIGH factors at two smaller N, and two
+    # factors the bar must refuse (every TF32 product skipped; operands
+    # rounded to bfloat16, 8x TF32's roundoff)
+    for n_s in (8192, 16384):
+        geom_s = LUGeometry.create(n_s, n_s, v, grid)
+
+        def make_s(n_s=n_s):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            A = torch.randn((n_s, n_s), generator=gen, device="cuda")
+            A.diagonal().add_(2.0)
+            return A
+
+        out, perm = lu_factor_distributed(make_s(), geom_s, mesh, "high", "xla", donate=True)
+        res = lu_residual_distributed(make_s(), out, perm, geom_s, mesh)
+        sbar = residual_bound(n_s, torch.float32, precision="high")
+        print(f"[precision 41]   grid LU N={n_s} HIGH residual {res:.3e} = "
+              f"{res / (math.sqrt(n_s) * TF32_EPS):.2f} sqrt(N) 2^-10 (bar {sbar:.3e})",
+              flush=True)
+        check(res <= sbar, f"precision 41: grid LU N={n_s} HIGH residual {res:.3e} > {sbar:.3e}")
+        del out, perm
+    real = blas.tf32_gemm
+
+    def skipped(a, b, c=None, alpha=1.0, beta=1.0, *, out=None):
+        if c is not None and out is c and beta == 1.0:
+            return c
+        shape = (*torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]), a.shape[-2], b.shape[-1])
+        res = a.new_zeros(shape) if c is None else (beta * c).expand(shape)
+        return res if out is None else out.copy_(res)
+
+    def coarse(a, b, c=None, alpha=1.0, beta=1.0, *, out=None):
+        return real(a.to(torch.bfloat16).to(a.dtype), b.to(torch.bfloat16).to(b.dtype), c,
+                    alpha, beta, out=out)
+
+    hbar = residual_bound(n, torch.float32, precision="high")
+    for label, fake in (("TF32 products skipped", skipped),
+                        ("operands rounded to bfloat16", coarse)):
+        blas.tf32_gemm = fake
+        try:
+            out, perm = lu_factor_distributed(make(), geom, mesh, "high", "xla", donate=True)
+        finally:
+            blas.tf32_gemm = real
+        res = lu_residual_distributed(make(), out, perm, geom, mesh)
+        print(f"[precision 41]   grid LU N={n} HIGH, {label} (a control the bar must "
+              f"refuse): residual {res:.3e} (bar {hbar:.3e})", flush=True)
+        check(not res <= hbar, f"precision 41: the TF32 bar passed a factor with {label}")
+        del out, perm
+        torch.cuda.empty_cache()
+    s_hi = rows["highest"][2].get("step6_dgemm", (float("nan"), 0))[0]
+    s_tf = rows["high"][2].get("step6_dgemm", (float("nan"), 0))[0]
+    print(f"[precision 41]   step6_dgemm HIGHEST {s_hi:.1f} ms, HIGH {s_tf:.1f} ms; factor "
+          f"{rows['highest'][0]:.1f} -> {rows['high'][0]:.1f} ms; residual "
+          f"{rows['highest'][1]:.3e} -> {rows['high'][1]:.3e} "
+          f"(x{rows['high'][1] / rows['highest'][1]:.0f})", flush=True)
+    # (e) the refined solve at HIGH: classic sweeps and GMRES-IR, beside
+    # HIGHEST's classic sweeps (accuracy_demo.py's recipe)
+    n2 = 16384
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((n2, n2), generator=gen, device="cuda")
+    A.diagonal().add_(2.0)
+    rhs = torch.ones(n2, device="cuda")
+    solved, warned = {}, {}
+    for label, kw in (("highest classic refine 3", dict(refine=3, precision="highest")),
+                      ("high classic refine 3", dict(refine=3, precision="high")),
+                      ("high gmres", dict(ir="gmres", tol=1e-7, precision="high"))):
+        hk.reset_launches()
+        calls = blas.TF32_CALLS
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            x = solve_distributed(A, rhs, grid=grid, v=v, backend="xla", **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(hk.LAUNCHES)
+        _add_launches(total, counts)
+        r = rhs.double() - A.double() @ x
+        rel = float(torch.linalg.norm(r) / torch.linalg.norm(rhs.double()))
+        solved[label] = rel
+        warned[label] = any(issubclass(w.category, RuntimeWarning) for w in caught)
+        print(f"[precision 41] solve_distributed N=16384 v=1024 backend xla {label}: "
+              f"||A x - b|| / ||b|| {rel:.3e} (accuracy_demo.py's bar 1e-6), {secs:.2f} s, "
+              f"TF32 calls {blas.TF32_CALLS - calls}, launches {counts}"
+              + "".join(f"; {w.message}" for w in caught), flush=True)
+        del x, r
+    check(solved["highest classic refine 3"] <= 1e-6,
+          f"precision 41: HIGHEST refine 3 reached {solved['highest classic refine 3']:.3e}")
+    # no silent miss: a HIGH solve reaches the bar or warns (classic sweeps
+    # that diverged, a GMRES-IR stall)
+    check(all(rel <= 1e-6 or warned[label] for label, rel in solved.items()),
+          f"precision 41: a refined solve missed 1e-6 without a warning: {solved}, "
+          f"warned {warned}")
+    del A, rhs
+    torch.cuda.empty_cache()
+    print(f"[precision 41] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def _tune_module():
+    """`scripts/torch_tune.py` as a module (its `main(argv, results)`)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_tune.py")
+    spec = importlib.util.spec_from_file_location("torch_tune", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_sweep() -> dict:
+    """(42) The tuning sweep (`scripts/torch_tune.py`) on the card: LU at
+    N=32768 on 1x1x1 with --reps 1 over a short config list (HIGHEST and
+    HIGH at chunk 8192, v=1024; HIGHEST at chunk 4096; HIGHEST with the
+    autotune rule's segs 4x4), once on the default "kernel" backend and
+    once on "xla", where HIGH is the TF32 product. Every config must run
+    within the bar of its precision: residual_bound(N, f32), or the TF32
+    bar where it ran TF32. Prints the rule's 4x4 beside the default
+    segments on each backend. Returns the launches."""
+    from conflux_tpu_torch.ops import blas
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    t_phase = time.perf_counter()
+    mod = _tune_module()
+    total: dict = {}
+    prev = blas.get_backend()
+    rows: list = []
+    try:
+        for backend in ("kernel", "xla"):
+            blas.set_backend(backend)
+            torch.cuda.synchronize()
+            hk.reset_launches()
+            print(f"[sweep 42] torch_tune.py on backend {backend} ({CARD}):", flush=True)
+            rc = mod.main(["-N", "32768", "--reps", "1", "--configs",
+                           "highest:8192:1024,high:8192:1024,highest:4096:1024,"
+                           "highest:8192:1024:4x4"], rows)
+            torch.cuda.synchronize()
+            counts = dict(hk.LAUNCHES)
+            _add_launches(total, counts)
+            check(rc == 0, f"sweep 42: torch_tune.py on {backend} exited {rc}")
+            print(f"[sweep 42]   launches {counts}", flush=True)
+            check(counts["lu_block"] > 0 and (counts["gemm"] > 0) == (backend == "kernel"),
+                  f"sweep 42: launches on {backend}: {counts}")
+    finally:
+        blas.set_backend(prev)
+    check(len(rows) == 8 and all(r["meets_bar"] for r in rows),
+          f"sweep 42: {len(rows)} configs, one missed the bar of its precision: "
+          + ", ".join(f"{r['backend']} {r['precision']} {r['residual']:.3e}" for r in rows))
+    for backend in ("kernel", "xla"):
+        lib, rule = (next(r for r in rows if r["backend"] == backend and r["precision"]
+                          == "highest" and r["panel_chunk"] == 8192 and r["segs"] == segs)
+                     for segs in (None, (4, 4)))
+        print(f"[sweep 42]   {backend}: the autotune rule's segs 4x4 {rule['gflops']:.1f} "
+              f"GFLOP/s against the default 16x16's {lib['gflops']:.1f} (--reps 1)", flush=True)
+    torch.cuda.empty_cache()
+    print(f"[sweep 42] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     device = phase_device()
     # importing the port only after the card check: without a card, or in a
@@ -4813,7 +5227,9 @@ def main() -> int:
     c38 = phase_lanes()
     c39 = phase_phase_tables()
     c40 = phase_lockcheck_soaks()
-    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38, c39, c40)
+    c41 = phase_precision()
+    c42 = phase_sweep()
+    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38, c39, c40, c41, c42)
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"] + sum(c.get("gemm", 0) for c in late)
     k2["launches"] += cf["lu_block"] + cl["lu_block"] + sum(c.get("lu_block", 0) for c in late)
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]

@@ -92,6 +92,8 @@ def __getattr__(name):
         "make_hpd_matrix": ("conflux_tpu_torch.validation", "make_hpd_matrix"),
         "set_backend": ("conflux_tpu_torch.ops.blas", "set_backend"),
         "set_panel_algo": ("conflux_tpu_torch.ops.blas", "set_panel_algo"),
+        "set_matmul_precision": ("conflux_tpu_torch.ops.blas", "set_matmul_precision"),
+        "matmul_precision": ("conflux_tpu_torch.ops.blas", "matmul_precision"),
         "lu_residual": ("conflux_tpu_torch.validation", "lu_residual"),
         "lu_residual_device": (
             "conflux_tpu_torch.validation", "lu_residual_device"),
@@ -219,6 +221,8 @@ __all__ = [
     "make_hpd_matrix",
     "set_backend",
     "set_panel_algo",
+    "set_matmul_precision",
+    "matmul_precision",
     "lu_residual",
     "lu_residual_device",
     "cholesky_residual",

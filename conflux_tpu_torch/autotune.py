@@ -9,10 +9,11 @@ session on the card changes dispatch by committing a data file. Lookup is
 most-specific-wins (device > P > dtype > bounded N range), later-loaded
 rules beating built-ins on ties.
 
-Rules exist only where measurements of this port exist. The built-in table
-holds the library defaults alone: no measurement of the port is a rule
-yet, and the JAX package's rules, measured on a TPU and on its CPU mesh,
-are not the port's. `recommended()` says so in its provenance.
+Rules exist only where measurements of this port exist: the library
+defaults, and the grid LU on one H100 that `scripts/torch_tune.py`
+measured. The JAX package's rules, measured on a TPU and on its CPU mesh,
+are not the port's. `recommended()` names its rule's measurement, or says
+that none exists, in its provenance.
 """
 
 from __future__ import annotations
@@ -68,16 +69,27 @@ class Recommendation:
 # each miniapp's own (Cholesky's memory heuristic), and None knobs never
 # overwrite (`cli.common.apply_auto`)
 _DEFAULTS = {
-    "lu": dict(v=None, panel_chunk=None, segs=(16, 16), tree="pairwise",
-               update="segments", lookahead=False, election="gather"),
-    "cholesky": dict(v=None, segs=(8, 8), lookahead=False),
-    "qr": dict(v=None, csegs=8, lookahead=False, tree="gather"),
+    "lu": dict(precision="highest", v=None, panel_chunk=None, segs=(16, 16),
+               tree="pairwise", update="segments", lookahead=False, election="gather"),
+    "cholesky": dict(precision="highest", v=None, segs=(8, 8), lookahead=False),
+    "qr": dict(precision="highest", v=None, csegs=8, lookahead=False, tree="gather"),
 }
 
 _BUILTIN_RULES: list[Rule] = [
-    Rule(algo=a, knobs=_DEFAULTS[a],
-         provenance="library defaults — no measurement matches this configuration")
-    for a in _VALID_ALGOS
+    *[Rule(algo=a, knobs=_DEFAULTS[a],
+           provenance="library defaults — no measurement matches this configuration")
+      for a in _VALID_ALGOS],
+    # ----- one H100, the grid LU on 1x1x1: scripts/torch_tune.py -----
+    Rule(algo="lu", device=("h100",), P=1, n_lo=8192, n_hi=32768, dtype="float32",
+         knobs=dict(_DEFAULTS["lu"], v=1024, panel_chunk=8192, segs=(4, 4)),
+         provenance="scripts/torch_tune.py --reps 3 on an NVIDIA H100 80GB HBM3 (power "
+         "limit 700.00 W), backend kernel: N=32768 segs=4x4 21643-21991 GFLOP/s against "
+         "the 16x16 default's 20529-20884 (4 runs each, alternating; residual 1.841e-05 "
+         "either way, segments change no bit), N=16384 12053 against 7001, N=8192 5320 "
+         "against 4475; chunk 8192 beat 4096 and 12288, v=1024 beat 512 and 2048; "
+         "backend xla at N=32768 (--reps 3, alternating): segs=4x4 21474-21613 against "
+         "16x16's 21175-21296; precision=highest: a TF32 factor (HIGH on backend xla) "
+         "reads 2.997e-01 at N=32768, past residual_bound(N, float32)"),
 ]
 
 _loaded_rules: list[Rule] = []

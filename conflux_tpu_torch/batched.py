@@ -447,7 +447,16 @@ def _rhs_3d(b: torch.Tensor, B: int, N: int):
     raise ValueError(f"rhs must be (B, N) or (B, N, k), got {tuple(b.shape)}")
 
 
-def lu_factor_batched(A: torch.Tensor, v: int, *, mesh=None,
+def _resolve(precision, backend):
+    """(precision, backend) with None read from the registry, as the JAX
+    package's `_resolve`."""
+    precision = blas.matmul_precision() if precision is None else precision
+    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    blas.resolve_precision(precision)
+    return precision, backend
+
+
+def lu_factor_batched(A: torch.Tensor, v: int, *, mesh=None, precision=None,
                       backend: str | None = None):
     """Pivoted LU of a (B, N, N) batch: (LU (B, N, N), perm (B, N)) with
     A[i][perm[i]] == L_i @ U_i. Backend "kernel" with float32 or float64
@@ -456,35 +465,39 @@ def lu_factor_batched(A: torch.Tensor, v: int, *, mesh=None,
     registry's panel algo. With a `batch_mesh` each shard runs that
     factor on its device (K4 once per shard on "kernel": the JAX
     package's Pallas-under-sharding exclusion is dropped), and the
-    result comes back gathered on the mesh's first device."""
+    result comes back gathered on the mesh's first device. `precision`
+    reaches the blocked factor's library products; K4 takes none."""
     from conflux_tpu_torch.lu.single import lu_factor_blocked
 
     _check_batch(A, v, mesh)
-    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    precision, backend = _resolve(precision, backend)
     if mesh is not None:
-        return _on_mesh(lambda a: lu_factor_batched(a, v, backend=backend), mesh, (A,),
+        return _on_mesh(lambda a: lu_factor_batched(a, v, precision=precision,
+                                                    backend=backend), mesh, (A,),
                         A.shape[0])
     if _kernel_factor_eligible(A, backend):
         return blas.batched_lu_factor(A, backend=backend)
-    return lu_factor_blocked(A, v, backend=backend)
+    return lu_factor_blocked(A, v, precision, backend)
 
 
-def cholesky_factor_batched(A: torch.Tensor, v: int, *, mesh=None,
+def cholesky_factor_batched(A: torch.Tensor, v: int, *, mesh=None, precision=None,
                             backend: str | None = None):
     """Lower Cholesky factors of a (B, N, N) SPD batch: L (B, N, N), strict
     upper parts zero. Backend "kernel" with float32 or float64 runs the K5
     kernel (`blas.batched_cholesky_factor`); any other batch the batched
-    blocked factor (`cholesky.single.cholesky_blocked`)."""
+    blocked factor (`cholesky.single.cholesky_blocked`), its library
+    products at `precision` (K5 takes none)."""
     from conflux_tpu_torch.cholesky.single import cholesky_blocked
 
     _check_batch(A, v, mesh)
-    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    precision, backend = _resolve(precision, backend)
     if mesh is not None:
-        return _on_mesh(lambda a: cholesky_factor_batched(a, v, backend=backend), mesh,
+        return _on_mesh(lambda a: cholesky_factor_batched(a, v, precision=precision,
+                                                          backend=backend), mesh,
                         (A,), A.shape[0])
     if _kernel_factor_eligible(A, backend):
         return blas.batched_cholesky_factor(A, backend=backend)
-    return cholesky_blocked(A, v, backend=backend)
+    return cholesky_blocked(A, v, precision, backend)
 
 
 def lu_solve_batched(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor, *,
@@ -524,8 +537,8 @@ def cholesky_solve_batched(L: torch.Tensor, b: torch.Tensor, *, mesh=None) -> to
     return x[:, :, 0] if squeeze else x
 
 
-def _batched_corr(spd: bool, substitution: str, backend: str, Af: torch.Tensor,
-                  v: int, panel_algo: str):
+def _batched_corr(spd: bool, substitution: str, precision, backend: str,
+                  Af: torch.Tensor, v: int, panel_algo: str):
     """Factor a (B, N, N) batch with the blocked body and return its
     substitution closure r -> A^{-1} r. `substitution='blocked'` runs a
     whole solve round in one K3 launch (`hopper_kernels.btrsm_pair`, the
@@ -538,12 +551,12 @@ def _batched_corr(spd: bool, substitution: str, backend: str, Af: torch.Tensor,
 
     cdtype = blas.compute_dtype(Af.dtype)
     if spd:
-        L = cholesky_blocked(Af, v, backend=backend)
+        L = cholesky_blocked(Af, v, precision, backend)
         if substitution != "blocked":
             return lambda r: cholesky_solve_batched(L, r)
         Dl = diag_block_inverses(L.to(cdtype), lower=True)
         return lambda r: hopper_kernels.btrsm_pair(L, Dl, None, r.to(cdtype), trans_back=True)
-    LU, perm = lu_factor_blocked(Af, v, backend=backend, panel_algo=panel_algo)
+    LU, perm = lu_factor_blocked(Af, v, precision, backend, panel_algo=panel_algo)
     if substitution != "blocked":
         return lambda r: lu_solve_batched(LU, perm, r)
     LUc = LU.to(cdtype)
@@ -553,7 +566,7 @@ def _batched_corr(spd: bool, substitution: str, backend: str, Af: torch.Tensor,
 
 
 def solve_batched(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtype=None,
-                  refine: int = 0, spd: bool = False, mesh=None,
+                  refine: int = 0, spd: bool = False, mesh=None, precision=None,
                   backend: str | None = None, substitution: str = "trsm") -> torch.Tensor:
     """Solve B independent systems A[i] x[i] = b[i]: the batched
     counterpart of `solvers.solve` (the same `factor_dtype` / `refine`
@@ -562,7 +575,8 @@ def solve_batched(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtyp
     is factored in `factor_dtype` by the blocked body (as the JAX
     package's vmapped program does, whatever the backend), substituted
     by `substitution` ('trsm' or 'blocked'), and `refine` classic sweeps
-    take their residuals in A's compute dtype."""
+    take their residuals in A's compute dtype, IEEE at every `precision`
+    (which reaches the factor's library products)."""
     if substitution not in ("trsm", "blocked"):
         raise ValueError(f"unknown substitution {substitution!r} (trsm|blocked)")
     _check_batched_square(A)
@@ -573,14 +587,16 @@ def solve_batched(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtyp
         raise ValueError(f"N={N} not a multiple of tile size v={v}; pre-pad the batch "
                          "with an identity extension (cf. solvers.solve)")
     b3, squeeze = _rhs_3d(b, B, N)
-    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    precision, backend = _resolve(precision, backend)
     if mesh is not None:
         x = _on_mesh(lambda a, r: solve_batched(
             a, r, v=v, factor_dtype=factor_dtype, refine=refine, spd=spd,
-            backend=backend, substitution=substitution), mesh, (A, b3), B)
+            precision=precision, backend=backend, substitution=substitution),
+            mesh, (A, b3), B)
         return x[:, :, 0] if squeeze else x
     fdtype = A.dtype if factor_dtype is None else factor_dtype
-    corr = _batched_corr(spd, substitution, backend, A.to(fdtype), v, blas.get_panel_algo())
+    corr = _batched_corr(spd, substitution, precision, backend, A.to(fdtype), v,
+                         blas.get_panel_algo())
     cdtype = blas.compute_dtype(A.dtype)
     Ac, bc = A.to(cdtype), b3.to(cdtype)
     x = corr(b3).to(cdtype)
@@ -592,7 +608,7 @@ def solve_batched(A: torch.Tensor, b: torch.Tensor, *, v: int = 256, factor_dtyp
 def solve_updated_batched(A: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
                           b: torch.Tensor, *, v: int = 256, factor_dtype=None,
                           refine: int = 0, spd: bool = False, mesh=None,
-                          backend: str | None = None,
+                          precision=None, backend: str | None = None,
                           substitution: str = "trsm") -> torch.Tensor:
     """Solve B drifted systems (A[i] + U[i] V[i]^H) x[i] = b[i]: the
     batched counterpart of `solvers.solve_updated`. A is (B, N, N), U and V
@@ -615,13 +631,15 @@ def solve_updated_batched(A: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
         raise ValueError(f"N={N} not a multiple of tile size v={v}; pre-pad the batch "
                          "with an identity extension (cf. solvers.solve)")
     b3, squeeze = _rhs_3d(b, B, N)
-    backend = blas.check_backend(blas.get_backend() if backend is None else backend)
+    precision, backend = _resolve(precision, backend)
     if mesh is not None:
         x = _on_mesh(lambda a, u, w, r: solve_updated_batched(
             a, u, w, r, v=v, factor_dtype=factor_dtype, refine=refine, spd=spd,
-            backend=backend, substitution=substitution), mesh, (A, U, V, b3), B)
+            precision=precision, backend=backend, substitution=substitution),
+            mesh, (A, U, V, b3), B)
         return x[:, :, 0] if squeeze else x
     fdtype = A.dtype if factor_dtype is None else factor_dtype
-    base = _batched_corr(spd, substitution, backend, A.to(fdtype), v, blas.get_panel_algo())
+    base = _batched_corr(spd, substitution, precision, backend, A.to(fdtype), v,
+                         blas.get_panel_algo())
     x = woodbury_solve(base, A if refine else None, U, V, b3, refine=refine)
     return x[:, :, 0] if squeeze else x

@@ -54,12 +54,16 @@ def _live_root() -> str | None:
     return None
 
 
-def enable_persistent_cache(path: str | None = None) -> str | None:
+def enable_persistent_cache(path: str | None = None, *,
+                            min_compile_secs: float = 10.0) -> str | None:
     """Point the kernel and host library builds at the cache root `path`
     (default :func:`default_cache_dir`), creating it on demand. Returns
     the live root, or None when it cannot be made (the builds then stay
     in the package directory). Safe to call many times: the first call
-    wins, and once a library has loaded its root is the live one."""
+    wins, and once a library has loaded its root is the live one.
+    `min_compile_secs` is the JAX package's admission threshold for XLA
+    compiles; the port's builds have no compile-time threshold (each
+    library is one build, always kept), so it is accepted and unused."""
     global _ENABLED_AT
     if _ENABLED_AT is not None:
         return _ENABLED_AT

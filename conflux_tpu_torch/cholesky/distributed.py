@@ -52,7 +52,7 @@ def _ht(x: torch.Tensor) -> torch.Tensor:
 
 
 def _factor(geom: CholeskyGeometry, shard: torch.Tensor, mesh, backend: str, donate: bool,
-            lookahead: bool, segs: tuple, k0: int, k_end: int) -> torch.Tensor:
+            lookahead: bool, segs: tuple, k0: int, k_end: int, precision) -> torch.Tensor:
     v = geom.v
     Px, Py = geom.grid.Px, geom.grid.Py
     Ml, Nl = geom.Ml, geom.Nl
@@ -144,8 +144,8 @@ def _factor(geom: CholeskyGeometry, shard: torch.Tensor, mesh, backend: str, don
         def run(ps):
             for ra, rb, ca, cb in ps:
                 blk = Aloc[ra:rb, ca:cb]
-                blas.gemm(L10s[ra - r1:rb - r1], LcsT[:, ca - c1:cb - c1], c=blk,
-                          alpha=-1.0, beta=1.0, backend=backend, out=blk)
+                blas.gemm(L10s[ra - r1:rb - r1], LcsT[:, ca - c1:cb - c1], blk, -1.0, 1.0,
+                          precision, backend, out=blk)
 
         if lookahead and kn < k_end:
             # the next panel's column slab first: its sum over (y, z) has no
@@ -185,9 +185,10 @@ def build_program(geom: CholeskyGeometry, mesh=None, precision=None,
     `cholesky_factor_steps` go through it): a callable (shard, mesh, k0,
     k1) -> shard_out. `backend` picks the trailing GEMM ("kernel": K1,
     "xla": the library product; default the registry's). `precision` is
-    the JAX package's matmul precision, at its position: None or
-    "highest" (`blas.check_precision`)."""
-    blas.check_precision(precision)
+    the library trailing update's (`blas.gemm`; None: the registry's):
+    DEFAULT and HIGH run it as one TF32 pass on the card, K1 is IEEE
+    float32 at every level."""
+    precision = blas.resolve_precision(precision)
     backend = blas.check_backend(blas.get_backend() if backend is None else backend)
     blas.check_gemm_route(backend, torch.float32 if dtype is None else dtype)
     if len(segs) != 2 or segs[0] < 1 or segs[1] < 1:
@@ -198,7 +199,8 @@ def build_program(geom: CholeskyGeometry, mesh=None, precision=None,
 
     def program(shard, mesh, k0: int = 0, k1: int | None = None):
         k1 = geom.Kappa if k1 is None else k1
-        return _factor(geom, shard, mesh, backend, donate, lookahead, segs, k0, k1)
+        return _factor(geom, shard, mesh, backend, donate, lookahead, segs, k0, k1,
+                       precision)
 
     return program
 

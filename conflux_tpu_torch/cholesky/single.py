@@ -32,10 +32,11 @@ def cholesky_blocked(A: torch.Tensor, v: int, precision=None,
     panel below it (`trsm_right_lower_t`) and updates the whole trailing
     square, A22 -= L10 L10^H, as the JAX package does: one K1 launch per
     system on "kernel", one batched library product on "xla". `precision`
-    is the JAX package's matmul precision, at its position: None or
-    "highest" (`blas.check_precision`).
+    is the library product's (`blas.gemm`; None: the registry's): DEFAULT
+    and HIGH run it as one TF32 pass on the card, K1 is IEEE float32 at
+    every level.
     """
-    blas.check_precision(precision)
+    precision = blas.resolve_precision(precision)
     batched = A.dim() == 3
     if A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"matrix must be square, got {tuple(A.shape)}")
@@ -66,9 +67,9 @@ def cholesky_blocked(A: torch.Tensor, v: int, precision=None,
             if backend == "kernel":
                 for i in range(X.shape[0]):
                     Li = L10[i].contiguous()
-                    blas.gemm(Li, Li.T.contiguous(), c=trail[i], alpha=-1.0,
-                              backend=backend, out=trail[i])
+                    blas.gemm(Li, Li.T.contiguous(), trail[i], -1.0, 1.0, precision,
+                              backend, out=trail[i])
             else:
-                blas.gemm(L10, L10.mH, c=trail, alpha=-1.0, backend=backend, out=trail)
+                blas.gemm(L10, L10.mH, trail, -1.0, 1.0, precision, backend, out=trail)
     X.tril_()
     return X if batched else X[0]

@@ -287,34 +287,30 @@ class LUGeometry:
 # Cholesky geometry
 # --------------------------------------------------------------------------- #
 
-# The JAX package's constants for the tile pick: 4-byte elements and a TPU's
-# 16 GiB of memory, kept so both packages pick the same v.
-_TILE_ITEMSIZE = 4
-_TILE_MEMORY_BYTES = 16 << 30
-
-
-def choose_cholesky_tile(N: int, P: int) -> int:
+def choose_cholesky_tile(N: int, P: int, *, itemsize: int = 4,
+                         hbm_bytes: int = 16 << 30) -> int:
     """Tile-size heuristic for Cholesky (the JAX package's, value for
-    value, so both packages pick the same v).
+    value, so both packages pick the same v; its defaults are 4-byte
+    elements and a TPU's 16 GiB of memory).
 
     The reference derives v from a memory ratio: it grows the tile until
     the per-rank tile buffers reach a target fraction of the rank's memory
     (`Cholesky.cpp:116-134`). v is grown from 128 while (a) the panel slab
-    (Ml x v) stays under ~1/8 of the local matrix share (~N^2/P elements),
-    and (b) at least two tile columns per device axis remain; it is capped
-    at 1024.
+    (Ml x v) stays under ~1/8 of the local matrix share (~N^2/P elements
+    of `itemsize` bytes, at most `hbm_bytes`), and (b) at least two tile
+    columns per device axis remain; it is capped at 1024.
     """
     if N <= 0:
         return max(1, N)
     px = max(1, math.isqrt(P))
-    local_share = min(max(1, N * N // max(1, P)) * _TILE_ITEMSIZE, _TILE_MEMORY_BYTES)
+    local_share = min(max(1, N * N // max(1, P)) * itemsize, hbm_bytes)
     v = 128
     while v * 2 <= 1024:
         nv = v * 2
         ml = -(-N // (nv * px)) * nv  # local panel height at tile nv
         if N // (nv * px) < 2:  # (b) keep >= 2 tile cols per device
             break
-        if ml * nv * _TILE_ITEMSIZE * 8 > local_share:  # (a) slab <= 1/8 share
+        if ml * nv * itemsize * 8 > local_share:  # (a) slab <= 1/8 share
             break
         v = nv
     return min(v, max(1, N))

@@ -125,6 +125,7 @@ class _Program:
     segs: tuple
     tree: str
     update: str
+    precision: object  # blas.Precision of the library products
 
     def __call__(self, shard: torch.Tensor, mesh, orig=None, k0: int = 0, k1: int | None = None):
         k1 = self.geom.n_steps if k1 is None else k1
@@ -218,8 +219,8 @@ def _factor(prog: _Program, shard: torch.Tensor, mesh, orig, k0: int, k_end: int
 
     def gemm_piece(L10s, U01s, r1, c1, ra, rb, ca, cb):
         blk = Aloc[ra:rb, ca:cb]
-        blas.gemm(L10s[ra - r1:rb - r1], U01s[:, ca - c1:cb - c1], c=blk, alpha=-1.0,
-                  beta=1.0, backend=prog.backend, out=blk)
+        blas.gemm(L10s[ra - r1:rb - r1], U01s[:, ca - c1:cb - c1], blk, -1.0, 1.0,
+                  prog.precision, prog.backend, out=blk)
 
     def step(k, panel, lu00, wpos):
         """Superstep k on this rank, given its panel and the election;
@@ -374,11 +375,12 @@ def build_program(geom: LUGeometry, mesh=None, precision=None, backend: str | No
     ("kernel": K2, float32 with v a multiple of 128; "auto", "partial" or
     "tournament": the library LU; default the registry's). `mesh` is
     accepted for the reference's signature; a program runs on any rank's
-    mesh of the geometry's grid. `precision` is the JAX package's matmul
-    precision, at its position: None or "highest" (`blas.check_precision`);
-    the parameters up to `dtype` stand where the JAX package has them, and
-    the port's own (`panel_algo`) are keyword-only."""
-    blas.check_precision(precision)
+    mesh of the geometry's grid. `precision` is the library trailing
+    update's (`blas.gemm`; None: the registry's): DEFAULT and HIGH run it
+    as one TF32 pass on the card, K1 is IEEE float32 at every level; the
+    parameters up to `dtype` stand where the JAX package has them, and the
+    port's own (`panel_algo`) are keyword-only."""
+    precision = blas.resolve_precision(precision)
     backend = blas.check_backend(blas.get_backend() if backend is None else backend)
     panel_algo = blas.get_panel_algo() if panel_algo is None else panel_algo
     if panel_algo not in ("kernel", "auto", "partial", "tournament"):
@@ -427,7 +429,7 @@ def build_program(geom: LUGeometry, mesh=None, precision=None, backend: str | No
     if update not in ("segments", "block"):
         raise ValueError(f"unknown update {update!r} (segments|block)")
     return _Program(geom, backend, kernel_panel, panel_chunk, donate, resumable,
-                    lookahead, election, tuple(segs), tree, update)
+                    lookahead, election, tuple(segs), tree, update, precision)
 
 
 def _rank_shard(shards, geom, mesh) -> torch.Tensor:

@@ -62,10 +62,11 @@ def lu_factor_blocked(A: torch.Tensor, v: int, precision=None, backend: str | No
     batched call a superstep. Panel algo "kernel" elects on K2, one
     batched launch per column block for all the systems (float32 panel
     math); the library algos on the batched library LU. `precision` is
-    the JAX package's matmul precision, at its position: None or
-    "highest" (`blas.check_precision`).
+    the library product's (`blas.gemm`; None: the registry's): DEFAULT
+    and HIGH run the "xla" trailing update as one TF32 pass on the card,
+    K1 is IEEE float32 at every level.
     """
-    blas.check_precision(precision)
+    precision = blas.resolve_precision(precision)
     batched = A.dim() == 3
     if A.dim() not in (2, 3):
         raise ValueError(f"A must be (M, N) or (B, M, N), got {tuple(A.shape)}")
@@ -125,7 +126,7 @@ def lu_factor_blocked(A: torch.Tensor, v: int, precision=None, backend: str | No
             X[:, off:off + v, off + v:] = blas.trsm_left_lower_unit(
                 L00, X[:, off:off + v, off + v:].to(cdtype)).to(X.dtype)
             # --- trailing GEMM (reference step 6, the hot op), in place --- #
-            _trailing_update(X, L10.to(X.dtype), off, v, backend)
+            _trailing_update(X, L10.to(X.dtype), off, v, backend, precision)
     return (X, perm) if batched else (X[0], perm[0])
 
 
@@ -139,7 +140,7 @@ def _rows(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _trailing_update(X: torch.Tensor, L10: torch.Tensor, off: int, v: int,
-                     backend: str) -> None:
+                     backend: str, precision) -> None:
     """X[:, off+v:, off+v:] -= L10 @ X[:, off:off+v, off+v:] in place: one
     K1 launch per system on "kernel" (K1 takes 2D operands), one batched
     library product on "xla"."""
@@ -147,10 +148,10 @@ def _trailing_update(X: torch.Tensor, L10: torch.Tensor, off: int, v: int,
     A01 = X[:, off:off + v, off + v:]
     if backend == "kernel":
         for i in range(X.shape[0]):
-            blas.gemm(L10[i].contiguous(), A01[i], c=trail[i], alpha=-1.0,
-                      backend=backend, out=trail[i])
+            blas.gemm(L10[i].contiguous(), A01[i], trail[i], -1.0, 1.0, precision,
+                      backend, out=trail[i])
     else:
-        blas.gemm(L10, A01, c=trail, alpha=-1.0, backend=backend, out=trail)
+        blas.gemm(L10, A01, trail, -1.0, 1.0, precision, backend, out=trail)
 
 
 def unpack_lu(LU: torch.Tensor):

@@ -18,6 +18,9 @@ _LAZY = {
     "get_backend": "blas",
     "set_panel_algo": "blas",
     "get_panel_algo": "blas",
+    "set_matmul_precision": "blas",
+    "matmul_precision": "blas",
+    "Precision": "blas",
 }
 
 

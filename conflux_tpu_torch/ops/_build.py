@@ -2,7 +2,7 @@
 
 `ops/csrc/*.cu` are compiled at first use with nvcc, one process per source
 started together, then linked into one shared library with a plain C
-interface that `ctypes` loads. The library lands in `ops/_kernels/<hash>/`
+interface that `ctypes` loads (with cuBLAS, which `tf32_gemm.cu` calls). The library lands in `ops/_kernels/<hash>/`
 (git-ignored), keyed by a hash of the sources and flags, so a checkout
 builds everything on its first kernel call and reuses the build after.
 There is no fallback: a missing nvcc or a failed build raises.
@@ -23,6 +23,7 @@ _OUT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_kernels")
 _LIB_NAME = "libconflux_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-lcublas"]
 
 _lock = threading.Lock()
 _lib = None  # guarded-by: _lock
@@ -45,7 +46,7 @@ def _sources() -> list[str]:
 
 
 def _digest(sources: list[str]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -71,7 +72,11 @@ def _compile(out_dir: str, sources: list[str]) -> str:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
     lib = os.path.join(tmp, _LIB_NAME)
-    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", *objs, "-o", lib],
+    # cuBLAS from the toolkit beside nvcc where the process has not loaded
+    # a library of the same soname already (torch's own)
+    rpath = os.path.join(os.path.dirname(os.path.dirname(os.path.realpath(nvcc))), "lib64")
+    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", *objs, *LINK_FLAGS,
+                           "-Xlinker", f"-rpath={rpath}", "-o", lib],
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
@@ -129,6 +134,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,  # w, wa (both may be NULL)
         p]  # stream
     lib.conflux_batched_chol.restype = i
+    ll = ctypes.c_longlong
+    lib.conflux_tf32_gemm.argtypes = [
+        p, i, i,  # handle (torch's), complex, batch
+        i, i, i,  # m, n, k
+        p, i, ll, p, i, ll,  # a, lda, stride, b, ldb, stride
+        p, i, ll,  # c (in and out), ldc, stride
+        f, f, p]  # alpha, beta, stream
+    lib.conflux_tf32_gemm.restype = i
     for name in ("conflux_batched_lu_geometry", "conflux_batched_chol_geometry"):
         fn = getattr(lib, name)
         fn.argtypes = [i, i, i, i, p, p, p]  # dtype, device, batch, n; kb, cs, global_panel

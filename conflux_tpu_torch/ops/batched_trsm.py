@@ -79,14 +79,19 @@ def diag_block_inverses(T: torch.Tensor, *, lower: bool = True,
     return torch.linalg.solve_triangular(D, eye.expand(D.shape), upper=not lower)
 
 
-def blocked_solve(T, dinv, b, *, lower: bool = True):
+def blocked_solve(T, dinv, b, *, lower: bool = True, precision=None):
     """Blocked substitution with precomputed diagonal-block inverses
     (`dinv` from :func:`diag_block_inverses`). T is (..., n, n) (packed
     factors fine), b is (..., n, k); leading axes are batch axes. The
     block loop is K3's plain version, `hopper_kernels.btrsm_plain`, run in
-    promote(T.dtype, b.dtype)."""
+    promote(T.dtype, b.dtype), its products the library's at `precision`
+    (None: HIGHEST, as the JAX package's; `blas.matmul`)."""
+    from conflux_tpu_torch.ops import blas
+
     dt = torch.promote_types(T.dtype, b.dtype)
-    return hopper_kernels.btrsm_plain(T.to(dt), dinv.to(dt), b.to(dt), lower)
+    p = blas.Precision.HIGHEST if precision is None else blas.resolve_precision(precision)
+    return hopper_kernels.btrsm_plain(T.to(dt), dinv.to(dt), b.to(dt), lower,
+                                      matmul=lambda x, y: blas.matmul(x, y, p))
 
 
 def probe_stats(x, wA, stats_dtype=None):
@@ -98,19 +103,19 @@ def probe_stats(x, wA, stats_dtype=None):
 
 
 def blocked_solve_probe(T, dinv, b, wA, *, lower: bool = False,
-                        stats_dtype=None):
+                        precision=None, stats_dtype=None):
     """:func:`blocked_solve` plus the Freivalds probe stats of its x:
     returns (x, xsum, wAx) (:func:`probe_stats`). The JAX package
     accumulates the stats inside its block loop, as K3's round does
     (`hopper_kernels.btrsm_pair`); here they are taken from x after the
     loop. Defaults to the back solve, the last of a factorization's
     substitutions."""
-    x = blocked_solve(T, dinv, b, lower=lower)
+    x = blocked_solve(T, dinv, b, lower=lower, precision=precision)
     return (x, *probe_stats(x, wA, stats_dtype))
 
 
 def blocked_trsm(T, b, *, lower: bool = True, unit_diagonal: bool = False,
-                 dinv=None, block_size: int | None = None,
+                 dinv=None, block_size: int | None = None, precision=None,
                  backend: str | None = None):
     """Solve T x = b for a triangle or a batch of triangles: the public
     blocked-trsm entry (also `blas.blocked_trsm`).
@@ -119,8 +124,9 @@ def blocked_trsm(T, b, *, lower: bool = True, unit_diagonal: bool = False,
     ((n,), (n, k), (B, n), (B, n, k)); x comes back in b's shape. `dinv`
     passes precomputed diagonal-block inverses (per system, or stacked
     (B, nb, bs, bs)), computed here when omitted. The solve is the K3
-    kernel's (backend "kernel", the only one the port has); a single
-    triangle rides it as a batch of one."""
+    kernel's on either backend, a single triangle as a batch of one; K3
+    computes in IEEE float32 at every `precision`, as the JAX package's
+    Pallas substitution takes none (a name it does not know raises)."""
     from conflux_tpu_torch.ops import blas
 
     if T.dim() not in (2, 3) or T.shape[-1] != T.shape[-2]:
@@ -132,6 +138,7 @@ def blocked_trsm(T, b, *, lower: bool = True, unit_diagonal: bool = False,
     if b.dim() != T.dim() or b.shape[:-1] != T.shape[:-1]:
         raise ValueError(f"rhs {tuple(b.shape)} does not match T {tuple(T.shape)}")
     blas.check_backend(blas.get_backend() if backend is None else backend)
+    blas.resolve_precision(precision)
     if dinv is None:
         dinv = diag_block_inverses(T, lower=lower, unit_diagonal=unit_diagonal,
                                    block_size=block_size)

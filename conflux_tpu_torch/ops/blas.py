@@ -16,14 +16,25 @@ The registry keeps the JAX package's knobs under the same names:
   `"auto"` run the library LU (`torch.linalg.lu_factor_ex`, where the JAX
   package runs `lax.linalg.lu`) in any dtype.
 
+- `set_matmul_precision` picks the precision of the library products, the
+  JAX package's `lax.Precision` levels under the port's own
+  :class:`Precision`: HIGHEST (the default) is IEEE float32; DEFAULT and
+  HIGH run a float32 or complex64 library product on the card as one
+  TensorFloat-32 tensor-core pass (what XLA runs for them on a GPU of
+  this class). The kernels run IEEE float32 at every level, as the JAX
+  package's Pallas kernels take no precision, and so does the CPU.
+
 A kernel gets a CUDA tensor or raises; a CPU tensor runs the kernel's plain
-PyTorch version (see `hopper_kernels`). float32 matmuls run in full IEEE
-float32: TF32 is switched off below, as the JAX package pins
-`Precision.HIGHEST`.
+PyTorch version (see `hopper_kernels`). torch's process-wide TF32 switches
+stay off (below): a TF32 product is chosen per call, through its own cuBLAS
+compute type (:func:`tf32_gemm`), so an IEEE product in another thread
+stays IEEE.
 """
 
 from __future__ import annotations
 
+import ctypes
+import enum
 import threading
 
 import numpy as np
@@ -31,7 +42,8 @@ import torch
 
 from conflux_tpu_torch.ops import hopper_kernels
 
-# the JAX package pins Precision.HIGHEST: ~1e-2 LU residuals follow without it
+# IEEE float32 unless a call asks for TF32 (`gemm` at DEFAULT or HIGH): these
+# switches are process-wide, so a product in another thread would follow them
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -58,17 +70,71 @@ def get_backend() -> str:
     return _BACKEND
 
 
-def check_precision(precision) -> None:
-    """Validate a factor entry point's `precision=`: None, "highest" and the
-    JAX package's enum name "HIGHEST" (read case-blind, or an enum whose
-    `.name` it is) run IEEE float32 products, the port's only matmul
-    precision; another raises NotImplementedError (ROADMAP item 16)."""
-    name = getattr(precision, "name", precision)
-    if precision is None or (isinstance(name, str) and name.lower() == "highest"):
-        return
-    raise NotImplementedError(
-        f"matmul precision {precision!r} is not ported yet (the port runs IEEE "
-        "float32 products, 'highest'; other precisions are ROADMAP item 16)")
+class Precision(enum.Enum):
+    """The JAX package's matmul precision levels (`lax.Precision`), the
+    port's own copy, with the same string names: 'default', 'fastest' and
+    'bfloat16' are DEFAULT; 'high', 'bfloat16_3x' and 'tensorfloat32' HIGH;
+    'highest' and 'float32' HIGHEST."""
+
+    DEFAULT = 0
+    HIGH = 1
+    HIGHEST = 2
+
+    @classmethod
+    def _missing_(cls, value):
+        return _PRECISION_NAMES.get(value)
+
+    def __repr__(self) -> str:
+        return f"Precision.{self.name}"
+
+    def __str__(self) -> str:
+        return self.name
+
+
+_PRECISION_NAMES = {
+    "default": Precision.DEFAULT, "fastest": Precision.DEFAULT,
+    "bfloat16": Precision.DEFAULT, "high": Precision.HIGH,
+    "bfloat16_3x": Precision.HIGH, "tensorfloat32": Precision.HIGH,
+    "highest": Precision.HIGHEST, "float32": Precision.HIGHEST}
+
+# HIGHEST, as the JAX package pins it: TF32 rounds both operands of every
+# product (unit roundoff 2^-11, float32's 2^-24), and an LU factored so
+# reads ~2^14 times the float32 residual
+_MATMUL_PRECISION = Precision.HIGHEST
+
+
+def set_matmul_precision(p) -> None:
+    """Set the precision the entry points resolve `precision=None` to: a
+    :class:`Precision`, its name, or one of its string names. The value
+    is kept as given (a plan key records it so)."""
+    global _MATMUL_PRECISION
+    resolve_precision(p)
+    _MATMUL_PRECISION = p
+
+
+def matmul_precision():
+    """The registry's matmul precision, as it was set."""
+    return _MATMUL_PRECISION
+
+
+def resolve_precision(precision=None) -> Precision:
+    """`precision=` as a :class:`Precision`: None is the registry's value;
+    a :class:`Precision`, an enum member of the same name (the JAX
+    package's `lax.Precision`), a string name of `lax.Precision` or an
+    enum name in any case. Another value raises ValueError."""
+    p = _MATMUL_PRECISION if precision is None else precision
+    if isinstance(p, Precision):
+        return p
+    name = getattr(p, "name", None)
+    if isinstance(name, str) and name in Precision.__members__:
+        return Precision[name]
+    if isinstance(p, str):
+        if p in _PRECISION_NAMES:
+            return _PRECISION_NAMES[p]
+        if p.upper() in Precision.__members__:
+            return Precision[p.upper()]
+    raise ValueError(f"unknown matmul precision {p!r}: expected a Precision, one of "
+                     f"{sorted(Precision.__members__)} or {sorted(_PRECISION_NAMES)}")
 
 
 def check_gemm_route(backend: str, dtype: torch.dtype) -> None:
@@ -102,34 +168,144 @@ def _check_panel_algo(name: str) -> None:
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
-         alpha: float = 1.0, beta: float = 1.0, backend: str | None = None,
-         out: torch.Tensor | None = None) -> torch.Tensor:
+         alpha: float = 1.0, beta: float = 1.0, precision=None,
+         backend: str | None = None, *, out: torch.Tensor | None = None) -> torch.Tensor:
     """alpha * a @ b (+ beta * c): the trailing-update hot op.
 
     Backend "kernel": the K1 kernel, 2D float32 or bfloat16 operands with
-    f32 accumulation, its epilogue folded into the store. Backend "xla":
-    the library product in a's dtype with leading batch axes allowed;
-    bfloat16 and float16 accumulate in float32 and the product is rounded
-    back before the epilogue, as the JAX `jnp.matmul(...,
-    preferred_element_type=f32).astype(a.dtype)` does. Either may write
+    f32 accumulation, its epilogue folded into the store; it takes no
+    precision, as the JAX package's Pallas GEMM takes none. Backend
+    "xla": the library product in a's dtype with leading batch axes
+    allowed; bfloat16 and float16 accumulate in float32 and the product
+    is rounded back before the epilogue, as the JAX `jnp.matmul(...,
+    preferred_element_type=f32).astype(a.dtype)` does. On the card a
+    float32 or complex64 library product at `precision` DEFAULT or HIGH
+    (None: the registry's, :func:`resolve_precision`) is one TF32
+    tensor-core pass (:func:`tf32_gemm`), at HIGHEST IEEE float32; other
+    dtypes and the CPU compute as at HIGHEST. Either backend may write
     into `out`, which may be `c` itself (the trailing block updated in
     place).
     """
     backend = _BACKEND if backend is None else backend
+    precision = resolve_precision(precision)
     check_gemm_route(backend, a.dtype)
     if backend == "kernel":
         return hopper_kernels.gemm(a, b, c, alpha, beta, out=out)
+    return _library_gemm(a, b, c, alpha, beta, precision, out)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision=None) -> torch.Tensor:
+    """a @ b as the library product at `precision` (None: the
+    registry's): the JAX package's `jnp.matmul(a, b, precision=...)`,
+    :func:`gemm` on backend "xla"."""
+    return _library_gemm(a, b, None, 1.0, 1.0, resolve_precision(precision), None)
+
+
+def _library_gemm(a, b, c, alpha, beta, precision: Precision, out):
+    """:func:`gemm`'s backend "xla"."""
+    if (precision is not Precision.HIGHEST and a.device.type == "cuda"
+            and a.dtype in _TF32_CODES and b.dtype == a.dtype):
+        return tf32_gemm(a, b, c, alpha, beta, out=out)
     narrow = a.dtype in (torch.bfloat16, torch.float16)
-    if c is not None and out is c and not narrow:
+    if c is not None and out is c and not narrow and c.dim() <= 3:
         # in place, the library GEMM's own epilogue: no temporary the size
         # of the trailing block (8.6 GB at N=32768 in float64)
-        return (c.addmm_ if c.dim() == 2 else c.baddbmm_)(a, b, beta=beta, alpha=alpha)
+        if c.dim() == 2:
+            return c.addmm_(a, b, beta=beta, alpha=alpha)
+        lead = c.shape[:1]
+        return c.baddbmm_(a.expand(*lead, *a.shape[-2:]), b.expand(*lead, *b.shape[-2:]),
+                          beta=beta, alpha=alpha)
     res = torch.matmul(a.float(), b.float()).to(a.dtype) if narrow else torch.matmul(a, b)
     if alpha != 1.0:
         res = alpha * res
     if c is not None:
         res = res + (beta * c if beta != 1.0 else c)
     return res if out is None else out.copy_(res)
+
+
+# --------------------------------------------------------------------------- #
+# The TF32 library product
+# --------------------------------------------------------------------------- #
+
+_TF32_CODES = {torch.float32: 0, torch.complex64: 1}
+# TF32 library products issued, for a run to show that a path took them
+TF32_CALLS = 0
+_TF32_COUNT_LOCK = threading.Lock()
+
+
+def _batch_operand(x: torch.Tensor, batch: tuple):
+    """x (..., r, c) as cuBLAS reads a row-major batch: (tensor with unit
+    column stride, row pitch, batch stride in elements); a 2D operand is
+    one matrix for every batch entry (stride 0)."""
+    r, c = x.shape[-2:]
+    if x.dim() > 2:
+        x = x.expand(*batch, r, c).reshape(-1, r, c)
+    x = x.resolve_conj()
+    if x.stride(-1) != 1 or (r > 1 and x.stride(-2) < c):
+        x = x.contiguous()
+    ld = max(x.stride(-2) if r > 1 else c, 1)
+    return x, ld, (x.stride(0) if x.dim() == 3 and x.shape[0] > 1 else 0)
+
+
+def tf32_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
+              alpha: float = 1.0, beta: float = 1.0, *,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """alpha * a @ b (+ beta * c) on CUDA float32 or complex64 tensors as
+    one TensorFloat-32 tensor-core pass: cuBLAS's
+    `cublasGemmStridedBatchedEx` with `CUBLAS_COMPUTE_32F_FAST_TF32`
+    (`ops/csrc/tf32_gemm.cu`), on torch's own cuBLAS handle of this
+    thread and a's card (`torch.cuda.current_blas_handle`: its workspace
+    comes from torch's allocator) and a's current stream. The compute
+    type is the call's own, so the handle's math mode does not matter and
+    torch's process-wide TF32 switches stay off. A library product, not
+    a kernel of the port: it stands where the JAX package leaves a
+    DEFAULT or HIGH `jnp.matmul` to XLA. Leading batch axes broadcast; `out` may
+    be `c` (in place). A failed build or call raises; there is no
+    fallback."""
+    global TF32_CALLS
+    if a.device.type != "cuda" or a.dtype not in _TF32_CODES or b.dtype != a.dtype:
+        raise ValueError(f"tf32_gemm takes CUDA float32 or complex64 operands of one "
+                         f"dtype, got {a.dtype} on {a.device} and {b.dtype}")
+    M, K = a.shape[-2:]
+    K2, N = b.shape[-2:]
+    if K != K2:
+        raise ValueError(f"gemm shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    oshape = (*batch, M, N)
+    nb = 1
+    for s in batch:
+        nb *= s
+    if c is not None and out is c and tuple(c.shape) == oshape and c.dim() <= 3 \
+            and c.stride(-1) == 1 and (M < 2 or c.stride(-2) >= N):
+        dst, beta_eff = c, beta
+    else:
+        dst = torch.empty(oshape, dtype=a.dtype, device=a.device)
+        beta_eff = 0.0
+        if c is not None:
+            dst.copy_(c.expand(oshape))
+            beta_eff = beta
+    if M and N and nb:
+        from conflux_tpu_torch.ops import _build
+
+        lib = _build.load()
+        a3, lda, sa = _batch_operand(a, batch)
+        b3, ldb, sb = _batch_operand(b, batch)
+        d3 = dst if dst.dim() == 3 else dst.view(-1, M, N)
+        ldc = max(d3.stride(-2) if M > 1 else N, 1)
+        sc = d3.stride(0) if nb > 1 else 0
+        with torch.cuda.device(a.device):
+            rc = lib.conflux_tf32_gemm(
+                torch.cuda.current_blas_handle(), _TF32_CODES[a.dtype], nb, M, N, K,
+                a3.data_ptr(), lda, sa, b3.data_ptr(), ldb, sb,
+                d3.data_ptr(), ldc, sc, float(alpha), float(beta_eff),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"TF32 library product failed: cuBLAS status {rc}")
+        with _TF32_COUNT_LOCK:
+            TF32_CALLS += 1
+    if out is None or out is dst:
+        return dst
+    return out.copy_(dst)
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -222,17 +398,19 @@ def _nan_where_failed(L: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
 
 def blocked_trsm(T: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
                  unit_diagonal: bool = False, dinv=None,
-                 block_size: int | None = None,
+                 block_size: int | None = None, precision=None,
                  backend: str | None = None) -> torch.Tensor:
     """Blocked batched triangular solve through diagonal-block inverses
     (`ops.batched_trsm`): T is (n, n) or (B, n, n), packed factors fine.
     Either backend runs the K3 kernel (`hopper_kernels.btrsm`) on the
-    card: the computation is the JAX `blocked_solve` either way."""
+    card: the computation is the JAX `blocked_solve` either way, in IEEE
+    float32 at every `precision` (None: the registry's)."""
     from conflux_tpu_torch.ops import batched_trsm
 
+    precision = _MATMUL_PRECISION if precision is None else precision
     return batched_trsm.blocked_trsm(
         T, B, lower=lower, unit_diagonal=unit_diagonal, dinv=dinv,
-        block_size=block_size, backend=backend)
+        block_size=block_size, precision=precision, backend=backend)
 
 
 def _probe_product(probe_w, A: torch.Tensor) -> torch.Tensor:

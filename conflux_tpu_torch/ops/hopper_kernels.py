@@ -316,7 +316,7 @@ def _check_btrsm(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def btrsm_plain(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
-                lower: bool = True) -> torch.Tensor:
+                lower: bool = True, *, matmul=torch.matmul) -> torch.Tensor:
     """The plain version of :func:`btrsm`: the same block steps with
     tensor ops, in the accumulation dtype promote(T.dtype, f32). Leading
     axes of T (..., n, n), dinv (..., nb, bs, bs) and b (..., n, k) are
@@ -325,7 +325,8 @@ def btrsm_plain(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
     (lower) or strictly-upper (upper) panels are read and a packed LU
     needs no masking. Pad rows of a ragged n are zero and pad columns of T
     are never read, which is the result of an identity-extended T. This is
-    also the port's block loop (`batched_trsm.blocked_solve`)."""
+    also the port's block loop (`batched_trsm.blocked_solve`), which
+    passes its products' `matmul` (`blas.matmul` at a precision)."""
     n, k = b.shape[-2:]
     nb, bs = dinv.shape[-3], dinv.shape[-1]
     acc = _acc_dtype(T.dtype)
@@ -337,12 +338,12 @@ def btrsm_plain(T: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
     for s in range(nb):
         j = s if lower else nb - 1 - s
         j0 = j * bs
-        xj = torch.matmul(Dc[..., j, :, :], rest[..., j0:j0 + bs, :])
+        xj = matmul(Dc[..., j, :, :], rest[..., j0:j0 + bs, :])
         xs[j] = xj
         lo, hi = (j0 + bs, n) if lower else (0, j0)
         if hi > lo:
             q = min(bs, n - j0)
-            rest[..., lo:hi, :] -= torch.matmul(Tc[..., lo:hi, j0:j0 + q], xj[..., :q, :])
+            rest[..., lo:hi, :] -= matmul(Tc[..., lo:hi, j0:j0 + q], xj[..., :q, :])
     return torch.cat(xs, -2)[..., :n, :].to(b.dtype)
 
 

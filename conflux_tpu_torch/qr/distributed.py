@@ -82,7 +82,7 @@ def _all_gather(mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
     return mesh.all_gather(t, axis)
 
 
-def _two_pass_tsqr(mesh, A: torch.Tensor, Px: int, chunk: int, passes: int,
+def _two_pass_tsqr(mesh, A: torch.Tensor, Px: int, chunk: int, passes: int, prec,
                    tree: str = "gather"):
     """Replicated TSQR election: the local chunked tree, then the cross-x
     reduction of the (n, n) R factors; Q by a triangular solve, refined
@@ -92,7 +92,8 @@ def _two_pass_tsqr(mesh, A: torch.Tensor, Px: int, chunk: int, passes: int,
     tree="gather": one all_gather in x order and the tree on every rank.
     tree="butterfly": log2(Px) ppermute rounds, each QR-reducing a
     pair-ordered (2n, n) stack (any Px: odd axes fold their overflow ranks
-    in and out with two extra rounds, `butterfly_allreduce`)."""
+    in and out with two extra rounds, `butterfly_allreduce`). `prec` is
+    the precision of the R products (`blas.matmul`)."""
     n = A.shape[1]
     R = None
     for _ in range(max(1, passes)):
@@ -115,7 +116,7 @@ def _two_pass_tsqr(mesh, A: torch.Tensor, Px: int, chunk: int, passes: int,
         elif Px > 1:
             Ri = _tree_r(_all_gather(mesh, Ri, AXIS_X).reshape(Px * n, n), chunk)
         A = blas.trsm_right_upper(Ri, A)
-        R = Ri if R is None else torch.matmul(Ri, R)
+        R = Ri if R is None else blas.matmul(Ri, R, prec)
     return _positive_diag(A, R)
 
 
@@ -152,15 +153,16 @@ def _factor(shards, mesh, algo: str, chunk: int | None, passes: int,
     if chunk is None:
         chunk = blas.batched_call_rows(n, cdtype)
     A = A.to(cdtype)
+    prec = blas.matmul_precision()
     if algo == "tsqr":
-        Q, R = _two_pass_tsqr(mesh, A, Px, chunk, passes, tree=tree)
+        Q, R = _two_pass_tsqr(mesh, A, Px, chunk, passes, prec, tree=tree)
     else:  # the Gram sum over x and a potrf election per pass
         R = None
         for _ in range(max(1, passes)):
-            G = mesh.psum(torch.matmul(A.mH, A), AXIS_X)
+            G = mesh.psum(blas.matmul(A.mH, A, prec), AXIS_X)
             Ri = blas.potrf(G).mH  # G = L L^H: the upper factor is L^H
             A = blas.trsm_right_upper(Ri, A)
-            R = Ri if R is None else torch.matmul(Ri, R)
+            R = Ri if R is None else blas.matmul(Ri, R, prec)
         Q, R = _positive_diag(A, R)
     return Q.to(dtype), R.to(dtype)
 
@@ -230,6 +232,7 @@ class _Program:
     donate: bool
     csegs: int
     lookahead: bool
+    precision: object  # blas.Precision of the library products
 
     def __call__(self, shard: torch.Tensor, mesh, R=None, k0: int = 0,
                  k1: int | None = None):
@@ -250,6 +253,7 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
     dev = shard.device
     dtype = shard.dtype
     cdtype = blas.compute_dtype(dtype)
+    prec = prog.precision
     z0 = z == 0
 
     # z-partial invariant: data enters on layer 0 (a resumed state is
@@ -289,9 +293,9 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
         W = torch.zeros((Nl, v), dtype=cdtype, device=dev)
         if mine:
             Qd = Aloc[:, :cd].to(cdtype)
-            W[:cd] = torch.matmul(Qd.mH, P)
+            W[:cd] = blas.matmul(Qd.mH, P, prec)
         mesh.psum(W, ("x", "z"))  # (Nl, v), replicated over x and z
-        D = (torch.matmul(Qd, W[:cd]) if mine
+        D = (blas.matmul(Qd, W[:cd], prec) if mine
              else torch.zeros((Ml, v), dtype=cdtype, device=dev))
         return W, P - mesh.psum(D, ("y", "z"))
 
@@ -303,7 +307,7 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
         with scope("qr_reproject"):
             W, P = reproject(P, k)
         with scope("qr_panel_tsqr"):
-            Qp, Rp = _two_pass_tsqr(mesh, P, Px, prog.chunk, 2)
+            Qp, Rp = _two_pass_tsqr(mesh, P, Px, prog.chunk, 2, prog.precision)
         return W, Qp, Rp
 
     def step(k, W, Qp, Rp):
@@ -317,7 +321,7 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
         with scope("qr_trailing_c"):
             C = torch.zeros((v, Nl), dtype=cdtype, device=dev)
             if c1 < Nl:
-                C[:, c1:] = torch.matmul(Qp.mH, Aloc[:, c1:].to(cdtype))
+                C[:, c1:] = blas.matmul(Qp.mH, Aloc[:, c1:].to(cdtype), prec)
             mesh.psum(C, ("x", "z"))  # (v, Nl)
 
         # ---- trailing update A -= Qp C on this layer's z-slab ---------- #
@@ -332,8 +336,8 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
         def run(pieces):
             for ca, cb in pieces:
                 blk = Aloc[:, ca:cb]
-                blas.gemm(Qps, Cs[:, ca:cb], c=blk, alpha=-1.0, beta=1.0,
-                          backend=prog.backend, out=blk)
+                blas.gemm(Qps, Cs[:, ca:cb], blk, -1.0, 1.0, prec, backend=prog.backend,
+                          out=blk)
 
         nxt = None
         if z_hi > z_lo and prog.lookahead and slab:
@@ -419,9 +423,10 @@ def build_program(geom: LUGeometry, mesh=None, precision=None, backend: str | No
     the trailing GEMM ("kernel": K1, float32 and bfloat16; "xla": the
     library product, any dtype; default the registry's). `mesh` and
     `resumable` are accepted for the reference's signature (every program
-    takes the resume state R); `precision` is the JAX package's matmul
-    precision, at its position: None or "highest" (`blas.check_precision`)."""
-    blas.check_precision(precision)
+    takes the resume state R); `precision` is the library products'
+    (`blas.gemm`; None: the registry's): DEFAULT and HIGH run them as one
+    TF32 pass on the card, K1 is IEEE float32 at every level."""
+    precision = blas.resolve_precision(precision)
     if geom.M < geom.N:
         raise ValueError(f"distributed QR needs M >= N, got {geom.M}x{geom.N}")
     backend = blas.check_backend(blas.get_backend() if backend is None else backend)
@@ -433,7 +438,7 @@ def build_program(geom: LUGeometry, mesh=None, precision=None, backend: str | No
         raise ValueError(
             f"csegs must be a positive segment count, got {csegs} "
             "(non-positive counts would silently skip trailing updates)")
-    return _Program(geom, backend, chunk, donate, csegs, lookahead)
+    return _Program(geom, backend, chunk, donate, csegs, lookahead, precision)
 
 
 def _rank_shard(shards, geom, mesh, what: str = "shards") -> torch.Tensor:

@@ -16,8 +16,10 @@ factorization (the port of `conflux_tpu/qr/single.py`), plus CholeskyQR2.
 The JAX package runs no Pallas kernel for QR, so neither does the port:
 the chunk round is one batched `torch.linalg.qr(mode="r")` (the library's
 QR, where the JAX package calls `jnp.linalg.qr`), the solves
-`torch.linalg.solve_triangular`, the products `torch.matmul` in IEEE
-float32 (`ops.blas` switches TF32 off). Chunk heights come from
+`torch.linalg.solve_triangular`, the products the library's at the
+registry's matmul precision where the JAX package reads it (`tall_qr`'s R
+products and the blocked update, `blas.matmul`), else IEEE float32.
+Chunk heights come from
 `blas.batched_call_rows`, pinned to the JAX package's ceiling, so the
 tree has the reference's shapes. All results carry diag(R) >= 0 (real),
 which makes thin Q and R unique.
@@ -89,12 +91,13 @@ def tall_qr(panel: torch.Tensor, chunk: int | None = None, passes: int = 2):
     cdtype = blas.compute_dtype(panel.dtype)
     if chunk is None:
         chunk = blas.batched_call_rows(n, cdtype)
+    prec = blas.matmul_precision()
     A = panel.to(cdtype)
     R = None
     for _ in range(max(1, passes)):
         Ri = _tree_r(A, chunk)
         A = blas.trsm_right_upper(Ri, A)
-        R = Ri if R is None else torch.matmul(Ri, R)
+        R = Ri if R is None else blas.matmul(Ri, R, prec)
     Q, R = _positive_diag(A, R)
     return Q.to(panel.dtype), R.to(panel.dtype)
 
@@ -124,6 +127,7 @@ def qr_factor_blocked(A: torch.Tensor, v: int = 256, chunk: int | None = None,
     cdtype = blas.compute_dtype(A.dtype)
     if chunk is None:
         chunk = blas.batched_call_rows(v, cdtype)
+    prec = blas.matmul_precision()
     W = A.to(cdtype, copy=True)
     R = torch.zeros((N, N), dtype=cdtype, device=A.device)
     for j0 in range(0, N, v):
@@ -139,9 +143,10 @@ def qr_factor_blocked(A: torch.Tensor, v: int = 256, chunk: int | None = None,
             Rp = torch.matmul(Rp2, Rp)
         R[j0:j1, j0:j1] = Rp
         if j1 < N:
-            C = torch.matmul(Qp.mH, W[:, j1:])
+            C = blas.matmul(Qp.mH, W[:, j1:], prec)
             R[j0:j1, j1:] = C
-            W[:, j1:].addmm_(Qp, C, alpha=-1)
+            Wt = W[:, j1:]
+            blas.gemm(Qp, C, Wt, -1.0, 1.0, prec, "xla", out=Wt)
         W[:, j0:j1] = Qp
     return W.to(A.dtype), torch.triu(R).to(A.dtype)
 

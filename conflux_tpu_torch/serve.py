@@ -87,8 +87,11 @@ one set of warm buckets),
 `SolveSession.to_device`, the plan codec (`plan_spec`,
 `plan_from_spec`) and the residency hooks of tiered sessions (`tier`: a
 spilled session faults back in under its lock on its next touch,
-`_ensure_resident`). Not ported yet, raising NotImplementedError: matmul
-precision other than 'highest'.
+`_ensure_resident`). A plan's matmul `precision` (the JAX package's
+levels, `blas.Precision`; None: the registry's) is part of its key: a
+kernel plan's factors and solves run K4/K5 and K3 in IEEE float32 at
+every level, an "xla" plan's library products follow it (one TF32 pass
+on the card at DEFAULT and HIGH).
 
 Mesh plans: ``FactorPlan.create((B, N, N), ..., mesh=batched.batch_mesh(
 devices))`` keeps the batch axis sharded over the mesh's k shards
@@ -165,7 +168,7 @@ class PlanKey:
     kind: str             # factorization family: 'lu' | 'chol' | 'qr'
     substitution: str     # 'trsm' | 'inv' | 'blocked' ('auto' -> 'blocked';
                           # 'trsm' for kind='qr')
-    precision: Any        # matmul precision: 'highest' (IEEE f32, no TF32)
+    precision: Any        # matmul precision, as given (blas.Precision or a name)
     backend: str          # kernel backend
     panel_algo: str       # LU panel election algo
     mesh_key: Any         # batch-mesh identity (None: one device)
@@ -209,36 +212,33 @@ _PLANS_LOCK = threading.Lock()
 
 
 def _encode_precision(p):
-    """JSON form of a plan key's matmul precision. The port runs IEEE
-    float32 only, 'highest', which encodes as the string the JAX package
-    writes for a string precision; anything else is refused here, while
-    the record is still writable."""
+    """JSON form of a plan key's matmul precision, the JAX package's: the
+    enum as the tagged pair ['precision', NAME], None and strings as
+    they are. Anything else is refused here, while the record is still
+    writable."""
+    if isinstance(p, blas.Precision):
+        return ["precision", p.name]
     if p is None or isinstance(p, str):
         return p
     raise ValueError(f"plan precision {p!r} (type {type(p).__name__}) is not "
-                     "codec-representable: use None or a string")
+                     "codec-representable: use None, a string, or blas.Precision")
 
 
 def _decode_precision(p):
-    """Inverse of :func:`_encode_precision`, reading the JAX package's
-    records too: its tagged enum pair ['precision', 'HIGHEST'] and the
-    strings None and 'highest' all name the port's 'highest'. Another
-    precision raises NotImplementedError (the port has no matmul precision
-    but IEEE float32); a malformed payload raises ValueError naming it."""
+    """Inverse of :func:`_encode_precision`; a record the JAX package wrote
+    decodes to the same key. A malformed payload (a mistagged list, a
+    number, a dict) raises ValueError naming it."""
     if isinstance(p, list):
-        if len(p) == 2 and p[0] == "precision" and isinstance(p[1], str):
-            p = p[1].lower()
-        else:
-            raise ValueError(f"malformed precision payload {p!r}: expected "
-                             "['precision', <enum name>]")
-    elif p is not None and not isinstance(p, str):
-        raise ValueError(f"malformed precision payload {p!r} (type "
-                         f"{type(p).__name__}): expected None, a string, or a "
-                         "tagged enum pair")
-    if p is None or p == "highest":
-        return "highest"
-    raise _not_ported(f"matmul precision {p!r} (the port runs IEEE float32, "
-                      "'highest')")
+        if len(p) == 2 and p[0] == "precision" and isinstance(p[1], str) \
+                and p[1] in blas.Precision.__members__:
+            return blas.Precision[p[1]]
+        raise ValueError(f"malformed precision payload {p!r}: expected "
+                         "['precision', <enum name>]")
+    if p is None or isinstance(p, str):
+        return p
+    raise ValueError(f"malformed precision payload {p!r} (type "
+                     f"{type(p).__name__}): expected None, a string, or a "
+                     "tagged enum pair")
 
 
 def plan_spec(plan: "FactorPlan") -> dict:
@@ -298,7 +298,11 @@ def mesh_from_spec(m: dict, device=None) -> BatchMesh:
     if [str(a) for a in m.get("axis_names", ["b"])] != list(BatchMesh.axis_names):
         raise ValueError(f"mesh record axis_names {m.get('axis_names')} are not "
                          f"{list(BatchMesh.axis_names)}")
-    return BatchMesh([torch.device(platform, i) for i in ids])
+    mesh = BatchMesh([torch.device(platform, i) for i in ids])
+    key = mesh_cache_key(mesh)
+    # the port's own record names the mesh this process keyed (spelled as
+    # its shards' devices are); the JAX package's names devices by index
+    return lookup_mesh(key) if "platform" in m else mesh
 
 
 def plan_from_spec(d: dict, device=None) -> "FactorPlan":
@@ -309,10 +313,11 @@ def plan_from_spec(d: dict, device=None) -> "FactorPlan":
     boolean 'spd' and decode here. A "mesh" sub-dict rebuilds the mesh
     (:func:`mesh_from_spec`; `device` places a record that names no
     platform)."""
-    mesh_key = None
+    mesh = mesh_key = None
     m = d.get("mesh")
     if m is not None:
-        mesh_key = mesh_cache_key(mesh_from_spec(m, device))
+        mesh = mesh_from_spec(m, device)
+        mesh_key = mesh_cache_key(mesh)
     if "kind" in d:
         kind = str(d["kind"])
         if kind not in PLAN_KINDS:
@@ -330,11 +335,7 @@ def plan_from_spec(d: dict, device=None) -> "FactorPlan":
     for name in (key.dtype, key.factor_dtype):
         if not isinstance(getattr(torch, name, None), torch.dtype):
             raise ValueError(f"plan spec names unknown dtype {name!r}")
-    return FactorPlan.from_key(key)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
+    return FactorPlan.from_key(key, mesh=mesh)
 
 
 class _CompileOnce:
@@ -448,7 +449,7 @@ class FactorPlan:
     first use, one per bucket, and counted in :attr:`trace_counts`.
     """
 
-    def __init__(self, key: PlanKey):
+    def __init__(self, key: PlanKey, mesh=None):
         self.key = key
         shape = key.shape
         if key.kind not in PLAN_KINDS:
@@ -488,7 +489,9 @@ class FactorPlan:
                 if key.kind == "lu":
                     blas._resolve_panel_algo(blas.compute_dtype(fd), self.N, key.v,
                                              key.panel_algo)
-        self.mesh = None if key.mesh_key is None else lookup_mesh(key.mesh_key)
+        if key.mesh_key is not None and mesh is None:
+            mesh = lookup_mesh(key.mesh_key)
+        self.mesh = None if key.mesh_key is None else mesh
         self._shard = None
         if self.mesh is not None:
             if key.kind == "qr":
@@ -572,7 +575,7 @@ class FactorPlan:
     def create(cls, shape, dtype, *, v: int = 256, factor_dtype=None,
                refine: int = 0, kind: str | None = None, spd: bool = False,
                mesh=None, substitution: str = "auto", precision=None,
-               backend: str | None = None) -> "FactorPlan":
+               backend: str | None = None, persistent_cache: bool = True) -> "FactorPlan":
         """Get-or-build the plan for a traffic shape: (B, N, N) batched or
         (N, N) single, or (M, N) with M >= N for a tall least-squares plan
         (`kind='qr'`), `dtype` the request dtype. `substitution` picks the
@@ -580,16 +583,24 @@ class FactorPlan:
         substitutes through diagonal-block inverses computed at factor
         time, 'trsm' runs the classic triangular solves, 'inv' inverts the
         full triangular factors at factor time. `refine` fuses classic
-        iterative-refinement sweeps into the solve programs."""
+        iterative-refinement sweeps into the solve programs. `precision`
+        (None: the registry's `blas.matmul_precision()`) is kept in the
+        key as given. `persistent_cache=True` also points the kernel and
+        host library builds at the persistent cache root
+        (`cache.enable_persistent_cache`), as the JAX package's plan does
+        for its compiles."""
+        if persistent_cache:
+            from conflux_tpu_torch import cache
+
+            cache.enable_persistent_cache()
         if kind is None:
             kind = "chol" if spd else "lu"
         elif spd and kind != "chol":
             raise ValueError(f"kind={kind!r} contradicts spd=True (the legacy "
                              "spelling of kind='chol') — pass one or the other")
         check_mesh(mesh)
-        if precision not in (None, "highest"):
-            raise _not_ported(f"matmul precision {precision!r} (the port "
-                              "runs IEEE float32, 'highest')")
+        precision = blas.matmul_precision() if precision is None else precision
+        blas.resolve_precision(precision)
         if substitution == "auto":
             # QR substitutes through R alone; the square kinds take the
             # blocked engine
@@ -604,7 +615,7 @@ class FactorPlan:
             shape=tuple(int(s) for s in shape), dtype=dname,
             factor_dtype=dname if factor_dtype is None else _dtype_name(factor_dtype),
             v=int(v), refine=int(refine), kind=kind, substitution=substitution,
-            precision="highest", backend=backend,
+            precision=precision, backend=backend,
             panel_algo=blas.get_panel_algo(),
             mesh_key=None if mesh is None else mesh_cache_key(mesh))
         with _PLANS_LOCK:
@@ -615,16 +626,19 @@ class FactorPlan:
         return plan
 
     @classmethod
-    def from_key(cls, key: PlanKey) -> "FactorPlan":
+    def from_key(cls, key: PlanKey, *, mesh=None) -> "FactorPlan":
         """Get-or-build the plan of an exact :class:`PlanKey`: the restore
         path rebuilds the key as it was written rather than re-deriving it
-        from the process's registry, so it lands on the same programs."""
+        from the process's registry, so it lands on the same programs. A
+        plan built here takes `mesh` (a mesh of the key's `mesh_key`, as
+        a record names it) where given, else the mesh registered under
+        the key."""
         if not isinstance(key, PlanKey):
             raise TypeError(f"from_key takes a PlanKey, got {type(key).__name__}")
         with _PLANS_LOCK:
             plan = _PLANS.get(key)
             if plan is None:
-                plan = cls(key)
+                plan = cls(key, mesh)
                 _PLANS[key] = plan
         return plan
 
@@ -996,10 +1010,11 @@ class FactorPlan:
         v = self.key.v
         A2 = Ast.reshape((-1,) + tuple(Ast.shape[-2:]))
         Af = A2.to(fd)
+        prec = self.key.precision
         if self._spd:
-            core = (cholesky_blocked(Af, v, backend=backend),)
+            core = (cholesky_blocked(Af, v, prec, backend),)
         else:
-            core = lu_factor_blocked(Af, v, backend=backend, panel_algo=algo)
+            core = lu_factor_blocked(Af, v, prec, backend, panel_algo=algo)
         if not probe:
             return core
         return (*core, probe_row(self._probe_w_on(Ast.device), A2))
@@ -1604,6 +1619,11 @@ class FactorPlan:
         keep_A = A if (self.key.refine or tier0 is not None) else None
         return SolveSession(self, factors, keep_A, A, policy, device=dev, sid=sid,
                             served_tier=tier0)
+
+    def solve(self, A, b, *, device=None):
+        """One-shot factor and solve, a fresh session per call (serving
+        code holds the session): `self.factor(A, device=device).solve(b)`."""
+        return self.factor(A, device=device).solve(b)
 
 
 class SolveSession:

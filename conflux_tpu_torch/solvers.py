@@ -66,12 +66,30 @@ def refine_classic(solve_fn, A: torch.Tensor, b: torch.Tensor, sweeps: int,
     `sweeps` rounds of x += solve(b - A x). x and b stay in the residual
     precision `rdtype` (a downcast b would make the iteration converge to
     A x = low(b)); only the corrections ride the factors through
-    `solve_fn`, cast to `corr_dtype`."""
+    `solve_fn`, cast to `corr_dtype`. One more residual is taken after
+    the last sweep, and a RuntimeWarning names a refinement that left
+    ||b - A x|| above twice x0's and above sqrt(eps) ||b|| in `rdtype`
+    (the factor's error times cond(A) is past 1; below that line the
+    residual is at its rounding floor)."""
     b_r = b.to(rdtype)
     x = solve_fn(b.to(corr_dtype)).to(rdtype)
+    first = None
     for _ in range(sweeps):
         r = _residual_strips(A, x, b_r, rdtype)
+        if first is None:
+            first = torch.linalg.norm(r)
         x = x + solve_fn(r.to(corr_dtype)).to(rdtype)
+    if sweeps:
+        first, last = float(first), float(torch.linalg.norm(_residual_strips(A, x, b_r, rdtype)))
+        floor = torch.finfo(rdtype).eps ** 0.5 * float(torch.linalg.norm(b_r))
+        if not (last <= 2 * first or last <= floor):
+            import warnings
+
+            warnings.warn(
+                f"classic refinement diverged: ||b - A x|| went from {first:.3e} to "
+                f"{last:.3e} over {sweeps} sweeps; the factor is too coarse for this "
+                "matrix's condition (a factor at precision 'highest', or GMRES-IR)",
+                RuntimeWarning, stacklevel=3)
     return x
 
 
@@ -595,11 +613,11 @@ def _gmres_ops(geom, mesh, rdtype: torch.dtype):
 
 def solve_distributed(A, b, *, grid=None, v: int = 1024, mesh=None, refine: int = 0,
                       factor_dtype=None, residual_dtype=torch.float64,
-                      panel_chunk: int | None = None, segs: tuple = (16, 16),
-                      tree: str = "pairwise", ir: str = "classic", tol: float = 1e-6,
-                      restart: int = 16, max_restarts: int = 12,
-                      backend: str | None = None, panel_algo: str | None = None,
-                      device=None):
+                      panel_chunk: int | None = None, precision=None,
+                      segs: tuple = (16, 16), tree: str = "pairwise",
+                      ir: str = "classic", tol: float = 1e-6, restart: int = 16,
+                      max_restarts: int = 12, backend: str | None = None,
+                      panel_algo: str | None = None, device=None):
     """Factor + solve + iterative refinement on a process grid, every rank
     together: the at-scale solve path. Each rank takes its shard of A (the
     (N, N) original, on every rank), the factorization and the triangular
@@ -611,7 +629,16 @@ def solve_distributed(A, b, *, grid=None, v: int = 1024, mesh=None, refine: int 
     `tol`/`restart`/`max_restarts`; `refine` is ignored there), which
     converges where classic refinement diverges (cond(A) eps_factor ~ 1).
     `factor_dtype` (bfloat16: the HPL-MxP fast factor), `panel_chunk`,
-    `segs`, `tree`, `backend` and `panel_algo` reach the factorization.
+    `precision`, `segs`, `tree`, `backend` and `panel_algo` reach the
+    factorization; the residuals and the sweeps stay IEEE, with float64
+    residuals. `precision="high"` on backend "xla" runs the factor's
+    library products as one TF32 pass on the card (unit roundoff 2^-11),
+    and such a factor is no HPL-MxP factor on a matrix like bench.py's
+    (randn + 2 I): on an H100 at N=16384 three classic sweeps diverged to
+    ||A x - b|| / ||b|| = 4.981e3 and GMRES-IR stalled at 0.889, where the
+    HIGHEST factor reached 1.023e-8 (chip_smoke.py phase 41). Classic
+    refinement that leaves the residual above the unrefined solve's warns
+    (RuntimeWarning), as a GMRES-IR stall does.
     `grid` defaults to `choose_grid` over the world's ranks, `mesh` to
     `make_mesh(grid, device=device)`. Returns x (N,) in the residual
     dtype, identical on every rank."""
@@ -644,7 +671,7 @@ def solve_distributed(A, b, *, grid=None, v: int = 1024, mesh=None, refine: int 
     fdtype = A.dtype if factor_dtype is None else factor_dtype
     cdtype = blas.compute_dtype(A.dtype)
     shard = _scatter_local(A, geom, mesh, fdtype)
-    out, perm = lu_factor_distributed(shard, geom, mesh, backend=backend,
+    out, perm = lu_factor_distributed(shard, geom, mesh, precision, backend,
                                       panel_algo=panel_algo, panel_chunk=panel_chunk,
                                       donate=True, segs=segs, tree=tree)
     b = torch.as_tensor(b).to(mesh.device)

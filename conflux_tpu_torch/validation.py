@@ -309,12 +309,40 @@ def qr_residual_distributed(A_shard: torch.Tensor, Q_shard: torch.Tensor,
     return rec, float(torch.sqrt(oss) / np.sqrt(geom.N))
 
 
-def residual_bound(n: int, dtype) -> float:
-    """Acceptance threshold: c * sqrt(n) * eps, with headroom for pivot growth."""
+# TensorFloat-32 keeps 10 explicit mantissa bits: machine epsilon 2^-10,
+# unit roundoff 2^-11 (float32: 2^-23 and 2^-24)
+TF32_EPS = 2.0 ** -10
+# The TF32 factor bar's constant. The float32 bar's 100 would put the bar
+# above 1 for n > 105, where a factor with no trailing update at all
+# passes, so this one comes from readings (chip_smoke.py phase 41 on an
+# H100, the grid LU of randn + 2 I at HIGH): sound factors read 0.67,
+# 1.13 and 1.70 sqrt(n) TF32_EPS at n = 8192, 16384 and 32768 (0.0589,
+# 0.141, 0.2997); at n = 32768 a factor whose TF32 products were skipped
+# reads 31.6 and one whose operands were rounded to bfloat16 2.52. The
+# bar 4 sqrt(n) TF32_EPS (0.707 at n = 32768) lies between; it reaches 1
+# at n = 65536, where no bar below 1 is left.
+TF32_BOUND_C = 4.0
+
+
+def residual_bound(n: int, dtype, *, precision=None) -> float:
+    """Acceptance threshold: c * sqrt(n) * eps, with headroom for pivot
+    growth (c = 100). A float32 or complex64 factor whose library products
+    ran at `precision` DEFAULT or HIGH (one TF32 pass on the card) is held
+    to c = :data:`TF32_BOUND_C` with TF32's eps (:data:`TF32_EPS`), a bar
+    below 1; past n = 65535 there is none and this raises ValueError."""
     if isinstance(dtype, torch.dtype):
         eps = torch.finfo(dtype).eps
     else:
         eps = float(np.finfo(dtype).eps)
+    if precision is not None and eps == float(np.finfo(np.float32).eps):
+        from conflux_tpu_torch.ops import blas
+
+        if blas.resolve_precision(precision) is not blas.Precision.HIGHEST:
+            bar = TF32_BOUND_C * np.sqrt(n) * TF32_EPS
+            if bar >= 1.0:
+                raise ValueError(f"no TF32 residual bar below 1 at n={n} (the bar "
+                                 f"{TF32_BOUND_C} sqrt(n) 2^-10 reaches 1 at n=65536)")
+            return bar
     return 100.0 * np.sqrt(n) * eps
 
 

@@ -15,6 +15,7 @@ from conflux_tpu_torch import batched as tbatched
 from conflux_tpu_torch.ops import batched_factor as tbf
 from conflux_tpu_torch.ops import blas as tblas
 from conflux_tpu_torch.ops import hopper_kernels
+from torch_registry_guard import registry_guard  # noqa: F401
 
 
 def _gen(rng, b, n, dtype):

@@ -1665,3 +1665,180 @@ def test_serve_engine_under_lockcheck_on_the_card(cuda):
     assert rep["violations"] == [] and rep["acquisitions"] > 0, rep
     for x, b in zip(xs, bs):
         assert float(np.abs(A.astype(np.float64) @ x - b).max()) < 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# matmul precision: the TF32 library product
+# --------------------------------------------------------------------------- #
+
+
+def _tf32_operands(cuda, M=1024, K=512, N=768):
+    g = torch.Generator(device="cpu").manual_seed(16)
+    return (torch.randn(M, K, generator=g).to(cuda), torch.randn(K, N, generator=g).to(cuda))
+
+
+def test_tf32_product_error_lies_between_ieee_and_the_tf32_bar(cuda):
+    """HIGH on backend "xla" is one TF32 pass: its error against a float64
+    product is at least 10x the IEEE product's and within the TF32 bar
+    (unit roundoff 2^-11 times sqrt(K) of the largest entry, a loose
+    bound on the sum of K rounded products)."""
+    from conflux_tpu_torch.ops import blas
+
+    a, b = _tf32_operands(cuda)
+    ref = a.double() @ b.double()
+    scale = float(ref.abs().max())
+    calls = blas.TF32_CALLS
+    tf = blas.gemm(a, b, None, 1.0, 1.0, "high", "xla")
+    ie = blas.gemm(a, b, None, 1.0, 1.0, "highest", "xla")
+    assert blas.TF32_CALLS == calls + 1
+    err_tf = float((tf.double() - ref).abs().max()) / scale
+    err_ie = float((ie.double() - ref).abs().max()) / scale
+    assert 10 * err_ie <= err_tf <= 2 ** -11 * a.shape[1] ** 0.5
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_highest_library_product_is_bitwise_torch_matmul_with_tf32_off(cuda):
+    from conflux_tpu_torch.ops import blas
+
+    a, b = _tf32_operands(cuda)
+    assert torch.equal(blas.gemm(a, b, None, 1.0, 1.0, "highest", "xla"), a @ b)
+    c = torch.randn(a.shape[0], b.shape[1], device=cuda)
+    want = torch.addmm(c, a, b, beta=0.5, alpha=-1.0)
+    blas.gemm(a, b, c, -1.0, 0.5, None, "xla", out=c)
+    assert torch.equal(c, want)
+
+
+def test_tf32_product_batched_in_place_complex_and_broadcast(cuda):
+    from conflux_tpu_torch.ops import blas
+
+    g = torch.Generator(device="cpu").manual_seed(17)
+    A = torch.randn(3, 96, 64, generator=g).to(cuda)
+    B = torch.randn(64, 80, generator=g).to(cuda)
+    C = torch.randn(3, 96, 80, generator=g).to(cuda)
+    want = 0.5 * C.double() - (A.double() @ B.double())
+    got = C.clone()
+    blas.gemm(A, B, got, -1.0, 0.5, "default", "xla", out=got)
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 2 ** -9
+    Z = torch.randn(40, 24, dtype=torch.complex64, generator=g).to(cuda)
+    zw = (Z.mH.to(torch.complex128) @ Z.to(torch.complex128))
+    zg = blas.matmul(Z.mH, Z, "high")
+    assert zg.dtype == torch.complex64
+    assert float((zg.to(torch.complex128) - zw).abs().max() / zw.abs().max()) <= 2 ** -9
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_tf32_product_into_a_strided_block_of_a_larger_matrix(cuda, batched):
+    """The grid programs' trailing update on backend "xla" at HIGH: C -= A B
+    in place (alpha -1, beta 1) on a block of a larger matrix (ldc > N),
+    with A and B strided views too. The block is within the TF32 product
+    bar of a float64 product; every entry outside it is untouched."""
+    from conflux_tpu_torch.ops import blas
+    from conflux_tpu_torch.validation import TF32_EPS
+
+    g = torch.Generator(device="cpu").manual_seed(19)
+    lead = (3,) if batched else ()
+    M, K, N = 200, 96, 152
+    G = torch.randn(*lead, 512, 640, generator=g).to(cuda)
+    P = torch.randn(*lead, 384, 320, generator=g).to(cuda)
+    Q = torch.randn(256, 448, generator=g).to(cuda)
+    C = G[..., 64:64 + M, 128:128 + N]
+    A = P[..., 32:32 + M, 16:16 + K]
+    B = Q[40:40 + K, 8:8 + N]
+    assert C.stride(-2) == 640 > N and A.stride(-2) > K and B.stride(-2) > N
+    G0 = G.clone()
+    want = C.double() - A.double() @ B.double()
+    scale = float((A.double() @ B.double()).abs().max())
+    calls = blas.TF32_CALLS
+    got = blas.gemm(A, B, C, -1.0, 1.0, "high", "xla", out=C)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == C.data_ptr() and blas.TF32_CALLS == calls + 1
+    assert float((C.double() - want).abs().max()) / scale <= TF32_EPS * K ** 0.5
+    outside = torch.ones_like(G, dtype=torch.bool)
+    outside[..., 64:64 + M, 128:128 + N] = False
+    assert torch.equal(G[outside], G0[outside])
+
+
+def test_ieee_products_stay_bitwise_while_another_thread_runs_tf32(cuda):
+    """The TF32 choice is the call's own compute type: 200 IEEE products in
+    one thread stay bitwise while another thread runs TF32 products."""
+    import threading
+
+    from conflux_tpu_torch.ops import blas
+
+    a, b = _tf32_operands(cuda)
+    want = blas.gemm(a, b, None, 1.0, 1.0, "highest", "xla")
+    torch.cuda.synchronize()
+    bad = []
+
+    def ieee():
+        torch.cuda.set_device(a.device)
+        for i in range(200):
+            if not torch.equal(blas.gemm(a, b, None, 1.0, 1.0, "highest", "xla"), want):
+                bad.append(i)
+
+    def tf32():
+        torch.cuda.set_device(a.device)
+        for _ in range(200):
+            blas.gemm(a, b, None, 1.0, 1.0, "high", "xla")
+
+    ts = [threading.Thread(target=ieee), threading.Thread(target=tf32)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    torch.cuda.synchronize()
+    assert not bad
+
+
+@pytest.mark.parametrize("kind", ["lu", "chol"])
+def test_default_kernel_plan_is_bitwise_the_highest_plan(cuda, kind):
+    """K4/K5 and K3 take no precision: a kernel plan at DEFAULT factors and
+    solves bitwise the HIGHEST plan, through the same launches."""
+    from conflux_tpu_torch import serve
+
+    rng = np.random.default_rng(18)
+    B, N = 4, 256
+    M = (rng.standard_normal((B, N, N)) / np.sqrt(N) + 2 * np.eye(N)).astype(np.float32)
+    A = M @ M.transpose(0, 2, 1) + np.eye(N, dtype=np.float32) if kind == "chol" else M
+    b = rng.standard_normal((B, N)).astype(np.float32)
+    serve.clear_plans()
+    low = serve.FactorPlan.create((B, N, N), torch.float32, v=128, kind=kind,
+                                  precision="default")
+    high = serve.FactorPlan.create((B, N, N), torch.float32, v=128, kind=kind)
+    assert low is not high
+    hk.reset_launches()
+    x_low = low.factor(A).solve(b)
+    counts = dict(hk.LAUNCHES)
+    x_high = high.factor(A).solve(b)
+    assert torch.equal(x_low, x_high)
+    assert counts["btrsm"] == 1 and counts["batched_lu" if kind == "lu" else "batched_chol"] == 1
+
+
+def test_tuning_sweep_smallest_config_on_both_backends(cuda):
+    """`scripts/torch_tune.py` at its smallest config on each backend: one
+    record each, finite, the HIGHEST LU within residual_bound(N, f32) and
+    the TF32 one (HIGH on "xla") within the TF32 bar."""
+    import importlib.util
+    import os
+
+    from conflux_tpu_torch.ops import blas
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "torch_tune.py")
+    spec = importlib.util.spec_from_file_location("torch_tune", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    prev = blas.get_backend()
+    rows = []
+    try:
+        for backend in ("kernel", "xla"):
+            blas.set_backend(backend)
+            assert mod.main(["-N", "4096", "--reps", "1", "--configs",
+                             "highest:0:1024,high:0:1024"], rows) == 0
+    finally:
+        blas.set_backend(prev)
+    assert [(r["backend"], r["precision"]) for r in rows] == [
+        ("kernel", "highest"), ("kernel", "high"), ("xla", "highest"), ("xla", "high")]
+    assert all(np.isfinite(r["residual"]) and r["gflops"] > 0 for r in rows)
+    assert rows[0]["meets_f32_bar"] and rows[1]["meets_f32_bar"] and rows[2]["meets_f32_bar"]
+    assert all(r["meets_bar"] for r in rows)  # the TF32 factor within the TF32 bar

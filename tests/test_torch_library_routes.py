@@ -16,6 +16,7 @@ from conflux_tpu_torch.cholesky import cholesky_blocked
 from conflux_tpu_torch.lu import single as tsingle
 from conflux_tpu_torch.ops import blas as tblas
 from conflux_tpu_torch.validation import lu_residual, residual_bound
+from torch_registry_guard import registry_guard  # noqa: F401
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-4}
 
@@ -25,13 +26,14 @@ def library_route():
     """The port on the JAX package's default route, xla / auto, and back
     to kernel / kernel after."""
     jb, ja = jblas.get_backend(), jblas.get_panel_algo()
+    tb, ta = tblas.get_backend(), tblas.get_panel_algo()
     jblas.set_backend("xla")
     jblas.set_panel_algo("auto")
     tblas.set_backend("xla")
     tblas.set_panel_algo("auto")
     yield
-    tblas.set_backend("kernel")
-    tblas.set_panel_algo("kernel")
+    tblas.set_backend(tb)
+    tblas.set_panel_algo(ta)
     jblas.set_backend(jb)
     jblas.set_panel_algo(ja)
 

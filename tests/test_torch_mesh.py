@@ -255,11 +255,16 @@ def test_io_scatter_half_is_the_jax_packages(tmp_path):
 
 def test_autotune_table_starts_empty_and_loads_rules(tmp_path):
     autotune.reset_loaded_table()
+    # the one measured built-in rule: the grid LU on one H100, float32
     rec = autotune.recommended("lu", 32768, P=1, device_kind="nvidia h100 80gb hbm3")
+    assert rec.knobs["segs"] == (4, 4) and rec.knobs["v"] == 1024
+    assert rec.knobs["precision"] == "highest" and "torch_tune.py" in rec.provenance
+    rec = autotune.recommended("lu", 4096, P=1, device_kind="nvidia h100 80gb hbm3")
     assert rec.knobs["segs"] == (16, 16) and rec.knobs["v"] is None
     assert "no measurement" in rec.provenance
     table = tmp_path / "t.json"
-    table.write_text('[{"algo": "lu", "device": "h100", "P": 1, "knobs": '
+    table.write_text('[{"algo": "lu", "device": "h100", "P": 1, "dtype": "float32", '
+                     '"n_lo": 8192, "n_hi": 32768, "knobs": '
                      '{"v": 1024, "segs": [8, 8]}, "provenance": "a card run"}]')
     try:
         assert autotune.load_table(str(table)) == 1

@@ -33,6 +33,7 @@ from conflux_tpu import serve as jserve
 from conflux_tpu.ops import blas as jblas
 from conflux_tpu_torch import batched, profiler, qos, resilience, serve, tier
 from conflux_tpu_torch.batched import Sharded, batch_mesh
+from conflux_tpu_torch.parallel.mesh import lookup_mesh, mesh_cache_key
 from conflux_tpu_torch.engine import ServeEngine
 from conflux_tpu_torch.ops import blas as tblas
 from conflux_tpu_torch.resilience import (
@@ -44,6 +45,7 @@ from conflux_tpu_torch.resilience import (
     RhsNonFinite,
 )
 from conflux_tpu_torch.tier import ResidentSet
+from torch_registry_guard import registry_guard  # noqa: F401
 
 B, N, V = 8, 32, 16
 K = 2  # shards
@@ -94,17 +96,35 @@ def _sharded_on_mesh(x, mesh):
 
 @pytest.fixture
 def library_route():
-    ja = jblas.get_panel_algo()
+    ja, ta = jblas.get_panel_algo(), tblas.get_panel_algo()
     jblas.set_panel_algo("auto")
     tblas.set_panel_algo("auto")
     yield
-    tblas.set_panel_algo("kernel")
+    tblas.set_panel_algo(ta)
     jblas.set_panel_algo(ja)
 
 
 # --------------------------------------------------------------------- #
 # the mesh itself, and the one-shot batched entry points
 # --------------------------------------------------------------------- #
+
+
+def test_a_jax_mesh_record_keeps_its_devices_after_another_spelling():
+    """The registry keeps the first mesh of a key (the key reads an absent
+    index as 0), so a plan rebuilt from a JAX record takes the record's
+    own mesh: its cpu:0 whichever spelling this process keyed first. A
+    record of the port's names the mesh this process registered under the
+    key."""
+    first = batch_mesh(["cpu"])
+    key = mesh_cache_key(first)
+    serve.clear_plans()
+    spec = serve.FactorPlan.create((4, N, N), torch.float32, v=V).spec()
+    p = serve.plan_from_spec({**spec, "mesh": {"device_ids": [0]}}, device="cpu")
+    assert p.key.mesh_key == key and p.mesh.devices == (torch.device("cpu", 0),)
+    serve.clear_plans()
+    q = serve.plan_from_spec({**spec, "mesh": {"device_ids": [0], "platform": "cpu"}})
+    assert q.mesh is lookup_mesh(key)
+    serve.clear_plans()
 
 
 def test_batch_mesh_repeats_devices_and_keys_by_position():

@@ -114,6 +114,7 @@ def _port_files():
     yield os.path.join(REPO, "scripts", "torch_lu_profile.py")
     yield os.path.join(REPO, "scripts", "torch_ckpt_roundtrip.py")
     yield os.path.join(REPO, "scripts", "torch_soak.py")
+    yield os.path.join(REPO, "scripts", "torch_tune.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -125,12 +126,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     rel = {os.path.relpath(p, REPO) for p in files}
     # the JAX-free modules the port keeps its own copies of (conflint's
-    # among them), and the checkpoint round trip's and the soak's scripts,
-    # are walked like every other file
+    # among them), and the checkpoint round trip's, the soak's and the
+    # tuning sweep's scripts, are walked like every other file
     assert {"conflux_tpu_torch/tier.py", "conflux_tpu_torch/control.py",
             "conflux_tpu_torch/io.py", "conflux_tpu_torch/analysis/core.py",
             "conflux_tpu_torch/analysis/rules.py", "conflux_tpu_torch/analysis/lockcheck.py",
-            "scripts/torch_ckpt_roundtrip.py", "scripts/torch_soak.py"} <= rel
+            "scripts/torch_ckpt_roundtrip.py", "scripts/torch_soak.py",
+            "scripts/torch_tune.py"} <= rel
     bad = []
     for path in files:
         with open(path) as f:

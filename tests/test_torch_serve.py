@@ -4,6 +4,7 @@ plans are the counterpart of), on the same seeded numpy inputs; and the
 port's own contracts: bucket/pad bitwise invariance of the factor lane,
 `plan.factor` bitwise the coalesced bucket, programs built once."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 from conflux_tpu import serve as jserve
 from conflux_tpu.resilience import HealthPolicy
 from conflux_tpu_torch import serve
+from conflux_tpu_torch.ops import blas as tblas
 from conflux_tpu_torch.ops import hopper_kernels
 from conflux_tpu_torch.ops.batched_trsm import diag_block_inverses
 
@@ -55,14 +57,29 @@ def test_auto_resolves_to_blocked_and_explicit_substitutions_stay():
     {"kind": "qr", "mesh": object()}, {"mesh": object()},
     {"kind": "qr", "precision": "default"}, {"precision": "default"}])
 def test_unported_plans_raise(kw):
-    """Matmul precision other than 'highest' is still not ported. Mesh
-    plans are: a `mesh=` that is not a `batch_mesh` is a type error, and a
-    real mesh keeps the JAX package's refusals (QR plans, single-system
-    plans, a batch the shard count does not divide)."""
+    """A matmul precision other than the registry's is a plan of its own,
+    as in the JAX package: the key and the record keep the name as given,
+    and a kernel plan (K4/K5 and K3, which take no precision) factors and
+    solves bitwise the HIGHEST plan, within the serving tolerance of the
+    JAX plan at the same precision. Mesh plans: a `mesh=` that is not a
+    `batch_mesh` is a type error, and a real mesh keeps the JAX package's
+    refusals (QR plans, single-system plans, a batch the shard count does
+    not divide)."""
     serve.clear_plans()
     if "mesh" not in kw:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve.FactorPlan.create((N, N), torch.float32, v=V, **kw)
+        jp, tp = _plans(**kw)
+        base = serve.FactorPlan.create((N, N), torch.float32, v=V, kind=kw.get("kind"))
+        assert tp is not base and tp.key.precision == jp.key.precision == "default"
+        assert tp.spec()["precision"] == jserve.plan_spec(jp)["precision"] == "default"
+        assert serve.plan_from_spec(tp.spec()) is tp
+        rng = np.random.default_rng(41)
+        M = _gen(rng, 1)[0]
+        A = M @ M.T + np.eye(N, dtype=np.float32) if kw.get("kind") == "chol" else M
+        b = rng.standard_normal((N, 2)).astype(np.float32)
+        x = tp.factor(A, device="cpu").solve(b)
+        assert torch.equal(x, base.factor(A, device="cpu").solve(b))
+        xj = np.asarray(jp.factor(jnp.asarray(A)).solve(jnp.asarray(b)))
+        np.testing.assert_allclose(x.numpy(), xj, rtol=2e-4, atol=1e-5)
         return
     from conflux_tpu_torch.batched import batch_mesh
 
@@ -81,18 +98,26 @@ def test_unported_plans_raise(kw):
 
 
 def test_unported_session_features_raise():
-    """What the port still leaves out raises, naming it: a matmul
-    precision other than 'highest'. The precision ladder, the Woodbury
-    update, the codec, the bucket lifecycle and device moves are ported
+    """Every session feature is ported: the precision ladder, the Woodbury
+    update, the codec, the bucket lifecycle and device moves
     (`test_torch_precision.py`, `test_torch_update.py`,
-    `test_torch_stacked.py`), and so are mesh plans: a plan record naming
-    a mesh round-trips to the same plan."""
+    `test_torch_stacked.py`), matmul precision (a JAX record naming
+    DEFAULT decodes to the port's plan at DEFAULT) and mesh plans: a plan
+    record naming a mesh round-trips to the same plan. A malformed
+    precision payload still raises, naming it."""
     from conflux_tpu_torch.batched import batch_mesh
 
     _jp, tp = _plans()
     d = tp.spec()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.plan_from_spec({**d, "precision": ["precision", "DEFAULT"]})
+    jd = jserve.plan_spec(jserve.FactorPlan.create((N, N), jnp.float32, v=V, backend="pallas",
+                                                   precision=jax.lax.Precision.DEFAULT))
+    assert jd["precision"] == ["precision", "DEFAULT"]
+    low = serve.plan_from_spec({**d, "precision": jd["precision"]})
+    assert low is not tp and low.key.precision is tblas.Precision.DEFAULT
+    assert low is serve.FactorPlan.create((N, N), torch.float32, v=V,
+                                          precision=tblas.Precision.DEFAULT)
+    with pytest.raises(ValueError, match="malformed"):
+        serve.plan_from_spec({**d, "precision": ["precision", "LOWEST"]})
     mp = serve.FactorPlan.create((4, N, N), torch.float32, v=V, mesh=batch_mesh(["cpu"]))
     md = mp.spec()
     assert md["mesh"] == {"device_ids": [0], "axis_names": ["b"], "device_shape": [1],

@@ -15,17 +15,18 @@ from conflux_tpu.resilience import HealthPolicy
 from conflux_tpu_torch import serve
 from conflux_tpu_torch.ops import blas as tblas
 from conflux_tpu_torch.ops import hopper_kernels
+from torch_registry_guard import registry_guard  # noqa: F401
 
 N, V = 64, 16
 
 
 @pytest.fixture
 def library_route():
-    ja = jblas.get_panel_algo()
+    ja, ta = jblas.get_panel_algo(), tblas.get_panel_algo()
     jblas.set_panel_algo("auto")
     tblas.set_panel_algo("auto")
     yield
-    tblas.set_panel_algo("kernel")
+    tblas.set_panel_algo(ta)
     jblas.set_panel_algo(ja)
 
 

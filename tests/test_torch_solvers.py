@@ -18,18 +18,20 @@ from conflux_tpu_torch import solvers as tsolvers
 from conflux_tpu_torch import validation as tval
 from conflux_tpu_torch.lu.single import lu_factor_blocked as tlu
 from conflux_tpu_torch.ops import blas as tblas
+from torch_registry_guard import registry_guard  # noqa: F401
 
 
 @pytest.fixture
 def library_route():
     jb, ja = jblas.get_backend(), jblas.get_panel_algo()
+    tb, ta = tblas.get_backend(), tblas.get_panel_algo()
     jblas.set_backend("xla")
     jblas.set_panel_algo("auto")
     tblas.set_backend("xla")
     tblas.set_panel_algo("auto")
     yield
-    tblas.set_backend("kernel")
-    tblas.set_panel_algo("kernel")
+    tblas.set_backend(tb)
+    tblas.set_panel_algo(ta)
     jblas.set_backend(jb)
     jblas.set_panel_algo(ja)
 

@@ -22,6 +22,7 @@ from conflux_tpu_torch.engine import ServeEngine
 from conflux_tpu_torch.ops import blas as tblas
 from conflux_tpu_torch.ops import hopper_kernels
 from conflux_tpu_torch.resilience import HealthPolicy, evaluate_slots
+from torch_registry_guard import registry_guard  # noqa: F401
 
 N, V, S, K = 32, 16, 4, 3
 # f32 parity bar of the stacked programs: the port and the JAX package sum
@@ -256,7 +257,7 @@ def test_plan_spec_matches_the_jax_codec(case):
     tblas.set_panel_algo(case["algo"])
     try:
         serve.clear_plans()
-        jp = jserve.FactorPlan.create(shape, jnp.dtype(case["dtype"]), precision="highest",
+        jp = jserve.FactorPlan.create(shape, jnp.dtype(case["dtype"]),
                                       factor_dtype=None if fd is None else jnp.dtype(fd), **kw)
         tp = serve.FactorPlan.create(shape, getattr(torch, case["dtype"]),
                                      factor_dtype=None if fd is None else getattr(torch, fd),
@@ -280,7 +281,7 @@ def test_plan_spec_of_the_kernel_route_matches_the_jax_pallas_plan(kind):
     try:
         serve.clear_plans()
         jp = jserve.FactorPlan.create((N, N), jnp.float32, v=V, kind=kind, refine=1,
-                                      precision="highest", backend="pallas")
+                                      backend="pallas")
     finally:
         jblas.set_panel_algo(jalgo)
     tp = serve.FactorPlan.create((N, N), torch.float32, v=V, kind=kind, refine=1)

@@ -23,6 +23,7 @@ from conflux_tpu_torch import serve
 from conflux_tpu_torch import solvers as tsolvers
 from conflux_tpu_torch import update as tupdate
 from conflux_tpu_torch.ops import blas as tblas
+from torch_registry_guard import registry_guard  # noqa: F401
 
 B, N, V, K = 4, 32, 16, 3
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -445,11 +446,12 @@ def library_panels():
     """The JAX package's default library route (backend "xla", panel algo
     "auto"): `solvers` factors at v=16, which the K2 kernel (128-wide
     blocks) does not take, and in float64, which K1 does not."""
+    tb, ta = tblas.get_backend(), tblas.get_panel_algo()
     tblas.set_backend("xla")
     tblas.set_panel_algo("auto")
     yield
-    tblas.set_backend("kernel")
-    tblas.set_panel_algo("kernel")
+    tblas.set_backend(tb)
+    tblas.set_panel_algo(ta)
 
 
 def test_solve_updated_matches_jax_and_pads(library_panels):
