@@ -292,7 +292,16 @@ Phases, each of which must pass or the script exits non-zero:
  42. the tuning sweep, `scripts/torch_tune.py`, at N=32768 --reps 1 on a
      short config list (the autotune rule's segs 4x4 beside the default),
      on backend "kernel" and on "xla", each config within its precision's
-     bar.
+     bar;
+ 43. the soaks, `scripts/torch_soak.py` in this process under lockcheck:
+     the configuration soak for 60 s (the grid LU, Cholesky and QR over
+     the reference's sampled grids, widths, dtypes and knobs, on threaded
+     worlds of staged ranks sharing the card), then --precision, --qos,
+     --adaptive, --gang, --fleet, --mesh and --scale for 10 s each: each
+     at least 1 trial, 0 failed, 0 lockcheck violations; K1 launched
+     under the configuration soak (its "kernel"-backend float32 and
+     bfloat16 draws), K3 and K4 under every serving mode (no mode opens
+     an SPD plan, so none needs K5); the draws per core and dtype.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round (phase 29 reads the counts
@@ -4762,6 +4771,64 @@ def phase_lockcheck_soaks() -> dict:
     return total
 
 
+SERVING_SOAKS = ("precision", "qos", "adaptive", "gang", "fleet", "mesh", "scale")
+
+
+def phase_soaks() -> dict:
+    """(43) `scripts/torch_soak.py` on the card, in this process, under
+    `analysis.lockcheck`: the configuration soak for a time budget of 60 s
+    (the grid programs on threaded worlds of grid.P ranks sharing the card
+    over transport "staged"), then each serving mode for 10 s. Each must
+    run at least one trial, fail none and read no lockcheck violation; the
+    configuration soak must launch K1 (its "kernel"-backend float32 and
+    bfloat16 draws), every serving mode K3 and K4. Prints trials, seconds,
+    launches and the configuration soak's draws per core and dtype.
+    Returns the launches."""
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    t_phase = time.perf_counter()
+    mod = _soak_module()
+    mod.ENGINE["device"] = "cuda"
+    mod.DRAWS.clear()
+    total: dict = {}
+    for mode, budget in (("config", 60.0),) + tuple((m, 10.0) for m in SERVING_SOAKS):
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        fails: list = []
+        out = mod.soak(mode, trials=100000, seed=0, time_budget=budget, lockcheck=True,
+                       emit=lambda m: fails.append(m) if m.startswith("FAIL") else None)
+        torch.cuda.synchronize()
+        counts = dict(hk.LAUNCHES)
+        _add_launches(total, counts)
+        rep = out["lockcheck"]
+        print(f"[soaks 43] torch_soak {'--' + mode if mode != 'config' else '(configurations)'}"
+              f" --lockcheck ({CARD}): {out['trials']} trials in {out['seconds']:.1f} s, "
+              f"{out['fails']} failed, {len(rep['violations'])} lockcheck violations "
+              f"({rep['locks']} locks, {rep['order_edges']} order edges); launches K1 "
+              f"{counts['gemm']}, K2 {counts['lu_block']}, K3 {counts['btrsm']}, K4 "
+              f"{counts['batched_lu']}, K5 {counts['batched_chol']}", flush=True)
+        for line in fails + [f"LOCKCHECK {v}" for v in rep["violations"]]:
+            print(f"[soaks 43]   {line}", flush=True)
+        check(out["trials"] >= 1 and out["fails"] == 0,
+              f"soaks 43 {mode}: {out['fails']} of {out['trials']} trials failed")
+        check(not rep["violations"], f"soaks 43 {mode}: {len(rep['violations'])} lockcheck "
+              "violations")
+        if mode == "config":
+            check(counts["gemm"] > 0, f"soaks 43: the configuration soak launched no K1: "
+                  f"{counts}")
+            draws: dict = {}
+            for (core, dtype, backend), n in sorted(mod.DRAWS.items()):
+                draws.setdefault(f"{core}/{dtype}", {})[backend] = n
+            print(f"[soaks 43]   draws per core/dtype (backend: trials): {draws}", flush=True)
+        else:
+            check(counts["btrsm"] > 0 and counts["batched_lu"] > 0,
+                  f"soaks 43 --{mode}: K3 and K4 must both launch: {counts}")
+    torch.cuda.empty_cache()
+    print(f"[soaks 43] phase {time.perf_counter() - t_phase:.1f} s, launches {total}",
+          flush=True)
+    return total
+
+
 def _add_launches(total: dict, counts: dict) -> None:
     for k, n in counts.items():
         total[k] = total.get(k, 0) + int(n)
@@ -5229,7 +5296,9 @@ def main() -> int:
     c40 = phase_lockcheck_soaks()
     c41 = phase_precision()
     c42 = phase_sweep()
-    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38, c39, c40, c41, c42)
+    c43 = phase_soaks()
+    late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38, c39, c40, c41, c42,
+            c43)
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"] + sum(c.get("gemm", 0) for c in late)
     k2["launches"] += cf["lu_block"] + cl["lu_block"] + sum(c.get("lu_block", 0) for c in late)
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]

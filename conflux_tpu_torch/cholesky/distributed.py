@@ -129,7 +129,9 @@ def _factor(geom: CholeskyGeometry, shard: torch.Tensor, mesh, backend: str, don
         with scope("computeA11"):
             LcsT = _ht(Lc[:, z_lo:z_hi]).to(dtype).contiguous()  # (nl, Nl - c1)
         kn = k + 1
-        slab = kn < k_end and y == kn % Py
+        # a piece of its own whether or not this run goes on to step k+1:
+        # a resumed factor is bitwise the one-shot one
+        slab = kn < geom.Kappa and y == kn % Py
         lj1 = (kn // Py) * v
         pieces = []
         for rlo, rhi in row_segs:

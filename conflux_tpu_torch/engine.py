@@ -492,18 +492,22 @@ class DeviceLane:
         recovery). The queues and carry survive; requests the trip failed
         are out of the engine's `_live` set, so a late re-dispatch of one
         resolves nothing. `exclude` is the dying thread (alive while it
-        runs its own post-mortem): it is replaced too."""
+        runs its own post-mortem): it is replaced too. A new thread is
+        published only once started: `close()` on another thread joins
+        whatever the lane holds, and joining an unstarted thread raises."""
         self._dead = None
         if (self._dispatcher is None or not self._dispatcher.is_alive()
                 or self._dispatcher is exclude):
-            self._dispatcher = threading.Thread(target=self._dispatch_loop,
-                                                name=self._tname("dispatch"), daemon=True)
-            self._dispatcher.start()
+            t = threading.Thread(target=self._dispatch_loop, name=self._tname("dispatch"),
+                                 daemon=True)
+            t.start()
+            self._dispatcher = t
         if (self._drainer is None or not self._drainer.is_alive()
                 or self._drainer is exclude):
-            self._drainer = threading.Thread(target=self._drain_loop,
-                                             name=self._tname("drain"), daemon=True)
-            self._drainer.start()
+            t = threading.Thread(target=self._drain_loop, name=self._tname("drain"),
+                                 daemon=True)
+            t.start()
+            self._drainer = t
         self.revives += 1
 
     # ------------------------------------------------------------------ #

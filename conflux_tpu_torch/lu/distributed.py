@@ -294,9 +294,11 @@ def _factor(prog: _Program, shard: torch.Tensor, mesh, orig, k0: int, k_end: int
         else:
             rcuts, cbounds = _cuts(r1, Ml, row_bounds), col_bounds
         # the next panel's column slab is a piece of its own, in the plain
-        # loop as under lookahead: both compute it in the same GEMMs
+        # loop as under lookahead, and in a run that stops before step k+1
+        # as in one that goes on: all compute it in the same GEMMs (a
+        # resumed factor is bitwise the one-shot one)
         kn = k + 1
-        slab = kn < k_end and y == kn % Py
+        slab = kn < geom.n_steps and y == kn % Py
         lj1 = (kn // Py) * v
         ccuts = _cuts(c1, Nl, list(cbounds) + ([lj1, lj1 + v] if slab else []))
         nxt = None

@@ -223,10 +223,14 @@ class Mesh:
 
     def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """(n, *t.shape): every rank's t along `axis`, stacked in
-        axis-coordinate order."""
+        axis-coordinate order. Complex tensors ride as their real and
+        imaginary parts."""
         pg = self._groups.get(_norm_axes(axis))
         if pg is None:
             return t[None].clone()
+        if t.is_complex():
+            return torch.view_as_complex(
+                self.all_gather(torch.view_as_real(t.resolve_conj()), axis))
         t = t.contiguous()
         n = self.size(axis)
         self._count(t)
@@ -244,7 +248,10 @@ class Mesh:
         pairs of `perm` (each coordinate a source once and a destination
         once at most) and return what this rank received: zeros of t's
         shape on a rank that receives nothing, as the JAX ppermute
-        fills."""
+        fills. Complex tensors ride as their real and imaginary parts."""
+        if t.is_complex():
+            return torch.view_as_complex(
+                self.ppermute(torch.view_as_real(t.resolve_conj()), axis, perm))
         perm = [(int(s), int(d)) for s, d in perm]
         c = self.coord(axis)
         srcs = [s for s, d in perm if d == c]

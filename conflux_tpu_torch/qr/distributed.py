@@ -75,13 +75,6 @@ from conflux_tpu_torch.profiler import scope
 from conflux_tpu_torch.qr.single import _positive_diag, _tree_r
 
 
-def _all_gather(mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
-    """`mesh.all_gather`, complex tensors riding as their real view."""
-    if t.is_complex():
-        return torch.view_as_complex(mesh.all_gather(torch.view_as_real(t), axis))
-    return mesh.all_gather(t, axis)
-
-
 def _two_pass_tsqr(mesh, A: torch.Tensor, Px: int, chunk: int, passes: int, prec,
                    tree: str = "gather"):
     """Replicated TSQR election: the local chunked tree, then the cross-x
@@ -99,22 +92,11 @@ def _two_pass_tsqr(mesh, A: torch.Tensor, Px: int, chunk: int, passes: int, prec
     for _ in range(max(1, passes)):
         Ri = _tree_r(A, chunk)
         if tree == "butterfly":
-            cplx = Ri.is_complex()
-
-            def reduce_pair(top, bot):
-                stack = torch.cat([top[0], bot[0]])
-                if cplx:
-                    return (torch.view_as_real(
-                        _tree_r(torch.view_as_complex(stack), chunk)).contiguous(),)
-                return (_tree_r(stack, chunk),)
-
             (Ri,) = butterfly_allreduce(
-                mesh, (torch.view_as_real(Ri).contiguous() if cplx else Ri,), Px, AXIS_X,
-                reduce_pair)
-            if cplx:
-                Ri = torch.view_as_complex(Ri)
+                mesh, (Ri,), Px, AXIS_X,
+                lambda top, bot: (_tree_r(torch.cat([top[0], bot[0]]), chunk),))
         elif Px > 1:
-            Ri = _tree_r(_all_gather(mesh, Ri, AXIS_X).reshape(Px * n, n), chunk)
+            Ri = _tree_r(mesh.all_gather(Ri, AXIS_X).reshape(Px * n, n), chunk)
         A = blas.trsm_right_upper(Ri, A)
         R = Ri if R is None else blas.matmul(Ri, R, prec)
     return _positive_diag(A, R)
@@ -212,7 +194,7 @@ def qr_distributed_host(A: np.ndarray, Px: int, mesh=None, algo: str = "tsqr",
         Qs, R = tsqr_distributed(shards, mesh, chunk=chunk, passes=passes)
     else:
         Qs, R = cholesky_qr2_distributed(shards, mesh, passes=passes)
-    Q = _all_gather(mesh, Qs, AXIS_X).cpu().numpy().reshape(Px * Ml, n)[:M]
+    Q = mesh.all_gather(Qs, AXIS_X).cpu().numpy().reshape(Px * Ml, n)[:M]
     return Q, R.cpu().numpy()
 
 
@@ -329,9 +311,9 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
         Qps = Qp[:, z_lo:z_hi].to(dtype).contiguous()  # (Ml, nl)
         Cs = C[z_lo:z_hi].to(dtype)  # (nl, Nl)
         kn = k + 1
-        slab = kn < k_end and y == kn % Py
+        slab = kn < geom.Nt and y == kn % Py
         lj1 = (kn // Py) * v
-        cuts = _update_pieces(geom, prog.csegs, y, k, k_end)
+        cuts = _update_pieces(geom, prog.csegs, y, k)
 
         def run(pieces):
             for ca, cb in pieces:
@@ -385,15 +367,17 @@ def _factor_full(prog: _Program, shard: torch.Tensor, rshard, mesh, k0: int, k_e
     return mesh.psum(Aloc, "z"), mesh.psum(Rloc, "z")
 
 
-def _update_pieces(geom: LUGeometry, csegs: int, y: int, k: int, k_end: int) -> list:
+def _update_pieces(geom: LUGeometry, csegs: int, y: int, k: int) -> list:
     """The (start, stop) local column pieces of step k's trailing update on
     y-rank y: its live columns cut at the `csegs` segment bounds and around
     the next panel's column slab, which is a piece of its own in the plain
-    loop as under lookahead (both compute it in the same GEMM)."""
+    loop as under lookahead, and in a run that stops before panel k+1 as in
+    one that goes on (all compute it in the same GEMM, so a resumed factor
+    is bitwise the one-shot one)."""
     v, Py = geom.v, geom.grid.Py
     bounds = [lo for lo, _ in ragged_segments(geom.Ntl, v, csegs)]
     kn = k + 1
-    if kn < k_end and y == kn % Py:
+    if kn < geom.Nt and y == kn % Py:
         lj1 = (kn // Py) * v
         bounds += [lj1, lj1 + v]
     return _cuts(min(first_local_tile(kn, y, Py) * v, geom.Nl), geom.Nl, bounds)
@@ -406,7 +390,7 @@ def gemm_launches(geom: LUGeometry, csegs: int = 8, k0: int = 0,
     rank whose z-slab of the panel is not empty."""
     k1 = geom.Nt if k1 is None else k1
     layers = sum(1 for z in range(geom.grid.Pz) if z * geom.nlayr < geom.v)
-    return geom.grid.Px * layers * sum(len(_update_pieces(geom, csegs, y, k, k1))
+    return geom.grid.Px * layers * sum(len(_update_pieces(geom, csegs, y, k))
                                        for k in range(k0, k1) for y in range(geom.grid.Py))
 
 

@@ -1842,3 +1842,80 @@ def test_tuning_sweep_smallest_config_on_both_backends(cuda):
     assert all(np.isfinite(r["residual"]) and r["gflops"] > 0 for r in rows)
     assert rows[0]["meets_f32_bar"] and rows[1]["meets_f32_bar"] and rows[2]["meets_f32_bar"]
     assert all(r["meets_bar"] for r in rows)  # the TF32 factor within the TF32 bar
+
+
+# --------------------------------------------------------------------------- #
+# complex grids and the soaks (`scripts/torch_soak.py`) on the card
+# --------------------------------------------------------------------------- #
+
+
+def test_complex64_grid_lu_over_staged_ranks(cuda):
+    """A complex64 LU on a threaded 2x2x1 world sharing cuda:0 over "staged"
+    (the collectives carry complex tensors as their real and imaginary
+    parts): the pivots of the same code on the CPU, factors within the
+    float32 bar of each other, the residual within it."""
+    from conflux_tpu_torch.geometry import Grid3
+    from conflux_tpu_torch.lu.distributed import lu_distributed_host
+    from conflux_tpu_torch.parallel.mesh import run_threaded
+    from conflux_tpu_torch.validation import lu_residual
+
+    N, v, grid = 64, 8, Grid3(2, 2, 1)
+    rng = np.random.default_rng(5)
+    A = (rng.uniform(-1, 1, (N, N)) + 1j * rng.uniform(-1, 1, (N, N))).astype(np.complex64)
+    A[np.arange(N), np.arange(N)] += 2.0 + 2.0j
+
+    def run(device, transport):
+        return run_threaded(grid, lambda mesh: lu_distributed_host(
+            A, grid, v, mesh=mesh, backend="xla", panel_algo="auto")[:2],
+            device=device, transport=transport, timeout=600.0)
+
+    got = run("cuda", "staged")
+    for LU, perm in got[1:]:
+        np.testing.assert_array_equal(LU, got[0][0])
+    LU, perm = got[0]
+    LUc, perm_c = run("cpu", "gloo")[0]
+    bar = residual_bound(N, np.float32)
+    assert LU.dtype == np.complex64
+    np.testing.assert_array_equal(perm, perm_c)
+    assert np.abs(LU - LUc).max() <= bar
+    assert lu_residual(A, LU[perm], perm) < bar
+
+
+def _soak_module():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "scripts",
+                        "torch_soak.py")
+    spec = importlib.util.spec_from_file_location("torch_soak_on_the_card", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.ENGINE["device"] = "cuda"
+    return mod
+
+
+@pytest.mark.parametrize("seed,core", [(114, "lu"), (7, "cholesky"), (176, "qr")])
+def test_configuration_soak_trial_on_the_card(cuda, seed, core):
+    """One configuration trial per core on threaded ranks sharing cuda:0
+    over "staged", each a float32 draw on backend "kernel": the trial's
+    oracles pass and its trailing updates launch K1."""
+    mod = _soak_module()
+    cfg = mod.config(seed)
+    assert cfg["core"] == core and cfg["backend"] == "kernel" and cfg["grid"] != (1, 1, 1)
+    before = hk.LAUNCHES["gemm"]
+    ok, msg = mod.run_trial(seed)
+    assert ok, msg
+    assert hk.LAUNCHES["gemm"] > before
+
+
+@pytest.mark.parametrize("mode", ["fleet", "mesh"])
+def test_serving_soak_trial_on_the_card(cuda, mode):
+    """One trial of `torch_soak.py --fleet` (several lanes of cuda:0, lane
+    kills) and of `--mesh` (batch-mesh shards of cuda:0 under the tier
+    fault sites): the trial's invariants hold, and K3 and K4 launch."""
+    mod = _soak_module()
+    before = dict(hk.LAUNCHES)
+    ok, msg = mod.TRIALS[mode](0)
+    assert ok, msg
+    assert hk.LAUNCHES["btrsm"] > before["btrsm"]
+    assert hk.LAUNCHES["batched_lu"] > before["batched_lu"]

@@ -251,6 +251,40 @@ def test_lane_thread_death_fails_only_its_lane_then_revives():
         eng.close(timeout=T)
 
 
+def test_revived_workers_are_published_only_once_started(monkeypatch):
+    """`close()` on another thread joins whatever threads a lane holds, and
+    joining a thread not yet started raises: a revival starts each new
+    worker before the lane holds it (a fleet soak trial, `scripts/
+    torch_soak.py --fleet`, closed an engine inside that window)."""
+    import threading
+
+    from conflux_tpu_torch import engine as tengine
+
+    eng = ServeEngine(max_batch_delay=0.0, lanes=2, device=CPU, watchdog_interval=60.0)
+    try:
+        lane = eng.lanes[0]
+        lane._inq.put(tengine._STOP)  # both workers end; a revival respawns them
+        lane._dispatcher.join(T)
+        lane._drainer.join(T)
+        held = []
+
+        class Probe(threading.Thread):
+            def start(self):
+                held.append(self is lane._dispatcher or self is lane._drainer)
+                super().start()
+
+        monkeypatch.setattr(tengine.threading, "Thread", Probe)
+        lane.revive()
+        monkeypatch.undo()
+        assert held == [False, False]
+        assert lane._dispatcher.is_alive() and lane._drainer.is_alive()
+        b = _rhs(43)
+        s = _plan().factor(_mk(33), device=CPU, sid=_sids_on(eng, 0)[0])
+        np.testing.assert_array_equal(eng.solve(s, b, timeout=T), s.solve(b).numpy())
+    finally:
+        assert eng.close(timeout=T) == []
+
+
 def test_lane_death_past_revive_budget_routes_around_it():
     """With no revival budget the dead lane is marked dead: its sessions
     are served by the first live lane, and the engine stays open."""
