@@ -301,7 +301,22 @@ Phases, each of which must pass or the script exits non-zero:
      at least 1 trial, 0 failed, 0 lockcheck violations; K1 launched
      under the configuration soak (its "kernel"-backend float32 and
      bfloat16 draws), K3 and K4 under every serving mode (no mode opens
-     an SPD plan, so none needs K5); the draws per core and dtype.
+     an SPD plan, so none needs K5); the draws per core and dtype;
+ 44. `scripts/torch_accuracy_demo.py`'s sweeps at N=16384, v=1024
+     (BASELINE.md's solve bar): float32 factors (the first K1 and K2 call
+     at each shape held against the plain versions) and bfloat16 factors,
+     refined to depths 0, 2 and 4 with float64 strip residuals; the
+     float32 residual at depth 4 <= 1e-6, A intact after each donated
+     factorization, K1 and K2 launched in both;
+ 45. `examples/torch_tour.py` on the card: its eight steps on threaded
+     worlds of staged ranks sharing cuda:0 (2x2x2, 4x1x1, 3x2x1), every bar
+     of the JAX tour, the first K1 and K2 call at each shape held, both
+     launched;
+ 46. `scripts/torch_replay.py --smoke` in this process: the control-plane
+     leg, 2000 sessions on two LocalHost engines at 5 device slots each
+     under a 10 s open-loop trace, and the chaos leg's host kill; every
+     reference smoke gate and invariant, the first K3 and K4 call at each
+     shape held, both launched.
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; K3 and the plan's factor kernel (K4 or K5) must both have
 launched in it, K3 once per blocked solve round (phase 29 reads the counts
@@ -3389,14 +3404,14 @@ def phase_controller() -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def _drill_module():
-    """`scripts/torch_fabric_drill.py` as a module: its fleet, traces and
-    helpers serve the in-process leg too."""
+def _script_module(relpath: str):
+    """A script of the checkout (`scripts/torch_*.py`, `examples/torch_*.py`)
+    as a module, named after its file: its functions serve the phases."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "torch_fabric_drill.py")
-    spec = importlib.util.spec_from_file_location("torch_fabric_drill", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3436,7 +3451,7 @@ def phase_fabric() -> dict:
     from conflux_tpu_torch.fabric import FabricPolicy
     from conflux_tpu_torch.ops import hopper_kernels as hk
 
-    drill = _drill_module()
+    drill = _script_module("scripts/torch_fabric_drill.py")
     t_phase = time.perf_counter()
     serve.clear_plans()
     sessions = drill.fleet("gpu", bigs=4)
@@ -4717,18 +4732,6 @@ def phase_phase_tables() -> dict:
     return total
 
 
-def _soak_module():
-    """`scripts/torch_soak.py` as a module (its trials and `soak`)."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "torch_soak.py")
-    spec = importlib.util.spec_from_file_location("torch_soak", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def phase_lockcheck_soaks() -> dict:
     """(40) `scripts/torch_soak.py --serve --lockcheck`, then `--tier
     --lockcheck`, on the card, in this process, each for a time budget of
@@ -4740,7 +4743,7 @@ def phase_lockcheck_soaks() -> dict:
     launch K3 and K4. Returns the launches."""
     from conflux_tpu_torch.ops import hopper_kernels as hk
 
-    mod = _soak_module()
+    mod = _script_module("scripts/torch_soak.py")
     mod.ENGINE["device"] = "cuda"
     total: dict = {}
     for mode in ("serve", "tier"):
@@ -4787,7 +4790,7 @@ def phase_soaks() -> dict:
     from conflux_tpu_torch.ops import hopper_kernels as hk
 
     t_phase = time.perf_counter()
-    mod = _soak_module()
+    mod = _script_module("scripts/torch_soak.py")
     mod.ENGINE["device"] = "cuda"
     mod.DRAWS.clear()
     total: dict = {}
@@ -5166,17 +5169,6 @@ def phase_precision() -> dict:
     return total
 
 
-def _tune_module():
-    """`scripts/torch_tune.py` as a module (its `main(argv, results)`)."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_tune.py")
-    spec = importlib.util.spec_from_file_location("torch_tune", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def phase_sweep() -> dict:
     """(42) The tuning sweep (`scripts/torch_tune.py`) on the card: LU at
     N=32768 on 1x1x1 with --reps 1 over a short config list (HIGHEST and
@@ -5190,7 +5182,7 @@ def phase_sweep() -> dict:
     from conflux_tpu_torch.ops import hopper_kernels as hk
 
     t_phase = time.perf_counter()
-    mod = _tune_module()
+    mod = _script_module("scripts/torch_tune.py")
     total: dict = {}
     prev = blas.get_backend()
     rows: list = []
@@ -5224,6 +5216,137 @@ def phase_sweep() -> dict:
     torch.cuda.empty_cache()
     print(f"[sweep 42] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return total
+
+
+# --------------------------------------------------------------------------- #
+# 44-46: the reference's user scripts on the card
+# --------------------------------------------------------------------------- #
+
+DEMO_BAR = 1e-6  # BASELINE.md's solve bar at N >= 16384, float32 factors
+
+
+def phase_accuracy_demo() -> dict:
+    """(44) `scripts/torch_accuracy_demo.py`'s sweeps at N=16384, v=1024 on
+    the card: randn + 2 I (a generator seeded 0), b = 1, float32 factors
+    then bfloat16 factors (in both, every first K1 and K2 call at each
+    shape held against the plain versions), each factored once and refined to
+    depths 0, 2 and 4 with float64 strip residuals. The float32 residual at
+    depth 4 must be <= 1e-6 (bfloat16 prints with no bar, as the
+    reference's), A must be intact after each donated factorization, and
+    K1 and K2 must launch in both runs. Returns the launches."""
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    t_phase = time.perf_counter()
+    mod = _script_module("scripts/torch_accuracy_demo.py")
+    N, v, depths = 16384, 1024, (0, 2, 4)
+    A = mod.make_matrix(N, "cuda")
+    A0 = A.clone()
+    b = torch.ones(N, device="cuda")
+    total: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        with _held_to_plain(f"demo 44 {name}"):
+            res = mod.accuracy_sweeps(A, b, v, depths, dtype, "cuda")
+        torch.cuda.synchronize()
+        counts = dict(hk.LAUNCHES)
+        _add_launches(total, counts)
+        print(f"[demo 44] torch_accuracy_demo N={N} v={v} factors={name} ({CARD}): "
+              + ", ".join(f"refine {d} {res['rel'][d]:.3e} ({res['seconds'][d]:.2f} s)"
+                          for d in depths)
+              + f"; launches K1 {counts['gemm']}, K2 {counts['lu_block']}", flush=True)
+        check(torch.equal(A, A0), f"demo 44 {name}: A changed by the donated factorization")
+        check(counts["gemm"] > 0 and counts["lu_block"] > 0,
+              f"demo 44 {name}: K1 and K2 must both launch: {counts}")
+        if dtype == torch.float32:
+            check(res["rel"][4] <= DEMO_BAR, f"demo 44: float32 factors reached "
+                  f"{res['rel'][4]:.3e} at refine 4, above {DEMO_BAR:g}")
+    del A, A0, b
+    torch.cuda.empty_cache()
+    print(f"[demo 44] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def phase_tour() -> dict:
+    """(45) `examples/torch_tour.py` on the card: the eight steps on
+    threaded worlds of 8 (2x2x2), 4 (4x1x1) and 6 (3x2x1) ranks sharing
+    cuda:0 over the "staged" transport, every bar of the JAX tour checked by
+    the tour itself (a miss raises), every first K1 and K2 call at each
+    shape held against the plain versions; K1 and K2 must launch. Returns
+    the launches."""
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    t_phase = time.perf_counter()
+    mod = _script_module("examples/torch_tour.py")
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    with _held_to_plain("tour 45"):
+        out = mod.main()
+    torch.cuda.synchronize()
+    counts = dict(hk.LAUNCHES)
+    keys = ("lu_residual", "solve_residual", "bf16_residual", "bf16_ir_residual",
+            "gmres_residual", "cholesky_residual", "hermitian_residual", "restart_residual",
+            "tsqr_orth", "cholesky_orth", "full_qr_rec", "lstsq_optimality",
+            "qr_lstsq_residual", "odd_residual")
+    print(f"[tour 45] torch_tour on the card ({CARD}): "
+          + ", ".join(f"{k} {out[k]:.3e}" for k in keys)
+          + f"; autotune v {out['autotune_v']}; launches K1 {counts['gemm']}, K2 "
+          f"{counts['lu_block']}, K3 {counts['btrsm']}, K4 {counts['batched_lu']}, K5 "
+          f"{counts['batched_chol']}", flush=True)
+    check(counts["gemm"] > 0 and counts["lu_block"] > 0,
+          f"tour 45: K1 and K2 must both launch: {counts}")
+    torch.cuda.empty_cache()
+    print(f"[tour 45] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def phase_replay() -> dict:
+    """(46) `scripts/torch_replay.py --smoke` on the card, in this process:
+    leg (a) on a 2000-session metadata fleet, leg (b) 2000 N=48 sessions on
+    two LocalHost engines of cuda:0 at 5 device slots each under a 10 s
+    open-loop trace, the checkpoint contrast and the oracle spot checks,
+    leg (c) 96 sessions on three hosts under the tier fault menu with a
+    host killed mid-traffic. Every reference smoke gate must pass (speedup
+    >= 1.5, attainment >= 90%, capacity >= 100x the device slots, no
+    invariant broken: high-water <= cap, 0 lost, census exact, sampled
+    survivors within the oracle), every first K3 and K4 call at each shape
+    held against the plain versions, and K3 and K4 must launch. Returns the
+    launches."""
+    from conflux_tpu_torch.ops import hopper_kernels as hk
+
+    t_phase = time.perf_counter()
+    mod = _script_module("scripts/torch_replay.py")
+    rec: dict = {}
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    with _held_to_plain("replay 46", ("btrsm", "batched_lu")):
+        rc = mod.main(["--smoke"], rec)
+    torch.cuda.synchronize()
+    counts = dict(hk.LAUNCHES)
+    cap, ch = rec["capacity_model"], rec["chaos"]
+    print(f"[replay 46] torch_replay --smoke ({CARD}): speedup {rec['value']}x (gate "
+          f"{rec['speedup_gate_x']}), attainment {rec['slo_attainment_pct']}% (gate "
+          f"{rec['attainment_gate_pct']}%) over {rec['trace']['requests']} requests "
+          f"({json.dumps(rec['trace']['by_class'])}), capacity {cap['capacity_ratio_x']}x "
+          f"(gate {cap['capacity_gate_x']}x), open {cap['open_s']} s, resident high-water "
+          f"{rec['memory']['resident_high_water']} of cap {rec['memory']['resident_cap']}, "
+          f"census {rec['census']}, oracle {rec['oracle']}, checkpoint "
+          f"{rec['checkpoint']}, churn {rec['churn']}, gang {rec['gang']}", flush=True)
+    print(f"[replay 46]   chaos: killed {ch['killed_host']}, recoveries {ch['recoveries']} "
+          f"(max {ch['recovery_s_max']:.3f} s), lost {ch['lost_sessions']}, census "
+          f"{ch['census']}, oracle {ch['oracle_sessions']} sessions {ch['oracle_failures']} "
+          f"failed, trace {ch['trace']}, faults {ch['faults_injected']}", flush=True)
+    print(f"[replay 46]   gates {rec['gates']}, violations {rec['violations']}; launches "
+          f"K3 {counts['btrsm']}, K4 {counts['batched_lu']}, K5 {counts['batched_chol']}",
+          flush=True)
+    check(rc == 0 and not rec["violations"],
+          f"replay 46: gates {rec['gates']}, violations {rec['violations']}")
+    check(counts["btrsm"] > 0 and counts["batched_lu"] > 0,
+          f"replay 46: K3 and K4 must both launch: {counts}")
+    torch.cuda.empty_cache()
+    print(f"[replay 46] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -5297,8 +5420,11 @@ def main() -> int:
     c41 = phase_precision()
     c42 = phase_sweep()
     c43 = phase_soaks()
+    c44 = phase_accuracy_demo()
+    c45 = phase_tour()
+    c46 = phase_replay()
     late = (c23, c28, c29, c30, c31, c32, c33, c34, c35, c36, c37, c38, c39, c40, c41, c42,
-            c43)
+            c43, c44, c45, c46)
     k1["launches"] += cm["gemm"] + cf["gemm"] + cl["gemm"] + sum(c.get("gemm", 0) for c in late)
     k2["launches"] += cf["lu_block"] + cl["lu_block"] + sum(c.get("lu_block", 0) for c in late)
     k3["launches"] = (ca["btrsm"] + cb["btrsm"] + cc["btrsm"] + cd["btrsm"] + ce["btrsm"]

@@ -29,8 +29,9 @@ from conflux_tpu_torch.analysis.rules import ALL_RULES
 
 
 def default_paths() -> list[str]:
-    """The port's tree: the package, `chip_smoke.py`, `scripts/torch_*.py`
-    and `tests/test_torch_*.py` of the checkout that holds this package."""
+    """The port's tree: the package, `chip_smoke.py`, `scripts/torch_*.py`,
+    `examples/torch_*.py` and `tests/test_torch_*.py` of the checkout that
+    holds this package."""
     import glob
     import os
 
@@ -39,7 +40,7 @@ def default_paths() -> list[str]:
     smoke = os.path.join(root, "chip_smoke.py")
     if os.path.isfile(smoke):
         paths.append(smoke)
-    for pattern in ("scripts/torch_*.py", "tests/test_torch_*.py"):
+    for pattern in ("scripts/torch_*.py", "examples/torch_*.py", "tests/test_torch_*.py"):
         paths.extend(sorted(glob.glob(os.path.join(root, pattern))))
     return paths
 

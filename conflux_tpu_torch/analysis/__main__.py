@@ -20,7 +20,7 @@ def main(argv=None) -> int:
                     "for the port's serve stack")
     ap.add_argument("paths", nargs="*",
                     help="files/dirs to scan (default: conflux_tpu_torch/, chip_smoke.py, "
-                    "scripts/torch_*.py and tests/test_torch_*.py)")
+                    "scripts/torch_*.py, examples/torch_*.py and tests/test_torch_*.py)")
     ap.add_argument("--json", metavar="PATH", default=None,
                     help="write the JSON report here")
     ap.add_argument("-q", "--quiet", action="store_true",

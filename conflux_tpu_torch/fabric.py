@@ -750,16 +750,10 @@ class LocalHost(HostHandle):
             lambda c: c.open(sid, spec, A, policy))
 
     def solve(self, sid, b, timeout: float | None = None, qos=None):
-        from conflux_tpu_torch.engine import EngineClosed
-
-        fut = self._alive_core().solve_async(sid, b, qos=qos)
-        try:
-            return fut.result(timeout)
-        except EngineClosed as e:
-            if self._killed.is_set():  # killed mid-flight
-                raise ConnectionError(
-                    f"host {self.host_id} died mid-solve") from e
-            raise
+        # admission is inside the op too: a request held at a checkpoint's
+        # drain barrier when the host dies fails transport-shaped
+        return self._engine_op(
+            lambda c: c.solve_async(sid, b, qos=qos).result(timeout))
 
     def update(self, sid, U, V, replace: bool = False,
                timeout: float | None = None):

@@ -426,6 +426,54 @@ def _replicated(x: torch.Tensor, mesh) -> torch.Tensor:
     return mesh.replicate(x.contiguous(), ("x", "y", "z"))
 
 
+def _lu_solver(shard: torch.Tensor, perm: torch.Tensor, geom, mesh):
+    """:func:`lu_solve_distributed` of one factorization as a function of
+    b, for the callers that solve against it more than once (refinement
+    sweeps, GMRES-IR). A solve reads each step's diagonal row tile twice,
+    forward and back. With Px == 1 a rank holds every step's rows: they
+    are views of its shard, and the (v, v) diagonal blocks, summed over y,
+    are taken once here (n v^2 elements beside the shard). With Px > 1 a
+    row tile is a sum over x, and holding all n of them would take Px times
+    the shard, so a solve gathers each one where it reads it."""
+    v, Px, Py, Nl, n = geom.v, geom.grid.Px, geom.grid.Py, geom.Nl, geom.n_steps
+    Aloc = shard.to(blas.compute_dtype(shard.dtype))  # z-replicated, pivoted order
+    if Px == 1:
+        tiles = []
+        for k in range(n):
+            rows, lj = Aloc[k * v:(k + 1) * v], (k // Py) * v
+            diag = rows[:, lj:lj + v].clone() if mesh.y == k % Py else Aloc.new_zeros((v, v))
+            tiles.append((rows, mesh.psum(diag, "y")))
+        tile = tiles.__getitem__
+    else:
+        def tile(k):
+            return _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
+    lc = torch.arange(Nl, device=mesh.device)
+    gcol = ((lc // v) * Py + mesh.y) * v + lc % v
+    pv = perm.to(mesh.device).long()
+
+    def solve(b) -> torch.Tensor:
+        b2, squeeze = _grid_rhs(b, mesh, Aloc.dtype)
+        bp = b2[pv]  # rhs in pivoted row order
+        yv = torch.zeros_like(bp)
+        for k in range(n):
+            rows, diag = tile(k)
+            s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
+            mesh.psum(s, "y")
+            yv[k * v:(k + 1) * v] = blas.trsm_left_lower_unit(blas.unit_lower(diag),
+                                                              bp[k * v:(k + 1) * v] - s)
+        xv = torch.zeros_like(bp)
+        for k in range(n - 1, -1, -1):
+            rows, diag = tile(k)
+            s = rows @ torch.where((gcol >= (k + 1) * v)[:, None], xv[gcol], 0)
+            mesh.psum(s, "y")
+            xv[k * v:(k + 1) * v] = blas.trsm_left_upper(torch.triu(diag),
+                                                         yv[k * v:(k + 1) * v] - s)
+        xv = _replicated(xv, mesh)
+        return xv[:, 0] if squeeze else xv
+
+    return solve
+
+
 def lu_solve_distributed(shard: torch.Tensor, perm: torch.Tensor, geom, mesh, b) -> torch.Tensor:
     """Solve A x = b on the grid from `lu_factor_distributed`'s outputs,
     every rank together (the reference has no distributed solve). The
@@ -438,29 +486,7 @@ def lu_solve_distributed(shard: torch.Tensor, perm: torch.Tensor, geom, mesh, b)
     if geom.M != geom.N:
         raise ValueError("distributed solve needs a square factorization")
     _check_solve_rhs(geom, torch.as_tensor(b))
-    v, Px, Py, Nl, n = geom.v, geom.grid.Px, geom.grid.Py, geom.Nl, geom.n_steps
-    dtype = blas.compute_dtype(shard.dtype)
-    Aloc = shard.to(dtype)  # z-replicated factors, pivoted order
-    b2, squeeze = _grid_rhs(b, mesh, dtype)
-    bp = b2[perm.to(mesh.device).long()]  # rhs in pivoted row order
-    lc = torch.arange(Nl, device=mesh.device)
-    gcol = ((lc // v) * Py + mesh.y) * v + lc % v
-    yv = torch.zeros_like(bp)
-    for k in range(n):
-        rows, diag = _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
-        s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
-        mesh.psum(s, "y")
-        yv[k * v:(k + 1) * v] = blas.trsm_left_lower_unit(blas.unit_lower(diag),
-                                                          bp[k * v:(k + 1) * v] - s)
-    xv = torch.zeros_like(bp)
-    for k in range(n - 1, -1, -1):
-        rows, diag = _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
-        s = rows @ torch.where((gcol >= (k + 1) * v)[:, None], xv[gcol], 0)
-        mesh.psum(s, "y")
-        xv[k * v:(k + 1) * v] = blas.trsm_left_upper(torch.triu(diag),
-                                                     yv[k * v:(k + 1) * v] - s)
-    xv = _replicated(xv, mesh)
-    return xv[:, 0] if squeeze else xv
+    return _lu_solver(shard, perm, geom, mesh)(b)
 
 
 def cholesky_solve_distributed(shard: torch.Tensor, geom, mesh, b) -> torch.Tensor:
@@ -598,15 +624,14 @@ def _matvec_strips(A: torch.Tensor, x: torch.Tensor, rdtype: torch.dtype) -> tor
     return torch.cat([A[i:i + strip].to(rdtype) @ xr for i in range(0, N, strip)])
 
 
-def _gmres_ops(geom, mesh, rdtype: torch.dtype):
+def _gmres_ops(rdtype: torch.dtype):
     """(matvec, precond) of GMRES-IR on the grid: the matrix and the
-    factors ride as fgmres's `args` (A, shard, perm)."""
-    def matvec(x, A, shard, perm):
+    factorization's grid solve (`_lu_solver`) ride as fgmres's `args`."""
+    def matvec(x, A, solve):
         return _matvec_strips(A, x, rdtype)
 
-    def precond(r, A, shard, perm):
-        return lu_solve_distributed(shard, perm, geom, mesh,
-                                    r.to(blas.compute_dtype(shard.dtype)))
+    def precond(r, A, solve):
+        return solve(r)
 
     return matvec, precond
 
@@ -675,9 +700,11 @@ def solve_distributed(A, b, *, grid=None, v: int = 1024, mesh=None, refine: int 
                                       panel_algo=panel_algo, panel_chunk=panel_chunk,
                                       donate=True, segs=segs, tree=tree)
     b = torch.as_tensor(b).to(mesh.device)
+    _check_solve_rhs(geom, b)
+    solve = _lu_solver(out, perm, geom, mesh)  # every solve below goes through it
     if ir == "gmres":
-        matvec, precond = _gmres_ops(geom, mesh, residual_dtype)
-        x, info = fgmres(matvec, precond, b.to(residual_dtype), args=(A, out, perm),
+        matvec, precond = _gmres_ops(residual_dtype)
+        x, info = fgmres(matvec, precond, b.to(residual_dtype), args=(A, solve),
                          tol=tol, restart=restart, max_restarts=max_restarts,
                          rdtype=residual_dtype)
         if info["residual"] > tol:
@@ -686,5 +713,4 @@ def solve_distributed(A, b, *, grid=None, v: int = 1024, mesh=None, refine: int 
                 f"after {info['restarts']} restarts; raise max_restarts/restart or "
                 "improve the factors", RuntimeWarning, stacklevel=2)
         return x
-    return refine_classic(lambda r: lu_solve_distributed(out, perm, geom, mesh, r),
-                          A, b, refine, residual_dtype, cdtype)
+    return refine_classic(solve, A, b, refine, residual_dtype, cdtype)

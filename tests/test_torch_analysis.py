@@ -518,8 +518,9 @@ def test_default_paths_are_the_port_and_the_cli_exits_on_a_finding(tmp_path, cap
     paths = [os.path.relpath(p, REPO) for p in analysis.default_paths()]
     assert paths[0] == "conflux_tpu_torch" and "chip_smoke.py" in paths
     assert all(p.startswith(("conflux_tpu_torch", "chip_smoke", "scripts/torch_",
-                             "tests/test_torch_")) for p in paths)
-    assert "tests/test_torch_analysis.py" in paths
+                             "examples/torch_", "tests/test_torch_")) for p in paths)
+    assert {"tests/test_torch_analysis.py", "examples/torch_tour.py",
+            "scripts/torch_replay.py", "scripts/torch_accuracy_demo.py"} <= set(paths)
     bad = tmp_path / "bad.py"
     bad.write_text("def worker():\n    try:\n        run()\n    except BaseException:\n"
                    "        pass\n")

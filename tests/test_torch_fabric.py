@@ -425,6 +425,41 @@ def test_host_kill_fault_site_drives_failover(tmp_path):
         assert resilience.health_stats()["host_failovers"] >= 1
 
 
+def test_kill_during_a_checkpoint_barrier_is_transport_shaped(tmp_path):
+    """A solve held at admission by a checkpoint's drain barrier when its
+    host is killed fails transport-shaped (ConnectionError at the host,
+    HostUnavailable at the front, retryable), never with the engine's own
+    EngineClosed (the replay harness's chaos leg on the card met three)."""
+    with _fab(tmp_path, n=1) as fab:
+        fab.open("cb-0", _plan(), _mk(40))
+        host = fab._hosts["h0"]
+        eng = host.core.eng
+        with eng._lock:
+            eng._draining = True  # a checkpoint holding its barrier
+        errors = []
+
+        def call(fn):
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — the error under test
+                errors.append(e)
+
+        threads = [threading.Thread(target=call, args=(fn,)) for fn in (
+            lambda: host.solve("cb-0", _rhs(40)),
+            lambda: fab.solve("cb-0", _rhs(40)))]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)  # both requests reach the barrier and wait there
+        assert all(t.is_alive() for t in threads)
+        host.kill()
+        for t in threads:
+            t.join(timeout=10.0)
+            assert not t.is_alive()
+    assert len(errors) == 2
+    kinds = sorted(type(e).__name__ for e in errors)
+    assert kinds == ["ConnectionError", "HostUnavailable"], errors
+
+
 # --------------------------------------------------------------------------- #
 # telemetry surfaces
 # --------------------------------------------------------------------------- #

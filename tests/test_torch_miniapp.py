@@ -3,6 +3,7 @@ tests/test_cli.py with `conflux_tpu_torch` as the implementation), and the
 port's package boundary: no JAX and nothing of the JAX package."""
 
 import ast
+import glob
 import os
 import re
 
@@ -111,10 +112,8 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "scripts", "torch_lu_profile.py")
-    yield os.path.join(REPO, "scripts", "torch_ckpt_roundtrip.py")
-    yield os.path.join(REPO, "scripts", "torch_soak.py")
-    yield os.path.join(REPO, "scripts", "torch_tune.py")
+    for pattern in ("scripts/torch_*.py", "examples/torch_*.py"):
+        yield from sorted(glob.glob(os.path.join(REPO, pattern)))
 
 
 def _forbidden(name: str) -> bool:
@@ -126,13 +125,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     rel = {os.path.relpath(p, REPO) for p in files}
     # the JAX-free modules the port keeps its own copies of (conflint's
-    # among them), and the checkpoint round trip's, the soak's and the
-    # tuning sweep's scripts, are walked like every other file
+    # among them), and every scripts/torch_*.py and examples/torch_*.py,
+    # are walked like every other file
     assert {"conflux_tpu_torch/tier.py", "conflux_tpu_torch/control.py",
             "conflux_tpu_torch/io.py", "conflux_tpu_torch/analysis/core.py",
             "conflux_tpu_torch/analysis/rules.py", "conflux_tpu_torch/analysis/lockcheck.py",
             "scripts/torch_ckpt_roundtrip.py", "scripts/torch_soak.py",
-            "scripts/torch_tune.py"} <= rel
+            "scripts/torch_tune.py", "scripts/torch_fabric_drill.py",
+            "scripts/torch_accuracy_demo.py", "scripts/torch_replay.py",
+            "examples/torch_tour.py"} <= rel
+    assert sum(p.startswith("scripts/torch_") for p in rel) >= 14
     bad = []
     for path in files:
         with open(path) as f:
