@@ -65,7 +65,7 @@ from conflux_tpu_torch.parallel.mesh import (
     gather_shards,
     make_mesh,
 )
-from conflux_tpu_torch.profiler import scope
+from conflux_tpu_torch.profiler import scope, sync
 
 _GRI_SENTINEL = int(np.iinfo(np.int32).max)
 
@@ -84,18 +84,27 @@ def _take_rows(src: torch.Tensor, idx: torch.Tensor, n: int, fill=0) -> torch.Te
 
 def _set_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
     """dst[idx] = vals, dropping the entries with idx >= dst's row count (the
-    JAX `mode="drop"` scatter), in place and with no host sync: a dropped
-    entry rewrites the first kept entry's row with that entry's value (or
-    row 0 with its own value when none is kept), so duplicate targets only
-    ever carry one value."""
+    JAX `mode="drop"` scatter), in place: a dropped entry rewrites the
+    first kept entry's row with that entry's value (or row 0 with its own
+    value when none is kept), so duplicate targets only ever carry one
+    value. It syncs with the host three times, each a `sync.set_rows`
+    region: indexing by the 0-d tensor `first` reads it on the host
+    (torch turns a 0-d integer index into `.item()`), twice for `idx`
+    and once for `vals`."""
     n = dst.shape[0]
     if n == 0:
         return
     valid = idx < n
     any_valid = valid.any()
     first = torch.argmax(valid.to(torch.int8))
-    fb_idx = torch.where(any_valid, idx[first], torch.zeros_like(idx[first]))
-    fb_val = torch.where(any_valid, vals[first], dst[0])
+    with sync("set_rows"):
+        fb_first = idx[first]
+    with sync("set_rows"):
+        fb_zero = torch.zeros_like(idx[first])
+    fb_idx = torch.where(any_valid, fb_first, fb_zero)
+    with sync("set_rows"):
+        fb_vals = vals[first]
+    fb_val = torch.where(any_valid, fb_vals, dst[0])
     mask = valid.view((-1,) + (1,) * (vals.dim() - 1))
     dst.index_copy_(0, torch.where(valid, idx, fb_idx), torch.where(mask, vals, fb_val))
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from conflux_tpu_torch.ops import hopper_kernels
+from conflux_tpu_torch.profiler import scope, sync
 
 # IEEE float32 unless a call asks for TF32 (`gemm` at DEFAULT or HIGH): these
 # switches are process-wide, so a product in another thread would follow them
@@ -391,7 +392,8 @@ def _nan_where_failed(L: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
     it."""
     n = L.shape[-1]
     lower = torch.ones((n, n), dtype=torch.bool, device=L.device).tril()
-    nan = torch.tensor(float("nan"), dtype=L.dtype, device=L.device)
+    with sync("potrf_nan"):  # a copy from pageable host memory waits for the card
+        nan = torch.tensor(float("nan"), dtype=L.dtype, device=L.device)
     failed = torch.where(lower, nan, torch.zeros((), dtype=L.dtype, device=L.device))
     return torch.where((info != 0)[..., None, None], failed, L)
 
@@ -677,30 +679,32 @@ def tournament_winners(panel: torch.Tensor, chunk: int | None = None,
                          "panel kernel; use_pallas=False runs the library LU")
     mp = nch * c
     dev = panel.device
-    if mp != m:
-        panel = torch.cat([panel, panel.new_zeros((mp - m, v))])
-    ids = torch.arange(mp, device=dev)
-    cand = panel.reshape(nch, c, v)
-    cid = ids.reshape(nch, c)
-    # the chunks are independent: one batched factorization for the round
-    if use_pallas:
-        lu_top, top = _panel_lu_winners(cand)  # (nch, v, v), (nch, v)
-    else:
-        if chunk_live is None:
-            lu_c, perm_c = _library_lu(cand)
+    with scope("tournament.chunks"):
+        if mp != m:
+            panel = torch.cat([panel, panel.new_zeros((mp - m, v))])
+        ids = torch.arange(mp, device=dev)
+        cand = panel.reshape(nch, c, v)
+        cid = ids.reshape(nch, c)
+        # the chunks are independent: one batched factorization for the round
+        if use_pallas:
+            lu_top, top = _panel_lu_winners(cand)  # (nch, v, v), (nch, v)
         else:
-            live = [bool(x) for x in torch.as_tensor(chunk_live).reshape(-1).tolist()]
-            if len(live) != nch:
-                raise ValueError(f"chunk_live has {len(live)} entries, the panel {nch} chunks")
-            lu_c = torch.zeros_like(cand)
-            perm_c = torch.arange(c, device=dev).expand(nch, c).clone()
-            idx = [i for i, ok in enumerate(live) if ok]
-            if idx:
-                lu_l, perm_l = _library_lu(cand[idx])
-                lu_c[idx], perm_c[idx] = lu_l, perm_l
-        lu_top, top = lu_c[:, :v], perm_c[:, :v]
-    win = torch.gather(cand, 1, top[:, :, None].expand(nch, v, v))
-    wid = torch.gather(cid, 1, top)
+            if chunk_live is None:
+                lu_c, perm_c = _library_lu(cand)
+            else:
+                live = [bool(x) for x in torch.as_tensor(chunk_live).reshape(-1).tolist()]
+                if len(live) != nch:
+                    raise ValueError(f"chunk_live has {len(live)} entries, the panel "
+                                     f"{nch} chunks")
+                lu_c = torch.zeros_like(cand)
+                perm_c = torch.arange(c, device=dev).expand(nch, c).clone()
+                idx = [i for i, ok in enumerate(live) if ok]
+                if idx:
+                    lu_l, perm_l = _library_lu(cand[idx])
+                    lu_c[idx], perm_c[idx] = lu_l, perm_l
+            lu_top, top = lu_c[:, :v], perm_c[:, :v]
+        win = torch.gather(cand, 1, top[:, :, None].expand(nch, v, v))
+        wid = torch.gather(cid, 1, top)
     return _elect_nominees(win, wid, lu_top, mp, use_pallas, tree)
 
 
@@ -739,22 +743,23 @@ def tournament_winners_live(panel_live: torch.Tensor, m: int, chunk: int | None 
     fl = r0 // c if n_live else nch  # chunks before fl end before row r0: dead
     dev = panel_live.device
     nl = nch - fl
-    win = panel_live.new_zeros((nch, v, v))
-    wid = (torch.arange(nch, device=dev)[:, None] * c
-           + torch.arange(v, device=dev)[None, :])  # dead chunks: identity order
-    lu_top = panel_live.new_zeros((nch, v, v))
-    if nl:
-        cand = panel_live.new_zeros((nl * c, v))
-        cand[r0 - fl * c:r0 - fl * c + n_live] = panel_live
-        cand = cand.reshape(nl, c, v)
-        if use_pallas:
-            lu_l, top = _panel_lu_winners(cand)
-        else:
-            lu_c, perm_c = _library_lu(cand)
-            lu_l, top = lu_c[:, :v], perm_c[:, :v]
-        lu_top[fl:] = lu_l
-        win[fl:] = torch.gather(cand, 1, top[:, :, None].expand(nl, v, v))
-        wid[fl:] = fl * c + torch.arange(nl, device=dev)[:, None] * c + top
+    with scope("tournament.chunks"):
+        win = panel_live.new_zeros((nch, v, v))
+        wid = (torch.arange(nch, device=dev)[:, None] * c
+               + torch.arange(v, device=dev)[None, :])  # dead chunks: identity order
+        lu_top = panel_live.new_zeros((nch, v, v))
+        if nl:
+            cand = panel_live.new_zeros((nl * c, v))
+            cand[r0 - fl * c:r0 - fl * c + n_live] = panel_live
+            cand = cand.reshape(nl, c, v)
+            if use_pallas:
+                lu_l, top = _panel_lu_winners(cand)
+            else:
+                lu_c, perm_c = _library_lu(cand)
+                lu_l, top = lu_c[:, :v], perm_c[:, :v]
+            lu_top[fl:] = lu_l
+            win[fl:] = torch.gather(cand, 1, top[:, :, None].expand(nl, v, v))
+            wid[fl:] = fl * c + torch.arange(nl, device=dev)[:, None] * c + top
     return _elect_nominees(win, wid, lu_top, mp, use_pallas, tree)
 
 
@@ -763,35 +768,36 @@ def _elect_nominees(win: torch.Tensor, wid: torch.Tensor, lu_top: torch.Tensor, 
     """The reduction of a tournament: (nch, v, v) nominee rows `win` with
     their ids `wid` and their chunks' packed LUs `lu_top` -> (lu00, gpiv).
     `mp` is the pad id of the tree's pad blocks."""
-    nch, v = win.shape[0], win.shape[-1]
-    if nch == 1:  # single chunk: its local LU already decided everything
+    with scope("tournament.tree"):
+        nch, v = win.shape[0], win.shape[-1]
+        if nch == 1:  # single chunk: its local LU already decided everything
+            return lu_top[0], wid[0]
+
+        if tree == "flat":
+            # one (nch v, v) LU elects straight from all the nominees
+            lu_f, perm_f = _library_lu(win.reshape(nch * v, v))
+            return lu_f[:v], wid.reshape(nch * v)[perm_f[:v]]
+
+        n = 1 << (nch - 1).bit_length()
+        if n != nch:
+            # pad blocks: zero rows with out-of-range ids, losing every contest
+            win = torch.cat([win, win.new_zeros((n - nch, v, v))])
+            wid = torch.cat([wid, wid.new_full((n - nch, v), mp)])
+
+        while n > 1:
+            stacked = win.reshape(n // 2, 2 * v, v)
+            sid = wid.reshape(n // 2, 2 * v)
+            # one batched call a round
+            if use_pallas:
+                lu_top, top = _panel_lu_winners(stacked)
+            else:
+                lu_r, perm_r = _library_lu(stacked)
+                lu_top, top = lu_r[:, :v], perm_r[:, :v]
+            win = torch.gather(stacked, 1, top[:, :, None].expand(n // 2, v, v))
+            wid = torch.gather(sid, 1, top)
+            n //= 2
+        # the final round's packed LU rows 0..v are the winners, factored
         return lu_top[0], wid[0]
-
-    if tree == "flat":
-        # one (nch v, v) LU elects straight from all the nominees
-        lu_f, perm_f = _library_lu(win.reshape(nch * v, v))
-        return lu_f[:v], wid.reshape(nch * v)[perm_f[:v]]
-
-    n = 1 << (nch - 1).bit_length()
-    if n != nch:
-        # pad blocks: zero rows with out-of-range ids, losing every contest
-        win = torch.cat([win, win.new_zeros((n - nch, v, v))])
-        wid = torch.cat([wid, wid.new_full((n - nch, v), mp)])
-
-    while n > 1:
-        stacked = win.reshape(n // 2, 2 * v, v)
-        sid = wid.reshape(n // 2, 2 * v)
-        # one batched call a round
-        if use_pallas:
-            lu_top, top = _panel_lu_winners(stacked)
-        else:
-            lu_r, perm_r = _library_lu(stacked)
-            lu_top, top = lu_r[:, :v], perm_r[:, :v]
-        win = torch.gather(stacked, 1, top[:, :, None].expand(n // 2, v, v))
-        wid = torch.gather(sid, 1, top)
-        n //= 2
-    # the final round's packed LU rows 0..v are the winners, factored
-    return lu_top[0], wid[0]
 
 
 def _winners_first(gpiv: torch.Tensor, m: int) -> torch.Tensor:
@@ -836,18 +842,19 @@ def _panel_lu_rows(panels: torch.Tensor):
         pivrows = piv[:, 0].long()  # (B, w) row ids in pivot order
         pivs.append(pivrows)
         if off + w < v:
-            rest = A[:, :, off + w:]
-            # a NaN column's pivots may leave [0, m): read and write such a
-            # row clamped (the JAX package clamps the reads and drops the
-            # writes; the values are NaN either way)
-            pr = pivrows.clamp(0, m - 1)
-            L00 = torch.gather(out, 1, pr[:, :, None].expand(B, w, w))
-            idx = pr[:, :, None].expand(B, w, v - off - w)
-            U01 = trsm_left_lower_unit(unit_lower(L00), torch.gather(rest, 1, idx))
-            # multipliers of still-live rows only (pivot rows contribute 0)
-            L10 = torch.where(alive_new != 0, out, 0.0)
-            rest -= torch.matmul(L10, U01)
-            rest.scatter_(1, idx, U01)
+            with scope("panel.between"):
+                rest = A[:, :, off + w:]
+                # a NaN column's pivots may leave [0, m): read and write such a
+                # row clamped (the JAX package clamps the reads and drops the
+                # writes; the values are NaN either way)
+                pr = pivrows.clamp(0, m - 1)
+                L00 = torch.gather(out, 1, pr[:, :, None].expand(B, w, w))
+                idx = pr[:, :, None].expand(B, w, v - off - w)
+                U01 = trsm_left_lower_unit(unit_lower(L00), torch.gather(rest, 1, idx))
+                # multipliers of still-live rows only (pivot rows contribute 0)
+                L10 = torch.where(alive_new != 0, out, 0.0)
+                rest -= torch.matmul(L10, U01)
+                rest.scatter_(1, idx, U01)
         alive = alive_new
     return A, torch.cat(pivs, 1)
 
@@ -858,8 +865,9 @@ def _panel_lu_winners(panels: torch.Tensor):
     pivot rows in pivot order, (B, v, v), and their rows, (B, v)."""
     A, gpiv = _panel_lu_rows(panels)
     B, m, v = panels.shape
-    top = _winners_first(gpiv, m)[:, :v]
-    return torch.gather(A, 1, top[:, :, None].expand(B, v, v)), top
+    with scope("panel.order"):
+        top = _winners_first(gpiv, m)[:, :v]
+        return torch.gather(A, 1, top[:, :, None].expand(B, v, v)), top
 
 
 def panel_lu_pallas_batched(panels: torch.Tensor):

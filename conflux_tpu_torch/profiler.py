@@ -6,7 +6,12 @@ of `conflux_tpu/profiler.py`).
 is its decorator form); `report()` prints a semiprof-style table sorted by
 total time; `clear()` resets. Region times are host clocks: a region that
 must include device work ends in a synchronize (the miniapp's timed
-regions do).
+regions do). `sync(site)` is the region `sync.<site>` around one host
+sync: a read of a device value on the host (an `.item()`, a `float()` of
+a tensor, an index by a 0-d tensor) or a copy from pageable host memory
+to the card. Each waits for every launch queued before it, so the
+`sync.*` rows of `report()` and `timings()` count a path's host syncs and
+the host time spent in them, and a trace shows each as a range.
 
 `compile_count()` counts what the port compiles: each build of the
 kernel library (`ops/_build.py`, nvcc). It is the instrument of the
@@ -112,6 +117,14 @@ def region(name: str):
     with _PROF_LOCK:
         _times[name] += dt
         _counts[name] += 1
+
+
+def sync(site: str):
+    """:func:`region` `sync.<site>` around one host sync (a read of a
+    device value, or a copy from pageable host memory): its count is the
+    number of such syncs, its time the host's wait for the card to drain
+    its queue plus the copy."""
+    return region(f"sync.{site}")
 
 
 def profiled(name: str):

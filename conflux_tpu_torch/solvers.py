@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from conflux_tpu_torch.ops import blas
+from conflux_tpu_torch.profiler import scope, sync
 
 
 def lu_solve(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -70,26 +71,36 @@ def refine_classic(solve_fn, A: torch.Tensor, b: torch.Tensor, sweeps: int,
     the last sweep, and a RuntimeWarning names a refinement that left
     ||b - A x|| above twice x0's and above sqrt(eps) ||b|| in `rdtype`
     (the factor's error times cond(A) is past 1; below that line the
-    residual is at its rounding floor)."""
-    b_r = b.to(rdtype)
-    x = solve_fn(b.to(corr_dtype)).to(rdtype)
-    first = None
-    for _ in range(sweeps):
-        r = _residual_strips(A, x, b_r, rdtype)
-        if first is None:
-            first = torch.linalg.norm(r)
-        x = x + solve_fn(r.to(corr_dtype)).to(rdtype)
-    if sweeps:
-        first, last = float(first), float(torch.linalg.norm(_residual_strips(A, x, b_r, rdtype)))
-        floor = torch.finfo(rdtype).eps ** 0.5 * float(torch.linalg.norm(b_r))
-        if not (last <= 2 * first or last <= floor):
-            import warnings
+    residual is at its rounding floor). That closing check reads three
+    norms on the host, each a `sync.refine_check` region."""
+    with scope("refine.classic"):
+        b_r = b.to(rdtype)
+        x = solve_fn(b.to(corr_dtype)).to(rdtype)
+        first = None
+        for _ in range(sweeps):
+            with scope("refine.residual"):
+                r = _residual_strips(A, x, b_r, rdtype)
+            if first is None:
+                first = torch.linalg.norm(r)
+            x = x + solve_fn(r.to(corr_dtype)).to(rdtype)
+        if sweeps:
+            with scope("refine.check"):
+                with sync("refine_check"):
+                    first = float(first)
+                with scope("refine.residual"):
+                    r = _residual_strips(A, x, b_r, rdtype)
+                with sync("refine_check"):
+                    last = float(torch.linalg.norm(r))
+                with sync("refine_check"):
+                    floor = torch.finfo(rdtype).eps ** 0.5 * float(torch.linalg.norm(b_r))
+            if not (last <= 2 * first or last <= floor):
+                import warnings
 
-            warnings.warn(
-                f"classic refinement diverged: ||b - A x|| went from {first:.3e} to "
-                f"{last:.3e} over {sweeps} sweeps; the factor is too coarse for this "
-                "matrix's condition (a factor at precision 'highest', or GMRES-IR)",
-                RuntimeWarning, stacklevel=3)
+                warnings.warn(
+                    f"classic refinement diverged: ||b - A x|| went from {first:.3e} to "
+                    f"{last:.3e} over {sweeps} sweeps; the factor is too coarse for this "
+                    "matrix's condition (a factor at precision 'highest', or GMRES-IR)",
+                    RuntimeWarning, stacklevel=3)
     return x
 
 
@@ -452,23 +463,25 @@ def _lu_solver(shard: torch.Tensor, perm: torch.Tensor, geom, mesh):
     pv = perm.to(mesh.device).long()
 
     def solve(b) -> torch.Tensor:
-        b2, squeeze = _grid_rhs(b, mesh, Aloc.dtype)
-        bp = b2[pv]  # rhs in pivoted row order
-        yv = torch.zeros_like(bp)
-        for k in range(n):
-            rows, diag = tile(k)
-            s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
-            mesh.psum(s, "y")
-            yv[k * v:(k + 1) * v] = blas.trsm_left_lower_unit(blas.unit_lower(diag),
-                                                              bp[k * v:(k + 1) * v] - s)
-        xv = torch.zeros_like(bp)
-        for k in range(n - 1, -1, -1):
-            rows, diag = tile(k)
-            s = rows @ torch.where((gcol >= (k + 1) * v)[:, None], xv[gcol], 0)
-            mesh.psum(s, "y")
-            xv[k * v:(k + 1) * v] = blas.trsm_left_upper(torch.triu(diag),
-                                                         yv[k * v:(k + 1) * v] - s)
-        xv = _replicated(xv, mesh)
+        with scope("solve.forward"):
+            b2, squeeze = _grid_rhs(b, mesh, Aloc.dtype)
+            bp = b2[pv]  # rhs in pivoted row order
+            yv = torch.zeros_like(bp)
+            for k in range(n):
+                rows, diag = tile(k)
+                s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
+                mesh.psum(s, "y")
+                yv[k * v:(k + 1) * v] = blas.trsm_left_lower_unit(blas.unit_lower(diag),
+                                                                  bp[k * v:(k + 1) * v] - s)
+        with scope("solve.backward"):
+            xv = torch.zeros_like(bp)
+            for k in range(n - 1, -1, -1):
+                rows, diag = tile(k)
+                s = rows @ torch.where((gcol >= (k + 1) * v)[:, None], xv[gcol], 0)
+                mesh.psum(s, "y")
+                xv[k * v:(k + 1) * v] = blas.trsm_left_upper(torch.triu(diag),
+                                                             yv[k * v:(k + 1) * v] - s)
+            xv = _replicated(xv, mesh)
         return xv[:, 0] if squeeze else xv
 
     return solve
@@ -505,29 +518,31 @@ def cholesky_solve_distributed(shard: torch.Tensor, geom, mesh, b) -> torch.Tens
     grow = ((lr // v) * Px + mesh.x) * v + lr % v
     lc = torch.arange(Nl, device=dev)
     gcol = ((lc // v) * Py + mesh.y) * v + lc % v
-    yv = torch.zeros_like(b2)
-    for k in range(n):
-        rows, diag = _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
-        s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
-        mesh.psum(s, "y")
-        yv[k * v:(k + 1) * v] = blas.trsm_left_lower(torch.tril(diag),
-                                                     b2[k * v:(k + 1) * v] - s)
-    xv = torch.zeros_like(b2)
-    for k in range(n - 1, -1, -1):
-        # column tile k of L: this rank's rows of those v columns
-        lj = (k // Py) * v
-        cols = (Aloc[:, lj:lj + v].clone(memory_format=torch.contiguous_format)
-                if mesh.y == k % Py else Aloc.new_zeros((Ml, v)))
-        mesh.psum(cols, "y")
-        ahead = torch.where((grow >= (k + 1) * v)[:, None], xv[grow], 0)
-        s = (cols.mH if cols.is_complex() else cols.mT) @ ahead
-        mesh.psum(s, "x")  # (v, nrhs)
-        ld = (k // Px) * v
-        diag = cols[ld:ld + v].clone() if mesh.x == k % Px else Aloc.new_zeros((v, v))
-        mesh.psum(diag, "x")
-        xv[k * v:(k + 1) * v] = blas.trsm_left_lower_t(torch.tril(diag),
-                                                       yv[k * v:(k + 1) * v] - s)
-    xv = _replicated(xv, mesh)
+    with scope("solve.forward"):
+        yv = torch.zeros_like(b2)
+        for k in range(n):
+            rows, diag = _diag_tile_rows(Aloc, k, mesh, v, Px, Py, Nl)
+            s = rows @ torch.where((gcol < k * v)[:, None], yv[gcol], 0)
+            mesh.psum(s, "y")
+            yv[k * v:(k + 1) * v] = blas.trsm_left_lower(torch.tril(diag),
+                                                         b2[k * v:(k + 1) * v] - s)
+    with scope("solve.backward"):
+        xv = torch.zeros_like(b2)
+        for k in range(n - 1, -1, -1):
+            # column tile k of L: this rank's rows of those v columns
+            lj = (k // Py) * v
+            cols = (Aloc[:, lj:lj + v].clone(memory_format=torch.contiguous_format)
+                    if mesh.y == k % Py else Aloc.new_zeros((Ml, v)))
+            mesh.psum(cols, "y")
+            ahead = torch.where((grow >= (k + 1) * v)[:, None], xv[grow], 0)
+            s = (cols.mH if cols.is_complex() else cols.mT) @ ahead
+            mesh.psum(s, "x")  # (v, nrhs)
+            ld = (k // Px) * v
+            diag = cols[ld:ld + v].clone() if mesh.x == k % Px else Aloc.new_zeros((v, v))
+            mesh.psum(diag, "x")
+            xv[k * v:(k + 1) * v] = blas.trsm_left_lower_t(torch.tril(diag),
+                                                           yv[k * v:(k + 1) * v] - s)
+        xv = _replicated(xv, mesh)
     return xv[:, 0] if squeeze else xv
 
 
@@ -611,8 +626,9 @@ def _scatter_local(A: torch.Tensor, geom, mesh, dtype) -> torch.Tensor:
     """This rank's (Ml, Nl) block-cyclic shard of an (M, N) matrix on the
     mesh's device, cast to `dtype` (the role of the JAX package's
     `_build_scatter`: no host round trip, no other rank's shard)."""
-    blk = geom.local_block(A.to(device=mesh.device), mesh.x, mesh.y)
-    return blk.to(dtype).clone(memory_format=torch.contiguous_format)
+    with scope("solve.scatter"):
+        blk = geom.local_block(A.to(device=mesh.device), mesh.x, mesh.y)
+        return blk.to(dtype).clone(memory_format=torch.contiguous_format)
 
 
 def _matvec_strips(A: torch.Tensor, x: torch.Tensor, rdtype: torch.dtype) -> torch.Tensor:
@@ -673,44 +689,45 @@ def solve_distributed(A, b, *, grid=None, v: int = 1024, mesh=None, refine: int 
     from conflux_tpu_torch.lu.distributed import lu_factor_distributed
     from conflux_tpu_torch.parallel.mesh import make_mesh
 
-    A = torch.as_tensor(A)
-    N = A.shape[0]
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError("solve_distributed needs a square A")
-    if ir not in ("classic", "gmres"):
-        # before the O(N^3) factorization: a typo fails in microseconds
-        raise ValueError(f"unknown ir {ir!r} (classic|gmres)")
-    if grid is None:
-        import torch.distributed as dist
+    with scope("solve.distributed"):
+        A = torch.as_tensor(A)
+        N = A.shape[0]
+        if A.dim() != 2 or A.shape[0] != A.shape[1]:
+            raise ValueError("solve_distributed needs a square A")
+        if ir not in ("classic", "gmres"):
+            # before the O(N^3) factorization: a typo fails in microseconds
+            raise ValueError(f"unknown ir {ir!r} (classic|gmres)")
+        if grid is None:
+            import torch.distributed as dist
 
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        grid = choose_grid(world, N, N)
-    geom = LUGeometry.create(N, N, v, grid)
-    if (geom.M, geom.N) != (N, N):
-        raise ValueError(
-            f"N={N} must be a multiple of v*Px and v*Py (got padding to "
-            f"{geom.M}x{geom.N}); pre-pad with an identity extension")
-    if mesh is None:
-        mesh = make_mesh(grid, device=device)
-    A = A.to(mesh.device)
-    fdtype = A.dtype if factor_dtype is None else factor_dtype
-    cdtype = blas.compute_dtype(A.dtype)
-    shard = _scatter_local(A, geom, mesh, fdtype)
-    out, perm = lu_factor_distributed(shard, geom, mesh, precision, backend,
-                                      panel_algo=panel_algo, panel_chunk=panel_chunk,
-                                      donate=True, segs=segs, tree=tree)
-    b = torch.as_tensor(b).to(mesh.device)
-    _check_solve_rhs(geom, b)
-    solve = _lu_solver(out, perm, geom, mesh)  # every solve below goes through it
-    if ir == "gmres":
-        matvec, precond = _gmres_ops(residual_dtype)
-        x, info = fgmres(matvec, precond, b.to(residual_dtype), args=(A, solve),
-                         tol=tol, restart=restart, max_restarts=max_restarts,
-                         rdtype=residual_dtype)
-        if info["residual"] > tol:
-            warnings.warn(
-                f"GMRES-IR stalled at residual {info['residual']:.3e} (> tol {tol:.1e}) "
-                f"after {info['restarts']} restarts; raise max_restarts/restart or "
-                "improve the factors", RuntimeWarning, stacklevel=2)
-        return x
-    return refine_classic(solve, A, b, refine, residual_dtype, cdtype)
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            grid = choose_grid(world, N, N)
+        geom = LUGeometry.create(N, N, v, grid)
+        if (geom.M, geom.N) != (N, N):
+            raise ValueError(
+                f"N={N} must be a multiple of v*Px and v*Py (got padding to "
+                f"{geom.M}x{geom.N}); pre-pad with an identity extension")
+        if mesh is None:
+            mesh = make_mesh(grid, device=device)
+        A = A.to(mesh.device)
+        fdtype = A.dtype if factor_dtype is None else factor_dtype
+        cdtype = blas.compute_dtype(A.dtype)
+        shard = _scatter_local(A, geom, mesh, fdtype)
+        out, perm = lu_factor_distributed(shard, geom, mesh, precision, backend,
+                                          panel_algo=panel_algo, panel_chunk=panel_chunk,
+                                          donate=True, segs=segs, tree=tree)
+        b = torch.as_tensor(b).to(mesh.device)
+        _check_solve_rhs(geom, b)
+        solve = _lu_solver(out, perm, geom, mesh)  # every solve below goes through it
+        if ir == "gmres":
+            matvec, precond = _gmres_ops(residual_dtype)
+            x, info = fgmres(matvec, precond, b.to(residual_dtype), args=(A, solve),
+                             tol=tol, restart=restart, max_restarts=max_restarts,
+                             rdtype=residual_dtype)
+            if info["residual"] > tol:
+                warnings.warn(
+                    f"GMRES-IR stalled at residual {info['residual']:.3e} (> tol {tol:.1e}) "
+                    f"after {info['restarts']} restarts; raise max_restarts/restart or "
+                    "improve the factors", RuntimeWarning, stacklevel=2)
+            return x
+        return refine_classic(solve, A, b, refine, residual_dtype, cdtype)
