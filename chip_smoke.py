@@ -13,11 +13,14 @@ Phases, each of which must pass or the script exits non-zero:
      the bound at that clock;
   4. K2 (`hopper_kernels.lu_block`) against its plain version at the main
      path's (4096, 128) and (2048, 128) blocks, all-live and partly dead,
-     and batched at (8, 4096, 128), (4, 2048, 128) and (12, 4096, 128) (two
-     cooperative waves): each slot bitwise a B=1 launch; on three (512,
-     128) blocks whose elections meet NaN (all zero, a NaN column 0, one
-     NaN in column 0), alone and in a batch; times at B=1 and the two
-     batches beside `torch.linalg.lu_factor` on the same batch;
+     and batched at (8, 4096, 128), (4, 2048, 128), (12, 4096, 128) (two
+     waves of clusters) and the N=32768 cell's (4, 8192, 128) chunks: each
+     slot bitwise a B=1 launch, each call's launches its route's; on three
+     (512, 128) blocks whose elections meet NaN (all zero, a NaN column 0,
+     one NaN in column 0), alone and in a batch; times at B=1, the two
+     batches and the cell's (4, 8192, 128), (2, 2048, 128) and (1, 2048,
+     128) beside `torch.linalg.lu_factor` on the same batch, each with its
+     route;
   5. the main path through the miniapp's `main(argv)`: N=32768 f32 v=1024
      with --validate, then N=8192 with --validate --refine 4, with each
      kernel's launches counted over each run: K2's must be the count
@@ -591,8 +594,8 @@ def _lu_block_flops(alive: torch.Tensor, w: int) -> float:
 
 def phase_k2(rec: dict) -> None:
     from conflux_tpu_torch.ops import hopper_kernels
-    from conflux_tpu_torch.ops.hopper_kernels import (_PANEL_W, lu_block, lu_block_plain,
-                                                      lu_block_wave_slots)
+    from conflux_tpu_torch.ops.hopper_kernels import (_PANEL_W, lu_block, lu_block_launch_count,
+                                                      lu_block_plain, lu_block_route)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     w = _PANEL_W
@@ -622,12 +625,12 @@ def phase_k2(rec: dict) -> None:
                   f"{close})", flush=True)
             check(same_piv and same_alive and close, f"K2 ({m}, {w}) dead={dead}")
 
-    # batches: each slot bitwise a B=1 launch on its block, in one wave and
-    # (12 slots of 16 CTAs on 132 SMs) in two
-    for B, m in ((8, 4096), (4, 2048), (12, 4096)):
+    # batches: each slot bitwise a B=1 launch on its block, on either route,
+    # in one wave and (12 slots of clusters of 16, 7 at once) in two
+    for B, m in ((8, 4096), (4, 2048), (12, 4096), (4, 8192)):
         blk = block(B, m)
         alive = (torch.rand((B, m, 1), generator=gen, device="cuda") >= 0.25).to(torch.int32)
-        waves = -(-B // lu_block_wave_slots(m, blk.device))
+        launches = lu_block_launch_count(m, B, blk.device)
         before = hopper_kernels.LAUNCHES["lu_block"]
         out, al, piv = lu_block(blk, alive)
         launched = hopper_kernels.LAUNCHES["lu_block"] - before
@@ -641,19 +644,20 @@ def phase_k2(rec: dict) -> None:
             plain_ok &= (torch.equal(piv[i], piv_p) and torch.equal(al[i], al_p)
                          and torch.allclose(out[i], out_p, rtol=K2_TOL, atol=K2_TOL))
         torch.cuda.synchronize()
-        print(f"[K2] batched ({B}, {m}, {w}) dead=0.25: {launched} cooperative launch(es) "
-              f"(waves {waves}); every slot bitwise a B=1 launch {alone}; slots 0 and {B - 1} "
-              f"against the plain version: pivots, alive equal and allclose {plain_ok}",
-              flush=True)
-        check(alone and plain_ok and launched == waves, f"K2 batched ({B}, {m})")
+        print(f"[K2] batched ({B}, {m}, {w}) dead=0.25: {launched} launch(es) on route "
+              f"{lu_block_route(m, B, blk.device)} (predicted {launches}); every slot bitwise "
+              f"a B=1 launch {alone}; slots 0 and {B - 1} against the plain version: pivots, "
+              f"alive equal and allclose {plain_ok}", flush=True)
+        check(alone and plain_ok and launched == launches, f"K2 batched ({B}, {m})")
     rec["max_abs_err"] = worst
     _k2_nan_blocks()
 
     # times at the main path's shapes: one block (a panel within 4096
     # rows), the 8 chunks of a tournament's first round, the 4 pairs of
-    # its first tree level; the library factors the same batch (cuSOLVER)
+    # its first tree level; the N=32768 cell's 8192-row chunks and its two
+    # 2048-row tree rounds; the library factors the same batch (cuSOLVER)
     lib_was = torch.backends.cuda.preferred_linalg_library()
-    for B, m in ((1, 4096), (8, 4096), (4, 2048)):
+    for B, m in ((1, 4096), (8, 4096), (4, 2048), (4, 8192), (2, 2048), (1, 2048)):
         blk = block(B, m)
         ones = torch.ones((B, m, 1), dtype=torch.int32, device="cuda")
         x, al = (blk[0], ones[0]) if B == 1 else (blk, ones)
@@ -663,9 +667,9 @@ def phase_k2(rec: dict) -> None:
         torch.backends.cuda.preferred_linalg_library(lib_was)
         r = {}
         _bound(r, B * _lu_block_flops(ones[0], w), B * 4.0 * (2 * m * w + 2 * m + w))
-        line = (f"[K2] times at ({B}, {m}, {w}): kernel {ms:.3f} ms ({ms / B * 1e3:.1f} us a "
-                f"slot), torch.linalg.lu_factor {lib:.3f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
-                f"({r['bound_by']})")
+        line = (f"[K2] times at ({B}, {m}, {w}) on {lu_block_route(m, B, x.device)}: kernel "
+                f"{ms:.3f} ms ({ms / B * 1e3:.1f} us a slot), torch.linalg.lu_factor {lib:.3f} "
+                f"ms, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
         if (B, m) == (8, 4096):  # the main path's largest launch goes in the kernels line
             plain = time_ms(lambda: lu_block_plain(x, al), 2)
             rec.update(ms=ms, plain_ms=plain, library_ms=lib, **r)
@@ -1783,7 +1787,7 @@ def phase_serve_f(k3: dict) -> dict:
     the bf16 factor, K3's bfloat16-T instance in every round)."""
     from conflux_tpu_torch import serve
     from conflux_tpu_torch.ops.hopper_kernels import (btrsm_pair, btrsm_pair_plain,
-                                                      lu_block_wave_slots)
+                                                      lu_block_launch_count)
 
     B, n, v, rounds = 32, 1024, 256, 16
     serve.clear_plans()
@@ -1801,13 +1805,12 @@ def phase_serve_f(k3: dict) -> dict:
 
     (s, xs), counts = _serve_counts(drive)
     # the code's own counts: K1 once per system and superstep with a
-    # trailing block; K2 per 128-wide column block of each panel, one
-    # launch per wave of the 32 slots; K3 once per substitution (the solve
-    # and each of its 2 sweeps)
+    # trailing block; K2 per 128-wide column block of each panel, as many
+    # launches as its route takes for the 32 slots; K3 once per substitution
+    # (the solve and each of its 2 sweeps)
     steps = n // v
     want = {"gemm": B * (steps - 1),
-            "lu_block": sum((v // 128) * -(-B // lu_block_wave_slots(n - k * v,
-                                                                     torch.device("cuda")))
+            "lu_block": sum((v // 128) * lu_block_launch_count(n - k * v, B, torch.device("cuda"))
                             for k in range(steps)),
             "btrsm": 3 * rounds}
     print(f"[serve f] plan {plan.key.shape} factor_dtype bfloat16 refine 2, v={v}: launches "
@@ -2150,7 +2153,7 @@ def phase_ladder() -> dict:
     session) and f64 (the library route, K3's float64-T instance), and
     'auto' with `resilience.escalate_precision` on cond-1e6 systems."""
     from conflux_tpu_torch import resilience, serve
-    from conflux_tpu_torch.ops.hopper_kernels import lu_block_wave_slots
+    from conflux_tpu_torch.ops.hopper_kernels import lu_block_launch_count
 
     B, n, v = 32, 1024, 256
     serve.clear_plans()
@@ -2171,7 +2174,7 @@ def phase_ladder() -> dict:
     native = counted("native factor", lambda: plan.factor(A),
                      {"batched_lu": 1, "gemm": 0, "lu_block": 0, "btrsm": 0})
     steps = n // v
-    k2 = sum((v // 128) * -(-B // lu_block_wave_slots(n - j * v, torch.device("cuda")))
+    k2 = sum((v // 128) * lu_block_launch_count(n - j * v, B, torch.device("cuda"))
              for j in range(steps))
     with _held_to_plain("ladder bf16_ir factor"):
         tiered = counted("factor(precision='bf16_ir')",

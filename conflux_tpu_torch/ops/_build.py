@@ -105,15 +105,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.conflux_gemm_tma.restype = i
     lib.conflux_lu_block.argtypes = [
         i, i, i, i,  # device, slots, m, w
+        i,  # cluster size (0: the grid route)
         p, i, ctypes.c_longlong, p,  # a, lda, slot stride of a, alive_in
         p, p, p,  # out, alive_out, piv
-        p, p,  # words, cand_rows (scratch)
+        p, p,  # words, cand_rows (the grid route's scratch, else NULL)
         p]  # stream
     lib.conflux_lu_block.restype = i
-    lib.conflux_lu_block_ctas.argtypes = [i]
-    lib.conflux_lu_block_ctas.restype = i
-    lib.conflux_lu_block_wave_slots.argtypes = [i, i]  # device, m
-    lib.conflux_lu_block_wave_slots.restype = i
+    lib.conflux_lu_block_resident.argtypes = [i, i]  # device, cluster size (0: grid CTAs)
+    lib.conflux_lu_block_resident.restype = i
     lib.conflux_btrsm.argtypes = [
         i, i, i,  # dtype code, device, batch
         i, i, i, i,  # n, nb, bs, k

@@ -899,16 +899,15 @@ def lu_block_launches(m: int, v: int, device: torch.device | None = None) -> int
     """K2 launches that one :func:`panel_lu` or :func:`panel_winners` of an
     (m, v) panel makes: v / 128 column blocks per batched factorization,
     one factorization for a panel within `_PALLAS_MAX_ROWS` rows, else one
-    per tournament round (the chunks, then log2 n tree levels), each a
-    launch per wave of slots that fit the card `device` together
-    (`hopper_kernels.lu_block_wave_slots`; one wave without a device)."""
+    per tournament round (the chunks, then log2 n tree levels), each as
+    many launches as its route on the card `device` takes
+    (`hopper_kernels.lu_block_launch_count`; one without a device)."""
     blocks = v // hopper_kernels._PANEL_W
 
     def calls(slots: int, rows: int) -> int:
         if device is None:
             return blocks
-        per = hopper_kernels.lu_block_wave_slots(rows, device)
-        return blocks * -(-slots // per)
+        return blocks * hopper_kernels.lu_block_launch_count(rows, slots, device)
 
     if m <= _PALLAS_MAX_ROWS:
         return calls(1, m)

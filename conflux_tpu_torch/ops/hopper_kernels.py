@@ -10,7 +10,8 @@ is CUDA C++ for sm_90a under `ops/csrc/`, built at first use by
   instance for the rest (`gemm_instance` says which);
 - `lu_block` (`csrc/lu_block.cu`) replaces `pallas_kernels._lu_block`: the
   masked panel elimination of one (m, 128) column block, or of a batch of
-  independent blocks in one cooperative launch;
+  independent blocks, on thread-block clusters that exchange each
+  column's pivot through distributed shared memory;
 - `btrsm` and `btrsm_pair` (`csrc/btrsm.cu`) replace
   `batched_trsm._pallas_btrsm`: the batched blocked triangular solve
   through diagonal-block inverses, one substitution or a whole solve round
@@ -43,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -50,9 +52,10 @@ _PANEL_W = 128  # column-block width of lu_block (one TPU lane tile)
 
 # launches per kernel since the last reset_launches(), counted where the
 # kernel is launched and nowhere else; "gemm" counts both instances of K1,
-# "gemm_tma" the TMA instance's share
-LAUNCHES = {"gemm": 0, "gemm_tma": 0, "lu_block": 0, "btrsm": 0, "batched_lu": 0,
-            "batched_chol": 0}
+# "gemm_tma" the TMA instance's share; "lu_block" both routes of K2,
+# "lu_block.cluster" and "lu_block.grid" each route's share
+LAUNCHES = {"gemm": 0, "gemm_tma": 0, "lu_block": 0, "lu_block.cluster": 0,
+            "lu_block.grid": 0, "btrsm": 0, "batched_lu": 0, "batched_chol": 0}
 # a dict item's += is a read, an add and a write: two threads launching at
 # once would lose a count without the lock
 _LAUNCH_LOCK = threading.Lock()
@@ -208,26 +211,71 @@ def lu_block_plain(a: torch.Tensor, alive: torch.Tensor):
     return A, alive_out, piv
 
 
-_WAVE_SLOTS: dict = {}  # (device index, m) -> slots one cooperative launch holds
+_K2_ROWS = 256  # rows a CTA of K2 holds (ROWS in csrc/lu_block.cu)
+_K2_MAX_CLUSTER = 16  # the largest (non-portable) cluster an H100 takes
 
 
-def lu_block_wave_slots(m: int, device: torch.device) -> int:
-    """Blocks of m rows that one cooperative K2 launch eliminates together
-    on the card `device` (its CTAs all resident at once): a batch of more
-    slots runs in several launches, one a wave. Raises where one block's
-    ceil(m / 256) CTAs do not fit the card (m > 33792 on an H100)."""
-    key = (device.index or 0, m)
-    if key not in _WAVE_SLOTS:
+class LuBlockRoute(NamedTuple):
+    """How one :func:`lu_block` call runs. `cluster` > 0: the cluster
+    route, each block one thread-block cluster of that many CTAs, which
+    exchange each column's pivot through distributed shared memory, and
+    one launch for the batch. `cluster` 0: the grid route, ceil(m / 256)
+    CTAs a block exchanging through L2, one cooperative launch a wave of
+    `slots` blocks resident together."""
+    cluster: int
+    slots: int
+
+
+def plan_lu_block(m: int, B: int, resident) -> LuBlockRoute:
+    """The route of K2 for B blocks of m rows, G = ceil(m / 256) CTAs a
+    block, from the card's occupancy: `resident(cs)` is the number of
+    clusters of cs CTAs of the cluster route (cs in 1..16) or, for cs = 0,
+    of CTAs of the grid route that the card holds at once.
+
+    The cluster route where a cluster of G fits (G <= 16; above 8 a
+    non-portable size) and its hardware waves, ceil(B / resident(G)), are
+    no more than the grid route's launches, ceil(B / (resident(0) // G)):
+    a wave takes the chain of 128 columns either way. Raises where no
+    route holds one block."""
+    g = -(-m // _K2_ROWS)
+    per = resident(0) // g
+    fits = g <= _K2_MAX_CLUSTER and resident(g) > 0
+    if fits and (per == 0 or -(-B // resident(g)) <= -(-B // per)):
+        return LuBlockRoute(g, 0)
+    if per == 0:
+        raise ValueError(f"lu_block: a block of {m} rows needs more CTAs than the card "
+                         "holds at once")
+    return LuBlockRoute(0, per)
+
+
+_RESIDENT: dict = {}  # (device index, cs) -> lu_block_resident
+
+
+def lu_block_resident(cs: int, device: torch.device) -> int:
+    """What the card `device` holds of K2 at once, from its occupancy API:
+    clusters of cs CTAs of the cluster route (cs in 1..16; 0 where such a
+    cluster does not fit), or, for cs = 0, CTAs of the grid route."""
+    key = (device.index or 0, cs)
+    if key not in _RESIDENT:
         from conflux_tpu_torch.ops import _build
 
-        n = _build.load().conflux_lu_block_wave_slots(key[0], m)
+        n = _build.load().conflux_lu_block_resident(key[0], cs)
         if n < 0:
             raise RuntimeError(f"lu_block occupancy query failed: cudaError {-n}")
-        if n == 0:
-            raise ValueError(f"lu_block: a block of {m} rows needs more CTAs than "
-                             "the card holds at once")
-        _WAVE_SLOTS[key] = n
-    return _WAVE_SLOTS[key]
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
+
+
+def lu_block_route(m: int, B: int, device: torch.device) -> LuBlockRoute:
+    """:func:`plan_lu_block` on the card `device` (blocks up to m = 33792
+    on an H100)."""
+    return plan_lu_block(m, B, lambda cs: lu_block_resident(cs, device))
+
+
+def lu_block_launch_count(m: int, B: int, device: torch.device) -> int:
+    """K2 launches of one :func:`lu_block` call on B blocks of m rows."""
+    route = lu_block_route(m, B, device)
+    return 1 if route.cluster else -(-B // route.slots)
 
 
 def lu_block(a: torch.Tensor, alive: torch.Tensor):
@@ -239,10 +287,12 @@ def lu_block(a: torch.Tensor, alive: torch.Tensor):
     alive_out, piv): `out` (m, 128) f32 holds U-row values at the pivot
     rows' original positions and L multipliers at the rows live before the
     call; `alive_out` (m, 1) int32; `piv` (1, 128) int32, the pivot row of
-    each elimination step; each with a leading B for a batch. A batch is
-    one cooperative launch per wave of slots that fit the card together
-    (:func:`lu_block_wave_slots`), and each slot's bits are those of a
-    call on that block alone.
+    each elimination step; each with a leading B for a batch. The call
+    runs on the route :func:`lu_block_route` gives: one launch where each
+    block is one thread-block cluster, else one cooperative launch a wave
+    of blocks resident together; each slot's bits are those of a call on
+    that block alone, on either route. `LAUNCHES` counts "lu_block" and
+    the route, "lu_block.cluster" or "lu_block.grid".
     """
     batched = a.dim() == 3
     if a.dim() not in (2, 3) or a.shape[-1] != _PANEL_W or a.dtype != torch.float32:
@@ -269,23 +319,27 @@ def lu_block(a: torch.Tensor, alive: torch.Tensor):
     alive_out = torch.empty((B, m, 1), dtype=torch.int32, device=dev)
     piv = torch.empty((B, 1, w), dtype=torch.int32, device=dev)
     if B and m:
-        g = lib.conflux_lu_block_ctas(m)
-        per = lu_block_wave_slots(m, dev)
-        # per slot, column and CTA: one (score, row) word, zero until
-        # published, and the candidate row; per column a flag raised where
-        # a NaN election publishes row m - 1; one memset for the whole batch
-        words = torch.zeros((B, w * g + w), dtype=torch.int64, device=dev)
-        cand = torch.empty((B, w * g * w), dtype=torch.float32, device=dev)
+        route = lu_block_route(m, B, dev)
+        per = route.slots or B
+        words = cand = None
+        if not route.cluster:
+            # per slot, column and CTA: one (score, row) word, zero until
+            # published, and the candidate row; per column a flag raised where
+            # a NaN election publishes row m - 1; one memset for the whole batch
+            g = -(-m // _K2_ROWS)
+            words = torch.zeros((B, w * g + w), dtype=torch.int64, device=dev)
+            cand = torch.empty((B, w * g * w), dtype=torch.float32, device=dev)
         for s0 in range(0, B, per):
             rc = lib.conflux_lu_block(
-                dev.index or 0, min(per, B - s0), m, w,
+                dev.index or 0, min(per, B - s0), m, w, route.cluster,
                 a3.data_ptr() + s0 * sa * a3.element_size(), lda, sa,
                 alive_in[s0].data_ptr(), out[s0].data_ptr(), alive_out[s0].data_ptr(),
-                piv[s0].data_ptr(), words[s0].data_ptr(), cand[s0].data_ptr(),
-                _stream(a))
+                piv[s0].data_ptr(), None if words is None else words[s0].data_ptr(),
+                None if cand is None else cand[s0].data_ptr(), _stream(a))
             if rc != 0:
                 raise RuntimeError(f"lu_block kernel launch failed: cudaError {rc}")
             _count_launch("lu_block")
+            _count_launch("lu_block.cluster" if route.cluster else "lu_block.grid")
     if not batched:
         return out[0], alive_out[0], piv[0]
     return out, alive_out, piv

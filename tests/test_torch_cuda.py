@@ -66,7 +66,9 @@ def test_gemm_kernel_rejects_float64(cuda):
         hk.gemm(x, x)
 
 
-@pytest.mark.parametrize("m", [192, 300, 2048, 4096])
+# the cluster route (192 ... 4096; 2304: a non-portable cluster of 9), the
+# grid route (4352, 8192, and 33792: the tallest block the card holds)
+@pytest.mark.parametrize("m", [192, 300, 2048, 2304, 4096, 4352, 8192, 33792])
 @pytest.mark.parametrize("dead", [0.0, 0.3])
 def test_lu_block_kernel_matches_plain(cuda, m, dead):
     a = _rand((m, 256), m, cuda)[:, 128:]  # a strided view, as the panel passes it
@@ -82,15 +84,19 @@ def test_lu_block_kernel_matches_plain(cuda, m, dead):
 
 def _nan_blocks(m=512):
     """(m, 128) blocks whose elections meet NaN scores: all zero (column 1
-    turns NaN after the first elimination), column 0 all NaN, and one NaN
-    in column 0 of a random block."""
+    turns NaN after the first elimination), column 0 all NaN, one NaN in
+    column 0 of a random block, and a NaN in column 3 after row m - 1 was
+    column 1's pivot (the NaN election reads row m - 1 as it stood when it
+    died, with the updates the kernel held back)."""
     rng = np.random.default_rng(61)
     zero = np.zeros((m, 128), np.float32)
     nan_col = rng.uniform(-1, 1, (m, 128)).astype(np.float32)
     nan_col[:, 0] = np.nan
     one_nan = rng.uniform(-1, 1, (m, 128)).astype(np.float32)
     one_nan[300, 0] = np.nan
-    return [zero, nan_col, one_nan]
+    late = rng.uniform(-1, 1, (m, 128)).astype(np.float32)
+    late[0, 0], late[m - 1, 1], late[5, 3] = 100.0, 1000.0, np.nan
+    return [zero, nan_col, one_nan, late]
 
 
 def _k2_equal(got, want):
@@ -104,15 +110,17 @@ def _k2_equal(got, want):
     return torch.allclose(out, out_p, rtol=1e-5, atol=1e-5, equal_nan=True)
 
 
-@pytest.mark.parametrize("case", ["all_zero", "nan_column", "one_nan"])
-def test_lu_block_nan_election_matches_plain(cuda, case):
+_NAN_CASES = ["all_zero", "nan_column", "one_nan", "pivot_then_nan"]
+
+
+@pytest.mark.parametrize("m", [512, 8192])  # the cluster route, the grid route
+@pytest.mark.parametrize("case", _NAN_CASES)
+def test_lu_block_nan_election_matches_plain(cuda, case, m):
     """A NaN score wins the election as in jnp.max: the step records m,
     reads row m - 1 as its pivot row and kills no row, as the plain
     version does; alone (B = 1) and as slot 2 of a batch of live random
     blocks, whose other slots keep their bits."""
-    m = 512
-    blk = torch.from_numpy(_nan_blocks(m)[["all_zero", "nan_column", "one_nan"].index(case)]
-                           ).to(cuda)
+    blk = torch.from_numpy(_nan_blocks(m)[_NAN_CASES.index(case)]).to(cuda)
     alive = torch.ones((m, 1), dtype=torch.int32, device=cuda)
     want = hk.lu_block_plain(blk, alive)
     got = hk.lu_block(blk, alive)
@@ -120,6 +128,8 @@ def test_lu_block_nan_election_matches_plain(cuda, case):
     piv = want[2][0]
     if case == "all_zero":
         assert int(piv[0]) == 0 and bool((piv[1:] == m).all())
+    elif case == "pivot_then_nan":
+        assert piv[:2].tolist() == [0, m - 1] and bool((piv[3:] == m).all())
     else:
         assert bool((piv == m).all())
     batch = _rand((4, m, 128), 62, cuda)
@@ -177,21 +187,24 @@ def test_gemm_unaligned_view_runs_simt_instance(cuda):
     assert float(torch.linalg.norm(c - want) / torch.linalg.norm(want)) <= 1e-5
 
 
-@pytest.mark.parametrize("B,m", [(8, 4096), (4, 2048), (12, 4096)])
+# the tournament's shapes: 8192-row chunks (the grid route) and 2048-row
+# tree rounds (the cluster route); 2304 (a cluster of 9) and 4352 (17 CTAs);
+# (8, 4096) fills one grid wave and (12, 4096) two waves of clusters of 16
+@pytest.mark.parametrize("B,m", [(8, 4096), (4, 2048), (12, 4096), (1, 2048), (2, 2048),
+                                 (4, 8192), (2, 2304), (2, 4352)])
 def test_lu_block_batched_slots_bitwise_alone(cuda, B, m):
     # each slot of a batched launch has the bits of a launch on that block
-    # alone; (12, 4096) needs two cooperative waves on an H100 (8 slots of
-    # 16 CTAs each fit its 132 SMs)
+    # alone, whatever the route and however many waves the batch takes
     a = _rand((B, m, 256), B * m, cuda)[:, :, 128:]  # strided, as the panel passes it
     a[:, ::8] += 2.0
     alive = torch.from_numpy(
         (np.random.default_rng(m).random((B, m, 1)) >= 0.25).astype(np.int32)).to(cuda)
-    per = hk.lu_block_wave_slots(m, cuda)
+    route = hk.lu_block_route(m, B, cuda)
     before = hk.LAUNCHES["lu_block"]
     out, al, piv = hk.lu_block(a, alive)
-    assert hk.LAUNCHES["lu_block"] == before + -(-B // per)
-    if B == 12:
-        assert per < B  # the case reaches a second wave
+    assert hk.LAUNCHES["lu_block"] == before + hk.lu_block_launch_count(m, B, cuda)
+    if B == 12:  # the case reaches a second wave of clusters
+        assert route.cluster and hk.lu_block_resident(route.cluster, cuda) < B
     assert out.shape == (B, m, 128) and al.shape == (B, m, 1) and piv.shape == (B, 1, 128)
     for i in range(B):
         o1, a1, p1 = hk.lu_block(a[i], alive[i])
@@ -200,6 +213,23 @@ def test_lu_block_batched_slots_bitwise_alone(cuda, B, m):
         o_p, a_p, p_p = hk.lu_block_plain(a[i], alive[i])
         assert torch.equal(piv[i], p_p) and torch.equal(al[i], a_p)
         torch.testing.assert_close(out[i], o_p, rtol=1e-5, atol=1e-5)
+
+
+def test_lu_block_counts_each_route(cuda):
+    """`LAUNCHES` counts a call's launches under its route, as
+    `lu_block_route` picks it: the cell's 2048-row tree rounds on the
+    cluster route, its 8192-row chunks on the grid route, one launch each;
+    the two route counts add up to "lu_block"."""
+    for B, m, route in ((1, 2048, "cluster"), (2, 2048, "cluster"), (4, 8192, "grid"),
+                        (8, 4096, "grid"), (1, 4096, "cluster")):
+        assert ("cluster" if hk.lu_block_route(m, B, cuda).cluster else "grid") == route
+        before = dict(hk.LAUNCHES)
+        hk.lu_block(_rand((B, m, 128), m, cuda), torch.ones((B, m, 1), dtype=torch.int32,
+                                                            device=cuda))
+        moved = {k: hk.LAUNCHES[k] - before[k] for k in ("lu_block", "lu_block.cluster",
+                                                         "lu_block.grid")}
+        assert moved == {"lu_block": 1, f"lu_block.{route}": 1,
+                         "lu_block." + ("grid" if route == "cluster" else "cluster"): 0}
 
 
 @pytest.mark.parametrize("nch", [3, 8])

@@ -116,3 +116,35 @@ def test_lu_block_launches_at_the_main_path():
     # supersteps' panels
     total = sum(tblas.lu_block_launches(32768 - 1024 * k, 1024) for k in range(32))
     assert total == 800
+
+
+# what an H100 80GB HBM3 holds of K2 at once (its occupancy API, read on
+# the card): CTAs of the grid route, clusters of 1..16 CTAs
+_H100 = {0: 132, 1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
+         **{cs: 7 for cs in range(10, 17)}}
+
+
+@pytest.mark.parametrize("B,m,want", [
+    (1, 256, (1, 0)),      # one CTA: a cluster of one
+    (2, 2048, (8, 0)),     # the tree rounds of the N=32768 cell
+    (1, 2048, (8, 0)),
+    (1, 2304, (9, 0)),     # a non-portable cluster
+    (1, 4096, (16, 0)),
+    (12, 4096, (16, 0)),   # two waves of clusters against two grid launches: the clusters
+    (8, 4096, (0, 8)),     # two waves of clusters against one grid launch
+    (16, 2048, (0, 16)),   # 15 clusters of 8 at once: two waves against one launch
+    (4, 8192, (0, 4)),     # the cell's chunks: 32 CTAs a block
+    (1, 4352, (0, 7)),     # 17 CTAs: past the largest cluster
+    (1, 33792, (0, 1)),    # the tallest block the card holds
+])
+def test_plan_lu_block_routes(B, m, want):
+    assert tuple(hopper_kernels.plan_lu_block(m, B, _H100.get)) == want
+
+
+def test_plan_lu_block_without_large_clusters():
+    # a card that takes no cluster of 16 sends a 4096-row block to the grid;
+    # a block of more CTAs than it holds raises
+    card = {**_H100, 16: 0}
+    assert tuple(hopper_kernels.plan_lu_block(4096, 1, card.get)) == (0, 8)
+    with pytest.raises(ValueError, match="more CTAs than the card holds"):
+        hopper_kernels.plan_lu_block(33793, 1, _H100.get)
